@@ -1,0 +1,18 @@
+"""repro_torch: the PyTorch + CUDA port of :mod:`repro`.
+
+A second package beside the JAX reference.  It keeps ``repro``'s layout and
+names, so each counterpart is easy to find, and never imports ``jax`` or
+anything of ``repro`` (it carries its own copies of the numpy-only modules).
+
+Ported so far: the paper's Fig. 2 main path -- sparse logistic regression
+with an L1 regularizer, run by Algorithm 1 (DProx) through a bare round
+engine -- with the fused local-update + L1-prox step as a hand-written CUDA
+kernel for Hopper (``kernels/csrc/fused_prox.cu``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no GPU present they raise instead of carrying on quietly on the CPU.
+"""
+from repro_torch.device import resolve_device
+
+__version__ = "0.1.0"
+__all__ = ["resolve_device"]

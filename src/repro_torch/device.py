@@ -1,0 +1,43 @@
+"""Device selection for the port's entry points."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another one.  A CUDA device without a usable GPU raises; the port
+    never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU explicitly")
+    return dev
+
+
+def device_of(tree) -> torch.device:
+    """The device of the first tensor leaf of ``tree``."""
+    from repro_torch.utils.tree import tree_leaves
+
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    raise ValueError("tree holds no tensor leaf")
+
+
+def to_device(tree, device):
+    """Every leaf of ``tree`` as a tensor on ``device``: tensors are moved,
+    numpy arrays (read-only broadcast views included) are copied over."""
+    from repro_torch.utils.tree import tree_map
+
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        arr = np.asarray(x)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    return tree_map(move, tree)

@@ -1,0 +1,160 @@
+"""Chunk-aware batch suppliers for the round engine.
+
+The counterpart of :mod:`repro.exec.suppliers` (without prefetch, which is
+not ported yet):
+
+  * :class:`BatchSupplier` -- ``sample_round(r, rng)`` plus
+    ``sample_chunk(start, n_rounds, rng)`` returning the whole chunk with a
+    leading rounds axis (default: per-round sampling + stack);
+  * :class:`CallableSupplier` -- adapter for a plain ``fn(round_idx, rng)``;
+  * :class:`ArraySupplier` -- vectorized i.i.d. minibatch sampling from
+    per-client example arrays.  With ``device_cache=True`` the arrays live on
+    the device and the gather happens there; full-batch rounds are served
+    as ``expand`` views of the cache, never copied.
+
+rng contract: :class:`ArraySupplier` derives a fresh generator per round from
+``(seed, round_idx)``, so trajectories do not depend on ``chunk_rounds``.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.utils import tree as tu
+
+Batch = Any
+
+
+def _stack_batches(per_round: list) -> Batch:
+    """Stack per-round batch pytrees along a new leading axis (tensor leaves
+    stay tensors on their device; numpy leaves stack on the host)."""
+
+    def stack(*xs):
+        if any(isinstance(x, torch.Tensor) for x in xs):
+            return torch.stack([torch.as_tensor(x) for x in xs])
+        return np.stack([np.asarray(x) for x in xs])
+
+    return tu.tree_map(stack, *per_round)
+
+
+class BatchSupplier:
+    """Protocol: per-round sampling plus an optional vectorized chunk path."""
+
+    def sample_round(self, round_idx: int, rng: np.random.Generator) -> Batch:
+        """One round's batches ``(n_clients, tau, ...)``."""
+        raise NotImplementedError
+
+    def sample_chunk(self, start_round: int, n_rounds: int,
+                     rng: np.random.Generator) -> Batch:
+        """Batches for ``n_rounds`` rounds, leaves gaining a leading rounds
+        axis.  Default: per-round sampling + stack."""
+        return _stack_batches([self.sample_round(start_round + i, rng)
+                               for i in range(n_rounds)])
+
+
+class CallableSupplier(BatchSupplier):
+    """Adapter giving a plain ``fn(round_idx, rng)`` the supplier surface."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def sample_round(self, round_idx, rng):
+        return self.fn(round_idx, rng)
+
+
+def as_supplier(supplier) -> BatchSupplier:
+    """Coerce a callable or BatchSupplier to the supplier protocol."""
+    if isinstance(supplier, BatchSupplier):
+        return supplier
+    if callable(supplier):
+        return CallableSupplier(supplier)
+    raise TypeError(f"not a batch supplier: {type(supplier).__name__}")
+
+
+def has_chunk_path(supplier: BatchSupplier) -> bool:
+    """Whether ``supplier`` overrides the default per-round ``sample_chunk``."""
+    return type(supplier).sample_chunk is not BatchSupplier.sample_chunk
+
+
+class ArraySupplier(BatchSupplier):
+    """Vectorized i.i.d. minibatch supplier over per-client example arrays.
+
+    ``arrays`` maps batch keys to arrays of shape ``(n_clients, n_examples,
+    ...)``; every round draws, per client and local step, ``batch_size``
+    examples with replacement.  ``batch_size=None`` is full-batch mode:
+    every local step sees all examples, through an ``expand`` view.
+
+    ``device_cache=True`` copies the arrays to ``device`` (``cuda`` unless
+    given) once, and every batch is gathered or viewed there.
+    """
+
+    def __init__(self, arrays: Mapping[str, np.ndarray], tau: int,
+                 batch_size: Optional[int], *, seed: int = 0,
+                 device_cache: bool = False, device=None):
+        arrays = dict(arrays)
+        if not arrays:
+            raise ValueError("ArraySupplier needs at least one array")
+        shapes = {k: tuple(v.shape[:2]) for k, v in arrays.items()}
+        if len(set(shapes.values())) != 1:
+            raise ValueError(f"arrays disagree on (n_clients, n_examples): "
+                             f"{shapes}")
+        self.n_clients, self.n_examples = next(iter(shapes.values()))
+        self.tau = tau
+        self.batch_size = batch_size
+        self.seed = seed
+        self.device_cache = device_cache
+        if device_cache:
+            dev = resolve_device(device)
+            self._arrays = {k: torch.as_tensor(v, device=dev)
+                            for k, v in arrays.items()}
+        else:
+            self._arrays = arrays
+
+    @classmethod
+    def from_dataset(cls, data, tau: int, batch_size: Optional[int], *,
+                     seed: int = 0, device_cache: bool = False, device=None):
+        """Supplier over a :class:`repro_torch.data.synthetic.FederatedDataset`
+        producing the engine's standard ``{"a": ..., "y": ...}`` batches."""
+        return cls({"a": data.features, "y": data.labels}, tau, batch_size,
+                   seed=seed, device_cache=device_cache, device=device)
+
+    def _round_idx(self, r: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, r))
+        return rng.integers(0, self.n_examples,
+                            size=(self.n_clients, self.tau, self.batch_size))
+
+    def _gather(self, idx: np.ndarray) -> Batch:
+        # idx: (..., clients, tau, b); result leaves (..., clients, tau, b,
+        # *example_shape) -- one fancy-gather per array
+        rows = np.arange(self.n_clients)
+        cidx = rows.reshape((1,) * (idx.ndim - 3) + (len(rows), 1, 1))
+        if self.device_cache:
+            dev = next(iter(self._arrays.values())).device
+            cidx = torch.as_tensor(cidx, device=dev)
+            idx = torch.as_tensor(idx, device=dev)
+        return {k: v[cidx, idx] for k, v in self._arrays.items()}
+
+    def _full_batch(self, lead: tuple) -> Batch:
+        def one(v):
+            shape = lead + (v.shape[0], self.tau) + tuple(v.shape[1:])
+            src = v[:, None] if not lead else v[None, :, None]
+            if isinstance(v, torch.Tensor):
+                return src.expand(shape)
+            return np.broadcast_to(src, shape)
+
+        return {k: one(v) for k, v in self._arrays.items()}
+
+    def sample_round(self, round_idx, rng=None):
+        if self.batch_size is None:
+            return self._full_batch(())
+        return self._gather(self._round_idx(round_idx))
+
+    def sample_chunk(self, start_round, n_rounds, rng=None):
+        if self.batch_size is None:
+            return self._full_batch((n_rounds,))
+        idx = np.stack([self._round_idx(start_round + i)
+                        for i in range(n_rounds)])
+        return self._gather(idx)

@@ -1,0 +1,48 @@
+"""Pytree entry points of the port's kernels.
+
+The counterpart of :mod:`repro.kernels.ops` for the fused local update.  The
+whole tree is flattened onto ONE contiguous plane (:mod:`repro_torch.core.plane`,
+no lane padding: the CUDA kernel masks its own ragged tail) and updated by
+one kernel call.  With ``batch_dims=1`` a client-stacked tree becomes the
+``(n_clients, d_pad)`` plane, so one launch covers every client -- the
+reference's ``vmap`` over clients (``repro/core/algorithm.py:185-188``) is
+not needed.  Mixed-dtype trees cannot share a plane and raise.
+"""
+from __future__ import annotations
+
+from repro_torch.core import plane as pln
+from repro_torch.kernels import fused_prox
+from repro_torch.utils import tree as tu
+
+
+def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
+                       batch_dims: int = 0):
+    """Fused Algorithm-1 local update + L1 prox over a whole pytree.
+
+    Returns ``(z_hat_next, z_next)`` with the structure, shapes and dtype of
+    ``z_hat``; ``grads`` and ``c`` are cast to that dtype first.  Each
+    output leaf is a view of one output plane.
+    """
+    spec = pln.SegmentSpec.from_tree(z_hat, batch_dims=batch_dims, tile=1)
+    dt = spec.dtype
+    zf = pln.flatten(spec, z_hat).contiguous()
+    gf = pln.flatten(spec, tu.tree_map(lambda g: g.to(dt), grads)).contiguous()
+    cf = pln.flatten(spec, tu.tree_map(lambda x: x.to(dt), c)).contiguous()
+    zh2, z2 = fused_prox.fused_local_update_2d(zf, gf, cf, eta, thresh)
+    return pln.unflatten(spec, zh2), pln.unflatten(spec, z2)
+
+
+def fused_local_update_step(reg, eta: float, t: int, z_hat, grads, c, *,
+                            thresh: float | None = None, batch_dims: int = 0):
+    """Drop-in for :func:`repro_torch.core.algorithm.local_update_step` when
+    ``reg`` is an unmasked L1.  ``thresh`` defaults to the paper's linear
+    schedule ``(t+1)*eta*lam``."""
+    from repro_torch.core.prox import L1
+
+    if not isinstance(reg, L1) or reg.mask is not None:
+        raise ValueError("the fused kernel path needs an unmasked L1 "
+                         "regularizer")
+    if thresh is None:
+        thresh = (t + 1) * eta * reg.lam
+    return fused_local_update(z_hat, grads, c, eta, thresh,
+                              batch_dims=batch_dims)

@@ -1,0 +1,219 @@
+"""The port's fused local-update + L1-prox kernel module against the JAX
+reference (repro_torch.kernels vs repro.kernels).
+
+On the CPU the wrapper runs the kernel's plain PyTorch version; the CUDA
+kernel itself is compared with that plain version on the card
+(tests/test_torch_gpu.py and ``chip_smoke.py``).
+
+Tolerances:
+  * the plain version rounds like ``repro.kernels.ref.fused_local_update``
+    (one rounding per operation, in the input dtype), so the two are held
+    BITWISE in float32 and float64;
+  * the Pallas kernel run by the interpreter contracts
+    ``z_hat - eta*(g + c)`` into an FMA (one rounding fewer), so against it
+    float32 is held to ``4 * eps32 * max(|z_hat|, |eta*(g+c)|)`` per element
+    and bfloat16 (computed in float32, rounded once at each store by both)
+    to one bfloat16 ulp plus that float32 term, which the soft threshold
+    exposes where ``|z_hat'|`` is within a few float32 ulps of ``thresh``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.kernels.fused_prox import fused_local_update_2d as pallas_2d
+from repro_torch.kernels import _build, fused_prox, ops
+
+EPS32 = float(np.finfo(np.float32).eps)
+ETA, THRESH = 0.37, 0.21
+
+
+@pytest.fixture(autouse=True)
+def _x64_one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _inputs(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(dtype) for _ in range(3)]
+
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    return x.view({4: np.uint32, 8: np.uint64, 2: np.uint16}[x.itemsize])
+
+
+@pytest.mark.parametrize("shape", [(30, 21), (1, 21), (3, 1000), (7, 4097),
+                                   (2, 112_395)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_plain_matches_ref_bitwise(shape, dtype):
+    zh, g, c = _inputs(shape, dtype)
+    exp_zh, exp_z = ref.fused_local_update(jnp.asarray(zh), jnp.asarray(g),
+                                           jnp.asarray(c), ETA, THRESH)
+    got_zh, got_z = fused_prox.fused_local_update_plain(
+        *map(torch.from_numpy, (zh, g, c)), ETA, THRESH)
+    np.testing.assert_array_equal(_bits(got_zh.numpy()),
+                                  _bits(np.asarray(exp_zh)))
+    np.testing.assert_array_equal(_bits(got_z.numpy()),
+                                  _bits(np.asarray(exp_z)))
+
+
+def test_plain_matches_pallas_within_fma_tolerance_f32():
+    zh, g, c = _inputs((512, 128), np.float32, seed=1)
+    p_zh, p_z = pallas_2d(jnp.asarray(zh), jnp.asarray(g), jnp.asarray(c),
+                          ETA, THRESH, interpret=True, block_rows=256)
+    got_zh, got_z = fused_prox.fused_local_update_2d(
+        *map(torch.from_numpy, (zh, g, c)), ETA, THRESH)
+    step = np.float32(ETA) * (g + c)
+    atol = 4 * EPS32 * np.maximum(np.abs(zh), np.abs(step))
+    assert np.all(np.abs(got_zh.numpy() - np.asarray(p_zh)) <= atol)
+    assert np.all(np.abs(got_z.numpy() - np.asarray(p_z)) <= atol)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def test_plain_matches_pallas_within_one_ulp_bf16():
+    zh, g, c = _inputs((512, 128), np.float32, seed=2)
+    tz = [torch.from_numpy(x).to(torch.bfloat16) for x in (zh, g, c)]
+    jz = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in tz]
+    p_zh, p_z = pallas_2d(*jz, ETA, THRESH, interpret=True, block_rows=256)
+    got_zh, got_z = fused_prox.fused_local_update_2d(*tz, ETA, THRESH)
+    assert got_zh.dtype == got_z.dtype == torch.bfloat16
+    # where |z_hat'| ~ thresh the soft threshold cancels, and z' shows the
+    # float32 FMA difference itself (e.g. -4.5e-8 vs -1.5e-8): add that term
+    zh32, g32, c32 = (t.float().numpy() for t in tz)
+    fma = 4 * EPS32 * np.maximum(np.abs(zh32),
+                                 np.abs(np.float32(ETA) * (g32 + c32)))
+    for got, exp in ((got_zh, p_zh), (got_z, p_z)):
+        a = got.float().numpy()
+        b = np.asarray(exp.astype(jnp.float32))
+        ulp = _bf16_ulp(np.maximum(np.abs(a), np.abs(b)))
+        assert np.all(np.abs(a - b) <= ulp + fma)
+
+
+@pytest.mark.parametrize("n", [1, 127, 5000])
+def test_ops_tree_matches_jax_ops_f32(n):
+    rng = np.random.default_rng(n)
+    tree = {"w": rng.normal(size=(n,)).astype(np.float32),
+            "b": rng.normal(size=()).astype(np.float32)}
+    g = {k: rng.normal(size=v.shape).astype(np.float32)
+         for k, v in tree.items()}
+    c = {k: rng.normal(size=v.shape).astype(np.float32)
+         for k, v in tree.items()}
+    exp_zh, exp_z = jops.fused_local_update(
+        *({k: jnp.asarray(v) for k, v in t.items()} for t in (tree, g, c)),
+        ETA, THRESH, interpret=True, block_rows=8)
+    got_zh, got_z = ops.fused_local_update(
+        *({k: torch.from_numpy(v) for k, v in t.items()}
+          for t in (tree, g, c)), ETA, THRESH)
+    for k in tree:
+        step = np.float32(ETA) * (g[k] + c[k])
+        atol = 4 * EPS32 * np.maximum(np.abs(tree[k]), np.abs(step))
+        assert got_zh[k].shape == tuple(tree[k].shape)
+        assert np.all(np.abs(got_zh[k].numpy() - np.asarray(exp_zh[k]))
+                      <= atol)
+        assert np.all(np.abs(got_z[k].numpy() - np.asarray(exp_z[k]))
+                      <= atol)
+
+
+def test_ops_client_plane_is_one_call_over_all_clients():
+    """batch_dims=1 lays a client-stacked tree out as one (n, d_pad)
+    plane; the result equals the per-client update."""
+    rng = np.random.default_rng(3)
+    n, d = 5, 9
+    mk = lambda: {"w": torch.from_numpy(rng.normal(size=(n, d))),
+                  "b": torch.from_numpy(rng.normal(size=(n,)))}
+    zh, g, c = mk(), mk(), mk()
+    got_zh, got_z = ops.fused_local_update(zh, g, c, ETA, THRESH,
+                                           batch_dims=1)
+    for i in range(n):
+        row = lambda t: {k: v[i] for k, v in t.items()}
+        e_zh, e_z = ops.fused_local_update(row(zh), row(g), row(c), ETA,
+                                           THRESH)
+        for k in zh:
+            assert torch.equal(got_zh[k][i], e_zh[k])
+            assert torch.equal(got_z[k][i], e_z[k])
+
+
+def test_ops_rejects_mixed_dtype_trees():
+    tree = {"w": torch.zeros(3, dtype=torch.float32),
+            "b": torch.zeros((), dtype=torch.float64)}
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.fused_local_update(tree, tree, tree, ETA, THRESH)
+
+
+def test_wrapper_checks_its_inputs():
+    a = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_prox.fused_local_update_2d(a, a.double(), a, ETA, THRESH)
+    with pytest.raises(ValueError, match="shape"):
+        fused_prox.fused_local_update_2d(a, a[:2], a[:2], ETA, THRESH)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_prox.fused_local_update_2d(*(a.int(),) * 3, ETA, THRESH)
+
+
+def test_wrapper_raises_on_a_device_without_kernel():
+    """Only CPU tensors take the plain version; any other device launches
+    the kernel or raises -- it never falls back."""
+    m = torch.empty(4, 8, device="meta")
+    before = fused_prox.fused_local_update_2d.launches
+    with pytest.raises(ValueError, match="no fused_local_update kernel"):
+        fused_prox.fused_local_update_2d(m, m, m, ETA, THRESH)
+    assert fused_prox.fused_local_update_2d.launches == before
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    a = torch.ones(2, 3)
+    before = fused_prox.fused_local_update_2d.launches
+    fused_prox.fused_local_update_2d(a, a, a, ETA, THRESH)
+    assert fused_prox.fused_local_update_2d.launches == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "FALLBACK_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_build_sources_and_flags():
+    srcs = _build._sources()
+    assert [s.name for s in srcs] == ["fused_prox.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    # the library name changes with the sources
+    assert len(_build._digest(srcs)) == 16
+
+
+def test_fused_step_is_a_drop_in_for_the_plain_step():
+    """ops.fused_local_update_step == the plain step z_hat - eta*(g + c)
+    followed by L1.prox at (t+1)*eta; a masked L1 is refused."""
+    from repro_torch.core.prox import L1
+
+    rng = np.random.default_rng(5)
+    mk = lambda: {"w": torch.from_numpy(rng.normal(size=7)),
+                  "b": torch.from_numpy(rng.normal(size=()))}
+    zh, g, c = mk(), mk(), mk()
+    reg = L1(lam=0.2)
+    got = ops.fused_local_update_step(reg, 0.3, 2, zh, g, c)
+    zh_next = {k: zh[k] - 0.3 * (g[k] + c[k]) for k in zh}
+    exp = (zh_next, reg.prox(zh_next, 3 * 0.3))
+    for a, b in zip(got, exp):
+        for k in zh:
+            assert torch.equal(a[k], b[k])
+    with pytest.raises(ValueError, match="unmasked L1"):
+        ops.fused_local_update_step(reg.with_mask({"w": True, "b": False}),
+                                    0.3, 2, zh, g, c)
