@@ -26,11 +26,31 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   share of the round's device time; and, for the record of
                   its two departures from the reference's set-up, the
                   gradient at zero against the paper's lam and the
-                  trajectory with the reference's L.
+                  trajectory with the reference's L;
+  5. compressed paper path -- the Fig. 2 problem, tau = 10, with the uplink
+                  compressed on the flat plane (EngineConfig(plane=True)):
+                  TopK(0.25, global) and Quantize(8, global) (its draws made
+                  on the CPU by one seeded generator and copied to the card),
+                  200 rounds each on the card and on the CPU: optimality
+                  equal at rtol 1e-6 above 1e-9, and each plane kernel
+                  launched exactly once per round;
+  6. wide compressed path -- phase 4's set-up with TopK(0.1, global) and
+                  Quantize(8, global) on the plane, tau = 10, 20 rounds each
+                  (draws from the card's own generator): launches, finite
+                  optimality, uplink bytes per client per round, s/round and
+                  each kernel's share of a round's device time.
 
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  A copy of the summary goes to
-``chiprun_out/chip_smoke.json``.
+Phase 2 also holds the two plane kernels (global top-k's threshold select,
+the stochastic quantizer) against their plain versions, bit for bit, at
+(30, 112,512), (30, 128) and (1, 112,512) float64 -- the compressed paths'
+planes -- and at (30, 4,194,304) in float32, bfloat16 and float64, with
+NaN, +-0, +-inf, |x| == thresh and a zero-scale row injected, and times
+``torch.topk`` at the wide plane beside the select.
+
+Every launch counter is set to 0 just before each path of phases 3-6 and
+read just after.  The line before the last is the kernels' JSON summary;
+the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
+goes to ``chip_smoke.json`` in the output directory that ``main`` names.
 """
 from __future__ import annotations
 
@@ -49,6 +69,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # compute type, H100 SXM data sheet: FP32 67 TFLOP/s, FP64 34 TFLOP/s
 PEAK_OPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
 OPS_PER_ELEMENT = 10  # add, mul, sub, abs, sub, max, 2 compares, sub, mul
+# the plane kernels' operations per element: select -- abs, compare,
+# select; quantize -- div, mul, floor, sub, compare, add, div, mul
+PLANE_OPS = {"threshold_select": 3, "quantize": 8}
+SPECIALS = [float("nan"), -0.0, 0.0, float("inf"), -float("inf")]
 
 
 def fail(msg: str) -> None:
@@ -63,6 +87,23 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _counters():
+    from repro_torch.kernels import fused_prox, plane_ops
+
+    return {"fused_local_update": fused_prox.fused_local_update_2d,
+            "threshold_select": plane_ops.threshold_select_2d,
+            "quantize": plane_ops.quantize_2d}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 # -- phase 0 ------------------------------------------------------------------
@@ -137,12 +178,8 @@ def _kernel_case(shape, dtype, card: str, seed: int):
     k_zh, k_z = fp.fused_local_update_2d(zh, g, c, ETA, THRESH)
     p_zh, p_z = fp.fused_local_update_plain(zh, g, c, ETA, THRESH)
     torch.cuda.synchronize()
-    ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[zh.element_size()]
-    same_zh = int((k_zh.view(ity) != p_zh.view(ity)).sum())
-    same_z = int((k_z.view(ity) != p_z.view(ity)).sum())
-    fin = torch.isfinite(p_zh) & torch.isfinite(p_z)
-    err = max(float((k_zh - p_zh)[fin].abs().max()),
-              float((k_z - p_z)[fin].abs().max()))
+    same_zh, same_z = _bit_diff(k_zh, p_zh), _bit_diff(k_z, p_z)
+    err = max(_finite_err(k_zh, p_zh), _finite_err(k_z, p_z))
     check(same_zh == 0 and same_z == 0,
           f"kernel != plain bitwise at {shape} {dtype}: "
           f"{same_zh} z_hat' and {same_z} z' elements differ")
@@ -181,11 +218,149 @@ def phase_kernels(card: str):
             for seed, (shape, dt) in enumerate(cases)]
 
 
+def _device_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` from ``torch.profiler``: every CUDA
+    kernel's time over ``calls`` calls, divided by ``calls``.  Unlike
+    :func:`_time_ms` it leaves out the host's gaps between launches, which
+    set the pace of back-to-back calls on a small plane."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
+def _bit_diff(a, b) -> int:
+    import torch
+
+    ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return int((a.view(ity) != b.view(ity)).sum())
+
+
+def _finite_err(a, b) -> float:
+    """Largest |a - b| where the plain result ``b`` is finite."""
+    import torch
+
+    fin = torch.isfinite(b)
+    return float((a.double() - b.double())[fin].abs().max()) if bool(
+        fin.any()) else 0.0
+
+
+def _plane_case(shape, dtype, card: str, seed: int):
+    """Both plane kernels against their plain versions at one shape."""
+    import torch
+
+    from repro_torch.kernels import plane_ops as po
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=work).to(dtype)
+    u = torch.rand(shape, generator=gen, device="cuda", dtype=work).to(dtype)
+    # thresholds: a real magnitude of each row, which is then exactly at
+    # the threshold (kept); a negative copy of it beside; the specials
+    thresh = x[:, shape[1] // 2].abs()
+    k = min(len(SPECIALS), shape[1])
+    x[0, :k] = torch.tensor(SPECIALS[:k], dtype=dtype)
+    if shape[1] > k + 1:
+        x[:, k] = -thresh
+    # the quantizer gets the finite plane (a NaN would poison its row's
+    # scale), +-0 kept, and one zero-scale row when there are several
+    xq = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    scale = torch.amax(torch.abs(xq), dim=1)
+    if shape[0] > 1:
+        scale[-1] = 0
+
+    runs = {
+        "threshold_select": (lambda: po.threshold_select_2d(x, thresh),
+                             lambda: po.threshold_select_plain(x, thresh)),
+        "quantize": (lambda: po.quantize_2d(xq, u, scale, 255),
+                     lambda: po.quantize_plain(xq, u, scale, 255)),
+    }
+    n = x.numel()
+    item = x.element_size()
+    wname = str(dtype).replace("torch.", "")
+    peak = PEAK_OPS[wname]
+    rows = []
+    for name, (kern, plain) in runs.items():
+        got, exp = kern(), plain()
+        torch.cuda.synchronize()
+        diff = _bit_diff(got, exp)
+        check(diff == 0, f"{name} kernel != plain bitwise at {shape} "
+              f"{dtype}: {diff} elements differ")
+        err = _finite_err(got, exp)
+        del got, exp
+        batch = 1 if n > 1e8 else 10
+        ms = _time_ms(kern, 15, batch)
+        plain_ms = _time_ms(plain, 15, batch)
+        device_ms = _device_ms(kern)
+        plain_device_ms = _device_ms(plain)
+        if name == "threshold_select":  # x, thresh in; out
+            nbytes = 2 * n * item + shape[0] * item
+        else:  # x, u, scale in; out
+            nbytes = 3 * n * item + shape[0] * (8 if work == torch.float64
+                                                else 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = PLANE_OPS[name] * n / peak
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        row = {"kernel": name, "shape": list(shape), "dtype": wname,
+               "bitwise_equal": True, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "device_ms": device_ms,
+               "plain_device_ms": plain_device_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "GB_per_s": nbytes / (ms * 1e-3) / 1e9}
+        log(f"[kernels] {name} {tuple(shape)} {wname}: bitwise equal; "
+            f"kernel {ms:.4f} ms ({row['GB_per_s']:.0f} GB/s; device "
+            f"{device_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.4f} ms (device {plain_device_ms:.4f} ms)  "
+            f"[{card}]")
+        rows.append(row)
+    del x, u, xq
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_plane_kernels(card: str):
+    """The plane kernels at the compressed paths' planes and at 4M wide;
+    ``torch.topk`` (the k-th magnitude global top-k takes before the
+    select) at the wide plane."""
+    import torch
+
+    cases = [((30, 112_512), torch.float64), ((30, 128), torch.float64),
+             ((1, 112_512), torch.float64), ((30, 4_194_304), torch.float32),
+             ((30, 4_194_304), torch.bfloat16),
+             ((30, 4_194_304), torch.float64)]
+    rows = []
+    for seed, (shape, dt) in enumerate(cases):
+        rows += _plane_case(shape, dt, card, 100 + seed)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mag = torch.randn((30, 112_512), generator=gen, device="cuda",
+                      dtype=torch.float64).abs()
+    k = 11_240  # round(0.1 * 112,395)
+    topk_ms = _time_ms(lambda: torch.topk(mag, k, dim=1), 15, 10)
+    topk_device_ms = _device_ms(lambda: torch.topk(mag, k, dim=1))
+    log(f"[kernels] torch.topk (30, 112512) float64 k={k}: {topk_ms:.4f} ms "
+        f"(device {topk_device_ms:.4f} ms)  [{card}]")
+    return rows, {"shape": [30, 112_512], "dtype": "float64", "k": k,
+                  "ms": topk_ms, "device_ms": topk_device_ms}
+
+
 # -- phase 3 ------------------------------------------------------------------
 
-def _fig2_run(tau: int, device: str, rounds: int, eval_every: int):
+def _fig2_run(tau: int, device: str, rounds: int, eval_every: int,
+              transport=None, draws=None):
+    """The Fig. 2 run; with ``transport`` its uplink goes through it on the
+    flat plane (``draws``: the engine's draw source)."""
     from repro_torch.core.algorithm import DProxConfig
     from repro_torch.data.synthetic import make_round_batches
+    from repro_torch.exec import EngineConfig, RoundEngine
     from repro_torch.fed import problems, simulator
 
     data, reg, grad_fn, full_g, params0, L = problems.logreg_problem(
@@ -195,55 +370,124 @@ def _fig2_run(tau: int, device: str, rounds: int, eval_every: int):
     eta = eta_tilde / (eta_g * tau)
     alg = simulator.DProxAlgorithm(reg, DProxConfig(tau=tau, eta=eta,
                                                     eta_g=eta_g))
+    engine = None
+    if transport is not None:
+        engine = RoundEngine(alg, grad_fn, 30, EngineConfig(
+            chunk_rounds=8, plane=True, transport=transport), device=device,
+            draws=draws)
     return simulator.run(
         alg, params0, grad_fn,
         lambda r, rng: make_round_batches(data, tau, None, rng), 30, rounds,
         reg=reg, eta_tilde=eta_tilde, full_grad_fn=full_g,
-        eval_every=eval_every, device=device)
+        eval_every=eval_every, device=device, engine=engine)
+
+
+def _cpu_run(fn):
+    """``fn()`` with one CPU thread (the small CPU reference runs faster
+    so); the kernel counters must not move."""
+    import torch
+
+    before = read_counts()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = fn()
+    finally:
+        torch.set_num_threads(threads)
+    check(read_counts() == before, "the CPU run launched a kernel")
+    return out
+
+
+def _check_opt_match(tag: str, opt, ref, n_points: int) -> float:
+    """Card optimality == CPU optimality at rtol 1e-6 above 1e-9; returns
+    the largest relative difference."""
+    check(len(opt) == len(ref) == n_points, f"{tag}: {len(opt)} eval points")
+    check(all(math.isfinite(v) for v in opt), f"{tag}: non-finite")
+    for i, (a, b) in enumerate(zip(opt, ref)):
+        if b > 1e-9:
+            check(abs(a - b) <= 1e-6 * abs(b),
+                  f"{tag} eval {i}: cuda {a!r} vs cpu {b!r}")
+        else:
+            check(a <= 1e-9, f"{tag} eval {i}: cuda {a!r} > 1e-9")
+    return max((abs(a - b) / b for a, b in zip(opt, ref) if b > 1e-9),
+               default=0.0)
 
 
 def phase_main_path(card: str):
     import torch
 
-    from repro_torch.kernels import fused_prox as fp
-
     rounds, every = 500, 25
     out = {}
     for tau in (10, 1):
-        fp.fused_local_update_2d.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         h = _fig2_run(tau, "cuda", rounds, every)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = fp.fused_local_update_2d.launches
-        check(launches == rounds * tau,
-              f"tau={tau}: {launches} kernel launches, expected {rounds * tau}")
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)  # the small CPU reference runs faster so
-        try:
-            h_cpu = _fig2_run(tau, "cpu", rounds, every)
-        finally:
-            torch.set_num_threads(threads)
-        check(fp.fused_local_update_2d.launches == launches,
-              "the CPU run launched the kernel")
+        counts = read_counts()
+        launches = counts["fused_local_update"]
+        check(counts == {"fused_local_update": rounds * tau,
+                         "threshold_select": 0, "quantize": 0},
+              f"tau={tau}: launches {counts}, expected {rounds * tau} "
+              "fused and no plane kernel")
+        h_cpu = _cpu_run(lambda: _fig2_run(tau, "cpu", rounds, every))
         opt, ref = h.optimality, h_cpu.optimality
-        check(len(opt) == len(ref) == rounds // every + 1,
-              f"tau={tau}: {len(opt)} eval points")
-        check(all(math.isfinite(v) for v in opt), f"tau={tau}: non-finite")
-        for i, (a, b) in enumerate(zip(opt, ref)):
-            if b > 1e-9:
-                check(abs(a - b) <= 1e-6 * abs(b),
-                      f"tau={tau} eval {i}: cuda {a!r} vs cpu {b!r}")
-            else:
-                check(a <= 1e-9, f"tau={tau} eval {i}: cuda {a!r} > 1e-9")
-        max_rel = max(abs(a - b) / b for a, b in zip(opt, ref) if b > 1e-9)
+        max_rel = _check_opt_match(f"tau={tau}", opt, ref,
+                                   rounds // every + 1)
         log(f"[main] fig2 tau={tau}: {rounds} rounds in {secs:.2f} s, "
             f"{launches} launches, final optimality {opt[-1]:.6e} "
             f"(cpu {ref[-1]:.6e}, max rel diff {max_rel:.2e})  [{card}]")
-        out[f"tau{tau}"] = {"rounds": rounds, "launches": launches,
+        out[f"tau{tau}"] = {"rounds": rounds, "launches": counts,
                             "seconds": secs, "final_optimality": opt[-1],
                             "final_optimality_cpu": ref[-1],
                             "max_rel_diff": max_rel}
+    return out
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def phase_compressed_paper(card: str):
+    """The Fig. 2 problem with a compressed uplink on the flat plane."""
+    import torch
+
+    from repro_torch.comm import GeneratorDraws, Quantize, TopK
+
+    tau, rounds, every = 10, 200, 25
+    out = {}
+    for name, kernel, make in (
+            ("topk", "threshold_select",
+             lambda: TopK(0.25, granularity="global")),
+            ("quantize", "quantize",
+             lambda: Quantize(8, granularity="global"))):
+        stochastic = name == "quantize"
+        reset_counts()
+        t0 = time.perf_counter()
+        h = _fig2_run(tau, "cuda", rounds, every, make(),
+                      GeneratorDraws(11, "cpu") if stochastic else None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        expect = {"fused_local_update": rounds * tau, "threshold_select": 0,
+                  "quantize": 0}
+        expect[kernel] = rounds
+        check(counts == expect, f"compressed {name}: launches {counts}, "
+              f"expected {expect}")
+        h_cpu = _cpu_run(lambda: _fig2_run(
+            tau, "cpu", rounds, every, make(),
+            GeneratorDraws(11, "cpu") if stochastic else None))
+        opt, ref = h.optimality, h_cpu.optimality
+        max_rel = _check_opt_match(f"compressed {name}", opt, ref,
+                                   rounds // every + 1)
+        log(f"[compressed] fig2 tau={tau} {name} (global, plane): {rounds} "
+            f"rounds in {secs:.2f} s, launches {counts}, optimality "
+            f"{['%.6e' % v for v in opt]} (cpu final {ref[-1]:.6e}, max rel "
+            f"diff {max_rel:.2e}), {h.uplink_mbytes_per_round * 1e6:.0f} "
+            f"uplink bytes/round  [{card}]")
+        out[name] = {"rounds": rounds, "launches": counts, "seconds": secs,
+                     "optimality": opt, "optimality_cpu": ref,
+                     "max_rel_diff": max_rel,
+                     "uplink_bytes_per_round": h.uplink_mbytes_per_round
+                     * 1e6}
     return out
 
 
@@ -255,7 +499,6 @@ def phase_wide(card: str, kernel_ms: float):
     from repro_torch.core.algorithm import DProxConfig
     from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
     from repro_torch.fed import problems, simulator
-    from repro_torch.kernels import fused_prox as fp
 
     d, tau, rounds, every = 112_394, 10, 20, 5
     # features normalized to unit max row norm shrink each coordinate, and
@@ -282,14 +525,16 @@ def phase_wide(card: str, kernel_ms: float):
     alg = simulator.DProxAlgorithm(reg, DProxConfig(tau=tau, eta=eta,
                                                     eta_g=eta_g))
 
-    fp.fused_local_update_2d.launches = 0
+    reset_counts()
     h = simulator.run(alg, params0, grad_fn, supplier, 30, rounds, reg=reg,
                       eta_tilde=eta_tilde, full_grad_fn=full_g,
                       eval_every=every, device="cuda")
     torch.cuda.synchronize()
-    launches = fp.fused_local_update_2d.launches
-    check(launches == rounds * tau,
-          f"wide: {launches} launches, expected {rounds * tau}")
+    counts = read_counts()
+    launches = counts["fused_local_update"]
+    check(counts == {"fused_local_update": rounds * tau,
+                     "threshold_select": 0, "quantize": 0},
+          f"wide: launches {counts}, expected {rounds * tau} fused only")
     opt = h.optimality
     check(all(math.isfinite(v) for v in opt), f"wide: non-finite {opt}")
     check(all(b < a for a, b in zip(opt, opt[1:])),
@@ -314,33 +559,10 @@ def phase_wide(card: str, kernel_ms: float):
         f"(paper's lam 0.003); with the reference's L={L_ref:.6e}: "
         f"optimality {['%.6e' % v for v in opt_ref_L]}")
 
-    # timing, outside the counted run: s/round after a first warm chunk
     eng = RoundEngine(alg, grad_fn, 30, EngineConfig(chunk_rounds=4),
                       device="cuda")
-    state = eng.init(params0)
-    state, _ = eng.run(state, supplier, 4)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = eng.run(state, supplier, 8)
-    torch.cuda.synchronize()
-    s_per_round = (time.perf_counter() - t0) / 8
-
-    # where one round's device time goes
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        state, _ = eng.run(state, supplier, 1)
-        end.record()
-        torch.cuda.synchronize()
-    round_ms = start.elapsed_time(end)
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+    s_per_round, round_ms, by_name = _time_and_profile(eng, params0,
+                                                       supplier)
     busy_ms = sum(by_name.values())
     ours_ms = sum(v for k, v in by_name.items() if "fused_prox_kernel" in k)
     if busy_ms > 0:
@@ -356,7 +578,9 @@ def phase_wide(card: str, kernel_ms: float):
         f"{share:.4f} ({source})  [{card}]")
     for name, ms in top:
         log(f"[wide]   {ms:9.3f} ms  {name[:110]}")
-    return {"d": d, "tau": tau, "rounds": rounds, "launches": launches,
+    ctx = {"alg": alg, "reg": reg, "grad_fn": grad_fn, "full_g": full_g,
+           "params0": params0, "supplier": supplier, "eta_tilde": eta_tilde}
+    return {"d": d, "tau": tau, "rounds": rounds, "launches": counts,
             "optimality": opt, "setup_s": setup_s, "features_gb": feat_gb,
             "L": L, "L_reference": L_ref, "grad0_w_abs_max": grad0_w,
             "grad0_b_abs": grad0_b,
@@ -364,7 +588,118 @@ def phase_wide(card: str, kernel_ms: float):
             "s_per_round": s_per_round, "round_ms": round_ms,
             "device_busy_ms": busy_ms, "kernel_ms_per_round": ours_ms,
             "kernel_share": share, "share_source": source,
-            "top_kernels_ms": top}
+            "top_kernels_ms": top}, ctx
+
+
+def _time_and_profile(eng, params0, supplier):
+    """s/round of ``eng`` over 8 rounds after a warm chunk of 4, then one
+    profiled round: (s/round, the round's ms on CUDA events, device ms by
+    kernel name from ``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state = eng.init(params0)
+    state, _ = eng.run(state, supplier, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = eng.run(state, supplier, 8)
+    torch.cuda.synchronize()
+    s_per_round = (time.perf_counter() - t0) / 8
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        state, _ = eng.run(state, supplier, 1)
+        end.record()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    return s_per_round, start.elapsed_time(end), by_name
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+# kernel-name fragments of each part of a compressed round, for the shares
+_ROUND_PARTS = {
+    "fused_local_update": ("fused_prox_kernel",),
+    "threshold_select": ("threshold_select_kernel",),
+    "quantize": ("quantize_kernel",),
+    "torch.topk": ("topk", "TopK", "sort", "Sort"),
+}
+
+
+def phase_wide_compressed(card: str, ctx: dict):
+    """Phase 4's wide set-up with the uplink compressed on the plane."""
+    import torch
+
+    from repro_torch.comm import Quantize, TopK
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import simulator
+
+    tau, rounds, every = 10, 20, 5
+    expect_bytes = {"topk": 134_880, "quantize": 126_453}
+    out = {}
+    for name, kernel, make in (
+            ("topk", "threshold_select",
+             lambda: TopK(0.1, granularity="global")),
+            ("quantize", "quantize",
+             lambda: Quantize(8, granularity="global"))):
+        def engine():
+            return RoundEngine(ctx["alg"], ctx["grad_fn"], 30, EngineConfig(
+                chunk_rounds=4, plane=True, transport=make()), device="cuda")
+
+        eng = engine()
+        reset_counts()
+        h = simulator.run(ctx["alg"], ctx["params0"], ctx["grad_fn"],
+                          ctx["supplier"], 30, rounds, reg=ctx["reg"],
+                          eta_tilde=ctx["eta_tilde"],
+                          full_grad_fn=ctx["full_g"], eval_every=every,
+                          engine=eng)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = {"fused_local_update": rounds * tau, "threshold_select": 0,
+                  "quantize": 0}
+        expect[kernel] = rounds
+        check(counts == expect, f"wide {name}: launches {counts}, expected "
+              f"{expect}")
+        opt = h.optimality
+        check(all(math.isfinite(v) for v in opt),
+              f"wide {name}: non-finite {opt}")
+        up = eng.uplink_bytes_per_client_round
+        check(up == expect_bytes[name],
+              f"wide {name}: {up} uplink bytes/client/round, expected "
+              f"{expect_bytes[name]}")
+
+        s_per_round, round_ms, by_name = _time_and_profile(
+            engine(), ctx["params0"], ctx["supplier"])
+        busy_ms = sum(by_name.values())
+        parts = {part: sum(v for k, v in by_name.items()
+                           if any(f in k for f in frags))
+                 for part, frags in _ROUND_PARTS.items()}
+        shares = {part: (ms / busy_ms if busy_ms > 0 else None)
+                  for part, ms in parts.items()}
+        log(f"[wide-compressed] {name} (global, plane) tau={tau}: {rounds} "
+            f"rounds, launches {counts}, optimality "
+            f"{['%.6e' % v for v in opt]}, {up} uplink bytes/client/round "
+            f"(dense 899160)  [{card}]")
+        log(f"[wide-compressed] {name}: {s_per_round:.4f} s/round after the "
+            f"first chunk; one round {round_ms:.3f} ms on the card, device "
+            f"busy {busy_ms:.3f} ms (idle share "
+            f"{1 - busy_ms / round_ms:.3f}); device ms by part "
+            + ", ".join(f"{p} {parts[p]:.4f} ({shares[p] or 0:.4f})"
+                        for p in parts) + f"  [{card}]")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[wide-compressed]   {ms:9.3f} ms  {kname[:110]}")
+        out[name] = {"rounds": rounds, "launches": counts, "optimality": opt,
+                     "uplink_bytes_per_client_round": up,
+                     "s_per_round": s_per_round, "round_ms": round_ms,
+                     "device_busy_ms": busy_ms, "device_ms_by_part": parts,
+                     "share_of_busy_by_part": shares}
+    return out
 
 
 def main() -> None:
@@ -382,29 +717,51 @@ def main() -> None:
     card = phase_device()
     phase_build()
     rows = phase_kernels(card)
+    plane_rows, topk = phase_plane_kernels(card)
     main = phase_main_path(card)
     wide_row = next(r for r in rows if r["shape"] == [30, 112_395])
-    wide = phase_wide(card, wide_row["ms"])
+    wide, ctx = phase_wide(card, wide_row["ms"])
+    comp = phase_compressed_paper(card)
+    wide_comp = phase_wide_compressed(card, ctx)
 
+    # launches on the main paths: every path's counts, read just after it
+    paths = [main["tau10"], main["tau1"], wide, comp["topk"],
+             comp["quantize"], wide_comp["topk"], wide_comp["quantize"]]
+    launches = {k: sum(p["launches"][k] for p in paths)
+                for k in ("fused_local_update", "threshold_select",
+                          "quantize")}
+
+    def entry(name, source, replaces, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
+    def plane_row(kernel):  # the wide compressed path's plane
+        return next(r for r in plane_rows if r["kernel"] == kernel
+                    and r["shape"] == [30, 112_512])
+
+    plane_src = "src/repro_torch/kernels/csrc/plane_ops.cu"
     summary = {
         "card": card,
-        "kernels": [{
-            "name": "fused_local_update",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fused_prox.cu",
-            "replaces": "src/repro/kernels/fused_prox.py:29",
-            "launches": (main["tau10"]["launches"] + main["tau1"]["launches"]
-                         + wide["launches"]),
-            "max_abs_err": wide_row["max_abs_err"],
-            "ms": wide_row["ms"],
-            "plain_ms": wide_row["plain_ms"],
-            "bound_ms": wide_row["bound_ms"],
-            "bound_by": wide_row["bound_by"],
-            "library_ms": None,
-        }],
+        "kernels": [
+            entry("fused_local_update",
+                  "src/repro_torch/kernels/csrc/fused_prox.cu",
+                  "src/repro/kernels/fused_prox.py:29", wide_row),
+            entry("threshold_select", plane_src,
+                  "src/repro/kernels/plane_ops.py:41",
+                  plane_row("threshold_select")),
+            entry("quantize", plane_src, "src/repro/kernels/plane_ops.py:68",
+                  plane_row("quantize")),
+        ],
         "kernel_cases": rows,
+        "plane_kernel_cases": plane_rows,
+        "torch_topk": topk,
         "main_path": main,
         "wide": wide,
+        "compressed_paper": comp,
+        "wide_compressed": wide_comp,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

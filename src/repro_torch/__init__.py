@@ -5,9 +5,13 @@ names, so each counterpart is easy to find, and never imports ``jax`` or
 anything of ``repro`` (it carries its own copies of the numpy-only modules).
 
 Ported so far: the paper's Fig. 2 main path -- sparse logistic regression
-with an L1 regularizer, run by Algorithm 1 (DProx) through a bare round
-engine -- with the fused local-update + L1-prox step as a hand-written CUDA
-kernel for Hopper (``kernels/csrc/fused_prox.cu``).
+with an L1 regularizer, run by Algorithm 1 (DProx) through the round engine
+-- with the fused local-update + L1-prox step as a hand-written CUDA kernel
+for Hopper (``kernels/csrc/fused_prox.cu``); and the compressed uplink
+(``repro_torch.comm``: top-k, rand-k and quantization with error feedback,
+per leaf or over the whole flat plane, and the compressed downlink) through
+the engine's communication stages, with global top-k's threshold select and
+the stochastic quantizer as CUDA kernels (``kernels/csrc/plane_ops.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present they raise instead of carrying on quietly on the CPU.

@@ -1,7 +1,9 @@
-"""The bare round-execution engine and its batch suppliers.
+"""The round-execution engine, its stages and its batch suppliers.
 
-The counterpart of :mod:`repro.exec` without stages: chunked rounds with one
-host sync per chunk, partial participation, chunk-aware suppliers.
+The counterpart of :mod:`repro.exec` with the communication stages so far:
+chunked rounds with one host sync per chunk, partial participation,
+compressed uplinks and downlinks (optionally on the flat plane),
+chunk-aware suppliers.
 
     from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
 
@@ -9,12 +11,19 @@ host sync per chunk, partial participation, chunk-aware suppliers.
     state = eng.init(params0)
     supplier = ArraySupplier.from_dataset(data, tau, None, device_cache=True)
     state, metrics = eng.run(state, supplier, rounds=100, rng=rng)
+
+    # global top-k 25% of the uplink, on the flat plane
+    eng = RoundEngine(alg, grad_fn, n_clients, EngineConfig(
+        plane=True, transport=TopK(0.25, granularity="global")))
 """
 from repro_torch.exec.engine import (EngineConfig, RoundEngine,
-                                     rounds_to_boundary, sample_active_masks)
+                                     rounds_to_boundary, sample_active_masks,
+                                     server_state_fields)
+from repro_torch.exec.stages import DownlinkComm, StageStack, UplinkComm
 from repro_torch.exec.suppliers import (ArraySupplier, BatchSupplier,
                                         CallableSupplier, as_supplier)
 
 __all__ = ["EngineConfig", "RoundEngine", "rounds_to_boundary",
-           "sample_active_masks", "ArraySupplier", "BatchSupplier",
+           "sample_active_masks", "server_state_fields", "StageStack",
+           "UplinkComm", "DownlinkComm", "ArraySupplier", "BatchSupplier",
            "CallableSupplier", "as_supplier"]

@@ -97,7 +97,10 @@ def run(
 
     The run goes on ``device`` (``cuda`` unless given; it raises without a
     GPU).  ``engine`` overrides the default bare engine, and then its own
-    device holds.
+    device holds: e.g. ``RoundEngine(alg, grad_fn, n, EngineConfig(
+    plane=True, transport=TopK(0.25, granularity="global")))`` for a
+    compressed uplink, whose wire bytes then set
+    ``History.uplink_mbytes_per_round``.
     """
     rng = np.random.default_rng(seed)
     if engine is None:
@@ -137,6 +140,10 @@ def run(
                                     start_round=r)
         hist.loss.extend(metrics.get("train_loss", []))
         r += k
+    if engine.uplink_bytes_per_client_round is not None:
+        # a communication stage: account the transport's actual wire bytes
+        hist.uplink_mbytes_per_round = (
+            engine.uplink_bytes_per_client_round * n_clients / 1e6)
     # final eval
     x, g0 = evaluate(state, g0)
     hist.rounds.append(rounds)

@@ -92,4 +92,12 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_int64,
                    ctypes.c_double, ctypes.c_double, vp]
     fn.restype = ctypes.c_int
+    fn = lib.repro_threshold_select
+    fn.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int64, ctypes.c_int64,
+                   vp]
+    fn.restype = ctypes.c_int
+    fn = lib.repro_quantize
+    fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
     return lib

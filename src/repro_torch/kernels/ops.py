@@ -1,6 +1,7 @@
-"""Pytree entry points of the port's kernels.
+"""Pytree and plane entry points of the port's kernels.
 
-The counterpart of :mod:`repro.kernels.ops` for the fused local update.  The
+The counterpart of :mod:`repro.kernels.ops` for the fused local update and
+the flat-plane compression kernels.  For the fused local update the
 whole tree is flattened onto ONE contiguous plane (:mod:`repro_torch.core.plane`,
 no lane padding: the CUDA kernel masks its own ragged tail) and updated by
 one kernel call.  With ``batch_dims=1`` a client-stacked tree becomes the
@@ -11,7 +12,7 @@ not needed.  Mixed-dtype trees cannot share a plane and raise.
 from __future__ import annotations
 
 from repro_torch.core import plane as pln
-from repro_torch.kernels import fused_prox
+from repro_torch.kernels import fused_prox, plane_ops
 from repro_torch.utils import tree as tu
 
 
@@ -46,3 +47,23 @@ def fused_local_update_step(reg, eta: float, t: int, z_hat, grads, c, *,
         thresh = (t + 1) * eta * reg.lam
     return fused_local_update(z_hat, grads, c, eta, thresh,
                               batch_dims=batch_dims)
+
+
+# ---------------------------------------------------------------------------
+# flat-plane communication kernels
+# ---------------------------------------------------------------------------
+
+
+def plane_threshold_select(flat_plane, thresh):
+    """Global top-k select on a ``(clients, d_pad)`` plane: keep the
+    coordinates whose magnitude reaches the per-client ``thresh``, zero the
+    rest (one kernel launch; the k-th values come from ``torch.topk``)."""
+    return plane_ops.threshold_select_2d(flat_plane.contiguous(), thresh)
+
+
+def plane_quantize(flat_plane, u, scale, levels: int):
+    """Stochastic uniform quantization of a ``(clients, d_pad)`` plane given
+    the uniform draws ``u`` and per-client ``scale`` magnitudes (one kernel
+    launch)."""
+    return plane_ops.quantize_2d(flat_plane.contiguous(), u.contiguous(),
+                                 scale, levels)

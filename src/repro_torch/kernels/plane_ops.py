@@ -1,0 +1,166 @@
+"""Flat-plane compression kernels: the CUDA kernels' wrappers and their plain
+PyTorch versions.
+
+The port of the Pallas TPU kernels of ``repro/kernels/plane_ops.py``
+(``_threshold_kernel`` / ``threshold_select_3d`` and ``_quantize_kernel`` /
+``quantize_3d``).  Both run over a contiguous ``(n_rows, d_pad)`` plane --
+one row per client, or one row for a broadcast -- with a per-row scalar:
+
+  * :func:`threshold_select_2d` -- ``out = |x| >= thresh[row] ? x : 0``, the
+    select half of global top-k once the per-row k-th magnitude is known;
+  * :func:`quantize_2d` -- stochastic uniform quantization given the draws
+    ``u`` and a per-row ``scale`` (0 quantizes as 1):
+    ``y = x/s*L``, ``q = floor(y) + [u < y - floor(y)]``, ``out = q/L*s``.
+
+The kernels (``csrc/plane_ops.cu``) make one grid-stride launch each over
+the whole plane.  float32 computes in float32, float64 in float64, bfloat16
+and float16 in float32 with one rounding at the store.  The plain versions
+spell out the ``repro/kernels/ref.py`` expressions in that compute type, and
+the kernels equal them bitwise on the card.  The thresholds take ``x``'s
+dtype, as ``ref.plane_threshold_select`` casts them (the Pallas kernel
+rounds them to float32 instead), and the quantizer computes float64 planes
+in float64, as ``ref.plane_quantize`` does (the Pallas kernel computes in
+float32 for every dtype).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fused_prox import _DTYPE_CODES
+
+
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def threshold_select_plain(x, thresh):
+    """The select kernel's function in plain PyTorch (``x`` passes through
+    untouched where kept, ``+0`` elsewhere)."""
+    keep = torch.abs(x) >= thresh.to(x.dtype)[:, None]
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def quantize_plain(x, u, scale, levels: int):
+    """The quantize kernel's function in plain PyTorch, in the kernel's
+    compute type, rounding once to ``x``'s dtype at the end.
+
+    ``levels`` divides as a tensor on ``x``'s device: PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal instead, which
+    rounds differently from ``ref.py``'s (and the kernel's) true division.
+    """
+    dt = x.dtype
+    work = _work_dtype(dt)
+    s = scale.to(work)
+    s = torch.where(s == 0, torch.ones_like(s), s)[:, None]
+    L = torch.full((), levels, dtype=work, device=x.device)
+    y = x.to(work) / s * L
+    lo = torch.floor(y)
+    q = lo + (u.to(work) < (y - lo)).to(work)
+    return (q / L * s).to(dt)
+
+
+def _check_plane(name: str, x, *others):
+    ts = (x,) + others
+    if any(not isinstance(t, torch.Tensor) for t in ts):
+        raise TypeError(f"{name} takes tensors")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: inputs on different devices: "
+                         f"{[str(t.device) for t in ts]}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype must be one of "
+                         f"{sorted(map(str, _DTYPE_CODES))}, got {x.dtype}")
+    if x.ndim != 2:
+        raise ValueError(f"{name} takes an (n_rows, d_pad) plane, got shape "
+                         f"{tuple(x.shape)}")
+
+
+def _check_rows(name: str, x, per_row):
+    if tuple(per_row.shape) != (x.shape[0],):
+        raise ValueError(f"{name}: per-row values of shape {(x.shape[0],)} "
+                         f"expected, got {tuple(per_row.shape)}")
+
+
+def _launch(name: str, entry: str, x, *args):
+    """Launch ``entry`` of the kernel library on ``x``'s device and stream;
+    raises on a refused launch."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _kernel_device(name: str, x) -> bool:
+    """True for a CUDA plane (launch the kernel), False for a CPU plane (run
+    the plain version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {x.device}")
+    return True
+
+
+def threshold_select_2d(x, thresh):
+    """Keep ``x[i, j]`` where ``|x[i, j]| >= thresh[i]``, else 0, over an
+    ``(n_rows, d_pad)`` plane; ``thresh`` is ``(n_rows,)`` of any float
+    dtype (it is cast to ``x``'s dtype first).
+
+    CPU tensors take :func:`threshold_select_plain`.  CUDA tensors launch
+    the kernel (counted in ``threshold_select_2d.launches``) or raise;
+    nothing falls back.
+    """
+    _check_plane("threshold_select", x, thresh)
+    _check_rows("threshold_select", x, thresh)
+    if not _kernel_device("threshold_select", x):
+        return threshold_select_plain(x, thresh)
+    if not x.is_contiguous():
+        raise ValueError("threshold_select_2d needs a contiguous plane")
+    t = thresh.to(x.dtype).contiguous()
+    out = torch.empty_like(x)
+    _launch("threshold_select", "repro_threshold_select",
+            x, _DTYPE_CODES[x.dtype], x.data_ptr(), t.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[1])
+    threshold_select_2d.launches += 1
+    return out
+
+
+threshold_select_2d.launches = 0
+
+
+def quantize_2d(x, u, scale, levels: int):
+    """Stochastic uniform quantization of an ``(n_rows, d_pad)`` plane to
+    ``levels`` levels per sign, given uniform draws ``u`` (same shape and
+    dtype as ``x``) and per-row ``scale`` magnitudes (``(n_rows,)``; 0 is
+    taken as 1).
+
+    CPU tensors take :func:`quantize_plain`.  CUDA tensors launch the
+    kernel (counted in ``quantize_2d.launches``) or raise; nothing falls
+    back.
+    """
+    _check_plane("quantize", x, u, scale)
+    _check_rows("quantize", x, scale)
+    if u.dtype != x.dtype or u.shape != x.shape:
+        raise ValueError(
+            f"quantize: draws must match the plane ({tuple(x.shape)}, "
+            f"{x.dtype}); got {tuple(u.shape)}, {u.dtype}")
+    levels = int(levels)
+    if levels < 1:
+        raise ValueError(f"quantize: levels must be >= 1, got {levels}")
+    if not _kernel_device("quantize", x):
+        return quantize_plain(x, u, scale, levels)
+    if not (x.is_contiguous() and u.is_contiguous()):
+        raise ValueError("quantize_2d needs a contiguous plane and draws")
+    s = scale.to(_work_dtype(x.dtype)).contiguous()
+    out = torch.empty_like(x)
+    _launch("quantize", "repro_quantize",
+            x, _DTYPE_CODES[x.dtype], x.data_ptr(), u.data_ptr(),
+            s.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], levels)
+    quantize_2d.launches += 1
+    return out
+
+
+quantize_2d.launches = 0

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card: the kernel
 has no CPU mode.  This file imports neither JAX nor the JAX package, so it
@@ -9,7 +9,9 @@ runs where only PyTorch is installed:
 import pytest
 import torch
 
-from repro_torch.kernels import fused_prox, ops
+from repro_torch import comm
+from repro_torch.core import plane as pln
+from repro_torch.kernels import fused_prox, ops, plane_ops
 
 ETA, THRESH = 0.37, 0.21
 _INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -79,3 +81,98 @@ def test_tree_update_is_one_launch_for_all_clients(cuda):
     for k in zh:  # float64 elementwise: CPU and card round alike
         assert torch.equal(got_zh[k].cpu(), e_zh[k])
         assert torch.equal(got_z[k].cpu(), e_z[k])
+
+
+# ---------------------------------------------------------------------------
+# flat-plane threshold select and quantizer
+# ---------------------------------------------------------------------------
+
+_SPECIALS = [float("nan"), -0.0, 0.0, float("inf"), -float("inf")]
+
+
+def _plane(cuda, shape, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.randn(shape, generator=gen, device=cuda, dtype=work).to(dtype)
+    u = torch.rand(shape, generator=gen, device=cuda, dtype=work).to(dtype)
+    return x, u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("shape", [(30, 128), (30, 112_512), (1, 112_512),
+                                   (3, 4099), (5, 3)])
+def test_plane_kernels_match_plain_bitwise_on_card(cuda, dtype, shape):
+    x, u = _plane(cuda, shape, dtype, seed=shape[1])
+    k = min(len(_SPECIALS), shape[1])
+    x[0, :k] = torch.tensor(_SPECIALS[:k], dtype=dtype)
+    thresh = torch.quantile(x.abs().float().nan_to_num(0.0, 0.0, 0.0), 0.7,
+                            dim=1).to(dtype)
+    if shape[1] > k:
+        x[:, k] = thresh  # |x| == thresh is kept
+    before = (plane_ops.threshold_select_2d.launches,
+              plane_ops.quantize_2d.launches)
+    got = plane_ops.threshold_select_2d(x, thresh)
+    exp = plane_ops.threshold_select_plain(x, thresh)
+    scale = torch.amax(torch.abs(x), dim=1)
+    scale[-1] = 0  # a zero-scale row quantizes as scale 1
+    q = plane_ops.quantize_2d(x, u, scale, 255)
+    q_exp = plane_ops.quantize_plain(x, u, scale, 255)
+    torch.cuda.synchronize()
+    assert (plane_ops.threshold_select_2d.launches,
+            plane_ops.quantize_2d.launches) == (before[0] + 1, before[1] + 1)
+    assert _bits_equal(got, exp) and _bits_equal(q, q_exp)
+
+
+@pytest.mark.gpu
+def test_plane_kernels_on_unaligned_views(cuda):
+    """Planes starting off a 16-byte boundary take the scalar path and
+    still equal the plain versions."""
+    base, ubase = _plane(cuda, (4, 1001), torch.float64, seed=1)
+    x = base.reshape(-1)[1:4001].reshape(4, 1000)  # contiguous, 8 bytes off
+    u = ubase.reshape(-1)[1:4001].reshape(4, 1000)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    t = torch.full((4,), 0.5, device=cuda, dtype=torch.float64)
+    assert _bits_equal(plane_ops.threshold_select_2d(x, t),
+                       plane_ops.threshold_select_plain(x, t))
+    s = torch.amax(torch.abs(x), dim=1)
+    assert _bits_equal(plane_ops.quantize_2d(x, u, s, 15),
+                       plane_ops.quantize_plain(x, u, s, 15))
+
+
+@pytest.mark.gpu
+def test_plane_kernels_reject_non_contiguous_input(cuda):
+    a = torch.randn(8, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        plane_ops.threshold_select_2d(a.t(), torch.ones(4, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        plane_ops.quantize_2d(a.t(), a.t(), torch.ones(4, device=cuda), 15)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["topk", "quantize"])
+def test_one_launch_per_global_compress_call(cuda, name):
+    """A global compress on the card is one kernel launch, and equals the
+    same compress on the CPU given the same draws (float64)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    msg = {"w": torch.randn(30, 112_394, generator=gen, device=cuda,
+                            dtype=torch.float64),
+           "b": torch.randn(30, generator=gen, device=cuda,
+                            dtype=torch.float64)}
+    spec = pln.SegmentSpec.from_tree(msg, batch_dims=1)
+    tr = (comm.TopK(0.1, granularity="global") if name == "topk"
+          else comm.Quantize(8, granularity="global"))
+    pt = comm.PlaneTransport(tr, spec)
+    flat = pln.flatten(spec, msg)
+    state = pt.init_state(flat)
+    counter = (plane_ops.threshold_select_2d if name == "topk"
+               else plane_ops.quantize_2d)
+    before = counter.launches
+    hat, new_state = pt.compress(state, flat, comm.GeneratorDraws(0))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    hat_cpu, _ = pt.compress(state.cpu(), flat.cpu(), comm.GeneratorDraws(0))
+    assert counter.launches == before + 1
+    assert torch.equal(hat.cpu(), hat_cpu)
+    assert torch.equal(new_state.cpu(), flat.cpu() - hat_cpu)

@@ -1,5 +1,6 @@
-"""The port's fused local-update + L1-prox kernel module against the JAX
-reference (repro_torch.kernels vs repro.kernels).
+"""The port's kernel modules against the JAX reference (repro_torch.kernels
+vs repro.kernels): the fused local-update + L1-prox step, and the flat-plane
+threshold select and quantizer.
 
 On the CPU the wrapper runs the kernel's plain PyTorch version; the CUDA
 kernel itself is compared with that plain version on the card
@@ -14,7 +15,15 @@ Tolerances:
     float32 is held to ``4 * eps32 * max(|z_hat|, |eta*(g+c)|)`` per element
     and bfloat16 (computed in float32, rounded once at each store by both)
     to one bfloat16 ulp plus that float32 term, which the soft threshold
-    exposes where ``|z_hat'|`` is within a few float32 ulps of ``thresh``.
+    exposes where ``|z_hat'|`` is within a few float32 ulps of ``thresh``;
+  * the plane kernels' plain versions spell out ``ref.plane_threshold_select``
+    and ``ref.plane_quantize`` in the same dtype (float32, float64), so they
+    are held BITWISE, NaN, +-0, +-inf and ``|x| == thresh`` included.  In
+    bfloat16 the reference quantizes with every operation rounded to
+    bfloat16, the port computes in float32 and rounds once: held to two
+    quantization steps ``2*s/L`` (a level can move by one where a bfloat16
+    rounding of ``y`` crosses an integer or ``u`` the fraction) plus two
+    bfloat16 ulps of the output.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +34,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.fused_prox import fused_local_update_2d as pallas_2d
-from repro_torch.kernels import _build, fused_prox, ops
+from repro_torch.kernels import _build, fused_prox, ops, plane_ops
 
 EPS32 = float(np.finfo(np.float32).eps)
 ETA, THRESH = 0.37, 0.21
@@ -191,7 +200,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     srcs = _build._sources()
-    assert [s.name for s in srcs] == ["fused_prox.cu"]
+    assert [s.name for s in srcs] == ["fused_prox.cu", "plane_ops.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
     # the library name changes with the sources
@@ -217,3 +226,147 @@ def test_fused_step_is_a_drop_in_for_the_plain_step():
     with pytest.raises(ValueError, match="unmasked L1"):
         ops.fused_local_update_step(reg.with_mask({"w": True, "b": False}),
                                     0.3, 2, zh, g, c)
+
+
+# ---------------------------------------------------------------------------
+# flat-plane threshold select and quantizer
+# ---------------------------------------------------------------------------
+
+SPECIALS = [np.nan, -0.0, 0.0, np.inf, -np.inf]
+
+
+def _plane_with_specials(shape, dtype, seed):
+    """A plane of normals whose row 0 holds NaN, +-0, +-inf and, in every
+    row, values exactly at +-thresh; returns (x, thresh)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(dtype)
+    thresh = np.abs(rng.normal(size=shape[0])).astype(dtype)
+    k = min(len(SPECIALS), shape[1])
+    x[0, :k] = np.asarray(SPECIALS[:k], dtype)
+    if shape[1] > k + 1:
+        x[:, k] = thresh
+        x[:, k + 1] = -thresh
+    return x, thresh
+
+
+@pytest.mark.parametrize("shape", [(30, 128), (1, 112_512), (4, 9), (3, 1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_threshold_select_plain_matches_ref_bitwise(shape, dtype):
+    x, thresh = _plane_with_specials(shape, dtype, seed=shape[1])
+    exp = np.asarray(ref.plane_threshold_select(jnp.asarray(x),
+                                                jnp.asarray(thresh)))
+    got = plane_ops.threshold_select_2d(torch.from_numpy(x),
+                                        torch.from_numpy(thresh)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(exp))
+    if shape[1] > 7:  # |x| == thresh is kept, NaN is dropped
+        assert np.all(got[:, 5] == thresh) and np.all(got[:, 6] == -thresh)
+    assert got[0, 0] == 0
+
+
+def test_threshold_select_takes_thresh_in_x_dtype():
+    """A float64 threshold is cast to x's dtype first, as ``ref.py`` does
+    (the Pallas kernel casts it to float32, ROADMAP Queue 3)."""
+    x = torch.tensor([[1.0, 1.0 + 2 ** -40]], dtype=torch.float64)
+    t = torch.tensor([1.0 + 2 ** -41], dtype=torch.float64)
+    got = plane_ops.threshold_select_2d(x, t)
+    exp = np.asarray(ref.plane_threshold_select(jnp.asarray(x.numpy()),
+                                                jnp.asarray(t.numpy())))
+    np.testing.assert_array_equal(got.numpy(), exp)
+    assert got[0, 0] == 0 and got[0, 1] == x[0, 1]
+
+
+def _quant_inputs(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * 3).astype(dtype)
+    x[0, :2] = [-0.0, 0.0]
+    u = rng.uniform(size=shape).astype(dtype)
+    scale = np.max(np.abs(x), axis=1)
+    scale[-1] = 0.0  # a zero-scale row quantizes as scale 1
+    return x, u, scale
+
+
+@pytest.mark.parametrize("levels", [1, 15, 255])
+@pytest.mark.parametrize("shape", [(30, 128), (1, 4097), (5, 3)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_quantize_plain_matches_ref_bitwise(shape, dtype, levels):
+    x, u, scale = _quant_inputs(shape, dtype, seed=levels)
+    exp = np.asarray(ref.plane_quantize(jnp.asarray(x), jnp.asarray(u),
+                                        jnp.asarray(scale), levels))
+    got = plane_ops.quantize_2d(*map(torch.from_numpy, (x, u, scale)),
+                                levels).numpy()
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(_bits(got), _bits(exp))
+
+
+def test_quantize_plain_matches_ref_bf16_within_two_levels():
+    x, u, scale = _quant_inputs((30, 128), np.float32, seed=7)
+    tx, tu_ = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, u))
+    ts = torch.amax(torch.abs(tx), dim=1)
+    ts[-1] = 0
+    got = plane_ops.quantize_2d(tx, tu_, ts, 255)
+    assert got.dtype == torch.bfloat16
+    jx, ju, js = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (tx, tu_, ts))
+    exp = np.asarray(ref.plane_quantize(jx, ju, js, 255).astype(jnp.float32))
+    s = ts.float().numpy()
+    s[s == 0] = 1.0
+    a = got.float().numpy()
+    tol = 2 * s[:, None] / 255 + 2 * _bf16_ulp(np.maximum(np.abs(a),
+                                                          np.abs(exp)))
+    assert np.all(np.abs(a - exp) <= tol)
+
+
+def test_plane_ops_match_pallas_interpret_f32():
+    """In float32 the Pallas select (run by the interpreter) equals the
+    plain version bitwise.  The interpreted quantizer rounds its divisions
+    differently (1-2 float32 ulps of the output), so it is held to one
+    quantization step ``s/L`` (where ``y - floor(y)`` sits at ``u``) plus
+    four float32 ulps."""
+    from repro.kernels import ops as kops
+
+    x, thresh = _plane_with_specials((4, 1024), np.float32, seed=3)
+    x[0, 0] = 0.5  # the interpreter's NaN handling is not the point here
+    exp = kops.plane_threshold_select(jnp.asarray(x), jnp.asarray(thresh),
+                                      interpret=True)
+    got = ops.plane_threshold_select(torch.from_numpy(x),
+                                     torch.from_numpy(thresh))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(exp)))
+    x, u, scale = _quant_inputs((4, 1024), np.float32, seed=4)
+    exp = kops.plane_quantize(jnp.asarray(x), jnp.asarray(u),
+                              jnp.asarray(scale), 255, interpret=True)
+    got = ops.plane_quantize(*map(torch.from_numpy, (x, u, scale)),
+                             255).numpy()
+    s = np.where(scale == 0, 1, scale)[:, None]
+    exp = np.asarray(exp)
+    tol = s / 255 + 4 * EPS32 * np.maximum(np.abs(got), np.abs(exp))
+    assert np.all(np.abs(got - exp) <= tol)
+
+
+def test_plane_wrappers_check_their_inputs():
+    x = torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="per-row"):
+        plane_ops.threshold_select_2d(x, torch.zeros(4))
+    with pytest.raises(ValueError, match="plane"):
+        plane_ops.threshold_select_2d(torch.zeros(8), torch.zeros(1))
+    with pytest.raises(ValueError, match="dtype"):
+        plane_ops.threshold_select_2d(x.int(), torch.zeros(3))
+    with pytest.raises(ValueError, match="draws"):
+        plane_ops.quantize_2d(x, x.double(), torch.ones(3), 255)
+    with pytest.raises(ValueError, match="levels"):
+        plane_ops.quantize_2d(x, x, torch.ones(3), 0)
+
+
+def test_plane_wrappers_raise_on_a_device_without_kernel():
+    m = torch.empty(3, 8, device="meta")
+    t = torch.empty(3, device="meta")
+    before = (plane_ops.threshold_select_2d.launches,
+              plane_ops.quantize_2d.launches)
+    with pytest.raises(ValueError, match="no threshold_select kernel"):
+        plane_ops.threshold_select_2d(m, t)
+    with pytest.raises(ValueError, match="no quantize kernel"):
+        plane_ops.quantize_2d(m, m, t, 255)
+    x = torch.ones(3, 8)
+    plane_ops.threshold_select_2d(x, torch.ones(3))
+    plane_ops.quantize_2d(x, x * 0.5, torch.ones(3), 255)
+    assert (plane_ops.threshold_select_2d.launches,
+            plane_ops.quantize_2d.launches) == before
