@@ -514,12 +514,6 @@ class PlaneTransport:
     def wire_encoding(self) -> str:
         return self.inner.wire_encoding
 
-    @property
-    def scheduled(self) -> bool:
-        """True when the wrapped transport follows a
-        :class:`repro_torch.comm.schedule.RatioSchedule`."""
-        return getattr(self.inner, "scheduled", False)
-
     def init_state(self, flat_template):
         if not self.inner.error_feedback:
             return ()
@@ -527,16 +521,8 @@ class PlaneTransport:
                            dtype=flat_template.dtype,
                            device=flat_template.device)
 
-    def compress(self, comm_state, flat, draws=None, ages=None):
-        if ages is not None:
-            return self.inner.compress_plane(comm_state, flat, draws,
-                                             self.spec, ages=ages)
+    def compress(self, comm_state, flat, draws=None):
         return self.inner.compress_plane(comm_state, flat, draws, self.spec)
-
-    def scheduled_bytes(self, msg_template, ages):
-        """Per-client realized bytes under the wrapped transport's ratio
-        schedule (the plane spec stands in for the pytree template)."""
-        return self.inner.scheduled_bytes_flat(self.spec, ages)
 
     def select_clients(self, mask, new_state, old_state):
         """Per-client-row advance guard on the flat residual."""

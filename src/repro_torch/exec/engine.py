@@ -138,7 +138,7 @@ class EngineConfig:
                 f"interface, got {type(self.transport).__name__}")
         downlink_on = self.downlink is not None
         return StageStack(
-            uplink=(UplinkComm(self.transport, self.comm_seed)
+            uplink=(UplinkComm(self.transport)
                     if self.transport is not None or downlink_on else None),
             downlink=(DownlinkComm.coerce(self.downlink)
                       if downlink_on else None))

@@ -30,12 +30,10 @@ class UplinkComm:
 
     ``transport=None`` resolves to the identity :class:`repro_torch.comm.Dense`
     (the stage still splits the round into its local/server halves, which
-    the downlink stage builds on).  ``seed`` seeds the engine's default draw
-    source.
+    the downlink stage builds on).
     """
 
     transport: Any = None
-    seed: int = 0
     name: str = "uplink"
 
     def resolve_transport(self):

@@ -21,9 +21,8 @@
 // plane (no per-row or per-leaf launches, no lane padding), 16-byte vector
 // loads and stores where every pointer is aligned, a scalar loop for the
 // ragged tail. The row of an element is i / d_pad, computed once per
-// vector (in 32 bits when the plane is small enough) and carried across
-// row boundaries inside the vector; the per-row scalars are read through
-// the cache (30 rows: a few hundred bytes).
+// vector and carried across row boundaries inside the vector; the per-row
+// scalars are read through the cache (30 rows: a few hundred bytes).
 //
 // Rounding: the results must equal the plain PyTorch versions
 // (repro_torch/kernels/plane_ops.py) bitwise, so every add, subtract,
@@ -97,21 +96,22 @@ __device__ __forceinline__ W quantize_one(W x, W u, W s, W L) {
 
 // thresh: per-row thresholds in x's storage type (the reference casts the
 // threshold to x's dtype before comparing), read in the compute type W.
-template <typename T, typename W, typename I>
+template <typename T, typename W>
 __global__ void threshold_select_kernel(const T* __restrict__ x, const T* __restrict__ thresh,
-                                        T* __restrict__ out, I n, I d_pad, bool vectorized) {
-  const I stride = I(gridDim.x) * blockDim.x;
-  const I tid = I(blockIdx.x) * blockDim.x + threadIdx.x;
-  I head = 0;
+                                        T* __restrict__ out, int64_t n, int64_t d_pad,
+                                        bool vectorized) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t head = 0;
   if (vectorized) {
     constexpr int N = Vec<T>::N;
-    const I nvec = n / N;
+    const int64_t nvec = n / N;
     const Vec<T>* x_v = reinterpret_cast<const Vec<T>*>(x);
     Vec<T>* out_v = reinterpret_cast<Vec<T>*>(out);
-    for (I i = tid; i < nvec; i += stride) {
-      const I base = i * N;
-      I row = base / d_pad;
-      I col = base - row * d_pad;
+    for (int64_t i = tid; i < nvec; i += stride) {
+      const int64_t base = i * N;
+      int64_t row = base / d_pad;
+      int64_t col = base - row * d_pad;
       W t = load_w(thresh[row]);
       const Vec<T> a = x_v[i];
       Vec<T> o;
@@ -129,7 +129,7 @@ __global__ void threshold_select_kernel(const T* __restrict__ x, const T* __rest
     }
     head = nvec * N;
   }
-  for (I i = head + tid; i < n; i += stride) {
+  for (int64_t i = head + tid; i < n; i += stride) {
     out[i] = select_one<T, W>(x[i], load_w(thresh[i / d_pad]));
   }
 }
@@ -142,23 +142,23 @@ __device__ __forceinline__ W scale_of(const W* scale, int64_t row) {
   return s == W(0) ? W(1) : s;
 }
 
-template <typename T, typename W, typename I>
+template <typename T, typename W>
 __global__ void quantize_kernel(const T* __restrict__ x, const T* __restrict__ u,
-                                const W* __restrict__ scale, T* __restrict__ out, I n,
-                                I d_pad, W L, bool vectorized) {
-  const I stride = I(gridDim.x) * blockDim.x;
-  const I tid = I(blockIdx.x) * blockDim.x + threadIdx.x;
-  I head = 0;
+                                const W* __restrict__ scale, T* __restrict__ out, int64_t n,
+                                int64_t d_pad, W L, bool vectorized) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t head = 0;
   if (vectorized) {
     constexpr int N = Vec<T>::N;
-    const I nvec = n / N;
+    const int64_t nvec = n / N;
     const Vec<T>* x_v = reinterpret_cast<const Vec<T>*>(x);
     const Vec<T>* u_v = reinterpret_cast<const Vec<T>*>(u);
     Vec<T>* out_v = reinterpret_cast<Vec<T>*>(out);
-    for (I i = tid; i < nvec; i += stride) {
-      const I base = i * N;
-      I row = base / d_pad;
-      I col = base - row * d_pad;
+    for (int64_t i = tid; i < nvec; i += stride) {
+      const int64_t base = i * N;
+      int64_t row = base / d_pad;
+      int64_t col = base - row * d_pad;
       W s = scale_of(scale, row);
       const Vec<T> a = x_v[i], b = u_v[i];
       Vec<T> o;
@@ -176,7 +176,7 @@ __global__ void quantize_kernel(const T* __restrict__ x, const T* __restrict__ u
     }
     head = nvec * N;
   }
-  for (I i = head + tid; i < n; i += stride) {
+  for (int64_t i = head + tid; i < n; i += stride) {
     const W s = scale_of(scale, i / d_pad);
     out[i] = store_t<T>(quantize_one<W>(load_w(x[i]), load_w(u[i]), s, L));
   }
@@ -194,10 +194,6 @@ unsigned grid_for(int64_t n, bool vec) {
   return static_cast<unsigned>(blocks);
 }
 
-// 32-bit indexing (cheaper division) when every index, plus one stride of
-// the grid, fits.
-bool fits32(int64_t n) { return n + 65535LL * 16 * kThreads < (1LL << 32); }
-
 template <typename T, typename W>
 int launch_select(const void* x, const void* thresh, void* out, int64_t n_rows, int64_t d_pad,
                   cudaStream_t stream) {
@@ -207,13 +203,7 @@ int launch_select(const void* x, const void* thresh, void* out, int64_t n_rows, 
   const T* xs = static_cast<const T*>(x);
   const T* ts = static_cast<const T*>(thresh);
   T* os = static_cast<T*>(out);
-  if (fits32(n)) {
-    threshold_select_kernel<T, W, uint32_t><<<grid, kThreads, 0, stream>>>(
-        xs, ts, os, static_cast<uint32_t>(n), static_cast<uint32_t>(d_pad), vec);
-  } else {
-    threshold_select_kernel<T, W, uint64_t><<<grid, kThreads, 0, stream>>>(
-        xs, ts, os, static_cast<uint64_t>(n), static_cast<uint64_t>(d_pad), vec);
-  }
+  threshold_select_kernel<T, W><<<grid, kThreads, 0, stream>>>(xs, ts, os, n, d_pad, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,13 +218,7 @@ int launch_quantize(const void* x, const void* u, const void* scale, void* out, 
   const W* ss = static_cast<const W*>(scale);
   T* os = static_cast<T*>(out);
   const W L = static_cast<W>(levels);
-  if (fits32(n)) {
-    quantize_kernel<T, W, uint32_t><<<grid, kThreads, 0, stream>>>(
-        xs, us, ss, os, static_cast<uint32_t>(n), static_cast<uint32_t>(d_pad), L, vec);
-  } else {
-    quantize_kernel<T, W, uint64_t><<<grid, kThreads, 0, stream>>>(
-        xs, us, ss, os, static_cast<uint64_t>(n), static_cast<uint64_t>(d_pad), L, vec);
-  }
+  quantize_kernel<T, W><<<grid, kThreads, 0, stream>>>(xs, us, ss, os, n, d_pad, L, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
