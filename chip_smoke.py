@@ -38,16 +38,40 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   Quantize(8, global) on the plane, tau = 10, 20 rounds each
                   (draws from the card's own generator): launches, finite
                   optimality, uplink bytes per client per round, s/round and
-                  each kernel's share of a round's device time.
+                  each kernel's share of a round's device time;
+  7. paper async -- the quickstart's two async configurations on the Fig. 2
+                  problem, tau = 10, 200 commits each, on the card and on
+                  the CPU with the clock's draws made on the CPU: (a)
+                  StragglerClock(4.0), buffer 15 of 30, Staleness("poly",
+                  correct=True); (b) the same on the plane with TopK(0.25)
+                  up and down and queue_depth=2.  Optimality at every eval
+                  point equal at rtol 1e-6 above 1e-9, the staleness ledger
+                  (age histogram, mean and max age) equal commit by commit;
+                  in (b) the commit kernel launched once per commit;
+  8. wide async -- phase 4's set-up on the plane with TopK(0.1, global),
+                  StragglerClock(4.0), buffer 15 of 30, Staleness("poly",
+                  correct=True), queue_depth=2, 20 commits (draws from the
+                  card's own generators): the commit kernel launched 20
+                  times, finite optimality, s/commit after a warm chunk, one
+                  profiled commit's busy time, idle share and top kernels,
+                  and the commit kernel's share of the busy time;
+  9. cohort      -- the quickstart's cohort run: population 3,000, cohort 30,
+                  TopK(0.25), chunk 16, 200 rounds on the Fig. 2 problem, on
+                  the card and on the CPU: the final loss at rtol 1e-6 and
+                  the population store's touched rows equal.
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
 (30, 112,512), (30, 128) and (1, 112,512) float64 -- the compressed paths'
 planes -- and at (30, 4,194,304) in float32, bfloat16 and float64, with
 NaN, +-0, +-inf, |x| == thresh and a zero-scale row injected, and times
-``torch.topk`` at the wide plane beside the select.
+``torch.topk`` at the wide plane beside the select.  It holds the weighted
+commit kernel against its plain version, bit for bit, at (30, 128) and
+(30, 112,512) float64 and at (30, 4,194,304) in float32, bfloat16 and
+float64, with NaN, +-0 and +-inf injected and zero weights for undelivered
+clients, and times ``torch.mv(buf.t(), w)`` beside it.
 
-Every launch counter is set to 0 just before each path of phases 3-6 and
+Every launch counter is set to 0 just before each path of phases 3-9 and
 read just after.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -72,6 +96,7 @@ OPS_PER_ELEMENT = 10  # add, mul, sub, abs, sub, max, 2 compares, sub, mul
 # the plane kernels' operations per element: select -- abs, compare,
 # select; quantize -- div, mul, floor, sub, compare, add, div, mul
 PLANE_OPS = {"threshold_select": 3, "quantize": 8}
+COMMIT_OPS = 2  # the commit: a multiply and an add per element
 SPECIALS = [float("nan"), -0.0, 0.0, float("inf"), -float("inf")]
 
 
@@ -94,7 +119,15 @@ def _counters():
 
     return {"fused_local_update": fused_prox.fused_local_update_2d,
             "threshold_select": plane_ops.threshold_select_2d,
-            "quantize": plane_ops.quantize_2d}
+            "quantize": plane_ops.quantize_2d,
+            "weighted_commit": plane_ops.weighted_commit_2d}
+
+
+def _expect(**launches) -> dict:
+    """Expected counter readings: the given kernels, every other at 0."""
+    out = {name: 0 for name in _counters()}
+    out.update(launches)
+    return out
 
 
 def reset_counts() -> None:
@@ -426,8 +459,7 @@ def phase_main_path(card: str):
         secs = time.perf_counter() - t0
         counts = read_counts()
         launches = counts["fused_local_update"]
-        check(counts == {"fused_local_update": rounds * tau,
-                         "threshold_select": 0, "quantize": 0},
+        check(counts == _expect(fused_local_update=rounds * tau),
               f"tau={tau}: launches {counts}, expected {rounds * tau} "
               "fused and no plane kernel")
         h_cpu = _cpu_run(lambda: _fig2_run(tau, "cpu", rounds, every))
@@ -467,9 +499,7 @@ def phase_compressed_paper(card: str):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = read_counts()
-        expect = {"fused_local_update": rounds * tau, "threshold_select": 0,
-                  "quantize": 0}
-        expect[kernel] = rounds
+        expect = _expect(fused_local_update=rounds * tau, **{kernel: rounds})
         check(counts == expect, f"compressed {name}: launches {counts}, "
               f"expected {expect}")
         h_cpu = _cpu_run(lambda: _fig2_run(
@@ -532,8 +562,7 @@ def phase_wide(card: str, kernel_ms: float):
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["fused_local_update"]
-    check(counts == {"fused_local_update": rounds * tau,
-                     "threshold_select": 0, "quantize": 0},
+    check(counts == _expect(fused_local_update=rounds * tau),
           f"wide: launches {counts}, expected {rounds * tau} fused only")
     opt = h.optimality
     check(all(math.isfinite(v) for v in opt), f"wide: non-finite {opt}")
@@ -629,6 +658,7 @@ _ROUND_PARTS = {
     "threshold_select": ("threshold_select_kernel",),
     "quantize": ("quantize_kernel",),
     "torch.topk": ("topk", "TopK", "sort", "Sort"),
+    "weighted_commit": ("weighted_commit_kernel",),
 }
 
 
@@ -661,9 +691,7 @@ def phase_wide_compressed(card: str, ctx: dict):
                           engine=eng)
         torch.cuda.synchronize()
         counts = read_counts()
-        expect = {"fused_local_update": rounds * tau, "threshold_select": 0,
-                  "quantize": 0}
-        expect[kernel] = rounds
+        expect = _expect(fused_local_update=rounds * tau, **{kernel: rounds})
         check(counts == expect, f"wide {name}: launches {counts}, expected "
               f"{expect}")
         opt = h.optimality
@@ -702,6 +730,311 @@ def phase_wide_compressed(card: str, ctx: dict):
     return out
 
 
+# -- phase 2: the weighted commit ---------------------------------------------
+
+def _commit_case(shape, dtype, card: str, seed: int):
+    """The commit kernel against its plain version at one shape, timed
+    beside ``torch.mv(buf.t(), w)`` (the same function in one library
+    call)."""
+    import torch
+
+    from repro_torch.kernels import plane_ops as po
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=work).to(dtype)
+    w = torch.rand((shape[0],), generator=gen, device="cuda",
+                   dtype=torch.float64) + 0.5
+    w[::4] = 0.0  # undelivered clients
+    k = min(len(SPECIALS), shape[1])
+    x[1, :k] = torch.tensor(SPECIALS[:k], dtype=dtype)
+    kern = lambda: po.weighted_commit_2d(x, w)
+    plain = lambda: po.weighted_commit_plain(x, w)
+    got, exp = kern(), plain()
+    torch.cuda.synchronize()
+    diff = _bit_diff(got, exp)
+    check(diff == 0, f"weighted_commit kernel != plain bitwise at {shape} "
+          f"{dtype}: {diff} elements differ")
+    check(bool(torch.isnan(got[0])), "a NaN under a nonzero weight vanished")
+    err = _finite_err(got, exp)
+    del got, exp
+    xt, wl = x.t(), w.to(dtype)
+    library = lambda: torch.mv(xt, wl)
+    n = x.numel()
+    batch = 1 if n > 1e8 else 10
+    ms = _time_ms(kern, 15, batch)
+    plain_ms = _time_ms(plain, 5, 1)
+    library_ms = _time_ms(library, 15, batch)
+    device_ms = _device_ms(kern)
+    plain_device_ms = _device_ms(plain, 5)
+    library_device_ms = _device_ms(library)
+    item = x.element_size()
+    nbytes = n * item + shape[1] * item + shape[0] * (8 if work ==
+                                                      torch.float64 else 4)
+    wname = str(dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = COMMIT_OPS * n / PEAK_OPS[wname]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    row = {"kernel": "weighted_commit", "shape": list(shape), "dtype": wname,
+           "bitwise_equal": True, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "device_ms": device_ms,
+           "plain_device_ms": plain_device_ms, "library_ms": library_ms,
+           "library_device_ms": library_device_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes,
+           "GB_per_s": nbytes / (ms * 1e-3) / 1e9}
+    log(f"[kernels] weighted_commit {tuple(shape)} {wname}: bitwise equal; "
+        f"kernel {ms:.4f} ms (device {device_ms:.4f} ms, "
+        f"{nbytes / (device_ms * 1e-3) / 1e9:.0f} GB/s), bound {bound_ms:.4f} "
+        f"ms ({bound_by}, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms "
+        f"(device {plain_device_ms:.4f}), torch.mv {library_ms:.4f} ms "
+        f"(device {library_device_ms:.4f})  [{card}]")
+    del x, xt, wl
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_commit_kernel(card: str):
+    import torch
+
+    cases = [((30, 128), torch.float64), ((30, 112_512), torch.float64),
+             ((30, 4_194_304), torch.float32),
+             ((30, 4_194_304), torch.bfloat16),
+             ((30, 4_194_304), torch.float64)]
+    return [_commit_case(shape, dt, card, 200 + i)
+            for i, (shape, dt) in enumerate(cases)]
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+def _async_config(plane: bool):
+    """Quickstart (a) (``examples/quickstart.py:100-104``) or, with
+    ``plane``, (b) (``:191-198``)."""
+    from repro_torch.comm import TopK
+    from repro_torch.exec import EngineConfig
+    from repro_torch.sched import Staleness, StragglerClock
+
+    kw = dict(chunk_rounds=16, clock=StragglerClock(slowdown=4.0),
+              buffer_size=15, staleness=Staleness("poly", correct=True))
+    if plane:
+        kw.update(plane=True, transport=TopK(ratio=0.25),
+                  downlink=TopK(ratio=0.25), queue_depth=2)
+    return EngineConfig(**kw)
+
+
+def _async_paper_run(device: str, plane: bool, commits: int, every: int):
+    """(relative optimality per eval point, metrics per commit)."""
+    import numpy as np
+
+    from repro_torch.comm import GeneratorDraws
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.core.metrics import prox_gradient_norm
+    from repro_torch.data.synthetic import make_round_batches
+    from repro_torch.exec import RoundEngine
+    from repro_torch.fed import problems, simulator
+
+    tau = 10
+    data, reg, grad_fn, full_g, params0, L = problems.logreg_problem(
+        device=device)
+    eta_g, eta_tilde = 15.0, 0.5 / L
+    alg = simulator.DProxAlgorithm(reg, DProxConfig(
+        tau=tau, eta=eta_tilde / (eta_g * tau), eta_g=eta_g))
+    eng = RoundEngine(alg, grad_fn, 30, _async_config(plane), device=device,
+                      clock_draws=GeneratorDraws(21, "cpu"),
+                      draws=GeneratorDraws(22, "cpu"))
+    state = eng.init(params0)
+    rng = np.random.default_rng(0)
+    opt, metrics, g0 = [], {}, None
+    for r0 in range(0, commits + 1, every):
+        g = float(prox_gradient_norm(reg, full_g, eng.global_params(state),
+                                     eta_tilde))
+        g0 = g if g0 is None else g0
+        opt.append(g / g0)
+        if r0 == commits:
+            break
+        state, m = eng.run(state, lambda r, g_: make_round_batches(
+            data, tau, None, g_), every, rng=rng, start_round=r0)
+        for k, v in m.items():
+            metrics.setdefault(k, []).extend(v)
+    return opt, metrics
+
+
+def phase_async_paper(card: str):
+    import numpy as np
+    import torch
+
+    commits, every, tau = 200, 25, 10
+    out = {}
+    for name, plane in (("a", False), ("b", True)):
+        reset_counts()
+        t0 = time.perf_counter()
+        opt, m = _async_paper_run("cuda", plane, commits, every)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        # (b): the uplink's and the downlink's top-k select the 20-wide w
+        # leaf each commit (the 1-wide bias keeps its one coordinate)
+        expect = (_expect(fused_local_update=commits * tau,
+                          threshold_select=2 * commits,
+                          weighted_commit=commits) if plane
+                  else _expect(fused_local_update=commits * tau))
+        check(counts == expect, f"async ({name}): launches {counts}, "
+              f"expected {expect}")
+        opt_cpu, m_cpu = _cpu_run(lambda: _async_paper_run(
+            "cpu", plane, commits, every))
+        max_rel = _check_opt_match(f"async ({name})", opt, opt_cpu,
+                                   commits // every + 1)
+        hist = np.stack(m["report_age_hist"])
+        check(np.array_equal(hist, np.stack(m_cpu["report_age_hist"])),
+              f"async ({name}): the age histograms differ from the CPU's")
+        for k in ("staleness_mean", "staleness_max"):
+            check(m[k] == m_cpu[k], f"async ({name}): {k} differs from the "
+                  "CPU's")
+        vt = max(abs(a - b) / b for a, b in zip(m["vtime"], m_cpu["vtime"]))
+        check(vt <= 1e-6, f"async ({name}): vtime differs by {vt:.3e}")
+        log(f"[async] fig2 ({name}) {'plane, top-k up+down, queue 2' if plane else 'per-leaf, dense'}: "
+            f"{commits} commits in {secs:.2f} s, launches {counts}, "
+            f"optimality {['%.6e' % v for v in opt]} (cpu final "
+            f"{opt_cpu[-1]:.6e}, max rel diff {max_rel:.2e}), mean age "
+            f"{np.mean(m['staleness_mean']):.3f}, max age "
+            f"{max(m['staleness_max']):.0f}, vtime {m['vtime'][-1]:.2f} "
+            f"(max rel diff to cpu {vt:.2e})  [{card}]")
+        out[name] = {"commits": commits, "launches": counts,
+                     "seconds": secs, "optimality": opt,
+                     "optimality_cpu": opt_cpu, "max_rel_diff": max_rel,
+                     "mean_age": float(np.mean(m["staleness_mean"])),
+                     "max_age": max(m["staleness_max"]),
+                     "vtime": m["vtime"][-1], "vtime_max_rel_diff": vt,
+                     "age_hist_total": hist.sum(axis=0).tolist()}
+    return out
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+def phase_wide_async(card: str, ctx: dict):
+    """Phase 4's wide set-up under asynchrony on the plane."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm import TopK
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import simulator
+    from repro_torch.sched import Staleness, StragglerClock
+
+    tau, commits, every = 10, 20, 5
+
+    def engine():
+        return RoundEngine(ctx["alg"], ctx["grad_fn"], 30, EngineConfig(
+            chunk_rounds=4, plane=True, transport=TopK(0.1,
+                                                       granularity="global"),
+            clock=StragglerClock(slowdown=4.0), buffer_size=15,
+            staleness=Staleness("poly", correct=True), queue_depth=2),
+            device="cuda")
+
+    eng = engine()
+    reset_counts()
+    h = simulator.run(ctx["alg"], ctx["params0"], ctx["grad_fn"],
+                      ctx["supplier"], 30, commits, reg=ctx["reg"],
+                      eta_tilde=ctx["eta_tilde"], full_grad_fn=ctx["full_g"],
+                      eval_every=every, engine=eng)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect = _expect(fused_local_update=commits * tau,
+                     threshold_select=commits, weighted_commit=commits)
+    check(counts == expect, f"wide async: launches {counts}, expected "
+          f"{expect}")
+    opt = h.optimality
+    check(all(math.isfinite(v) for v in opt), f"wide async: non-finite {opt}")
+    sd = eng._sched_state
+    mean_age = float(sd.last_age.float().mean())
+
+    s_per_commit, commit_ms, by_name = _time_and_profile(
+        engine(), ctx["params0"], ctx["supplier"])
+    busy_ms = sum(by_name.values())
+    parts = {part: sum(v for k, v in by_name.items()
+                       if any(f in k for f in frags))
+             for part, frags in _ROUND_PARTS.items()}
+    shares = {part: (ms / busy_ms if busy_ms > 0 else None)
+              for part, ms in parts.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[wide-async] d=112,394 plane, top-k 10% global, stragglers 4x, "
+        f"buffer 15/30, poly+correct, queue 2: {commits} commits, launches "
+        f"{counts}, optimality {['%.6e' % v for v in opt]}, mean last age "
+        f"{mean_age:.2f}  [{card}]")
+    log(f"[wide-async] {s_per_commit:.4f} s/commit after the first chunk; "
+        f"one commit {commit_ms:.3f} ms on the card, device busy "
+        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / commit_ms:.3f}); "
+        "device ms by part "
+        + ", ".join(f"{p} {parts[p]:.4f} ({shares[p] or 0:.4f})"
+                    for p in parts) + f"  [{card}]")
+    for kname, ms in top:
+        log(f"[wide-async]   {ms:9.3f} ms  {kname[:110]}")
+    return {"commits": commits, "launches": counts, "optimality": opt,
+            "s_per_commit": s_per_commit, "commit_ms": commit_ms,
+            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / commit_ms,
+            "device_ms_by_part": parts, "share_of_busy_by_part": shares,
+            "top_kernels_ms": top, "mean_last_age": mean_age}
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+def _cohort_run(device: str, rounds: int):
+    import numpy as np
+
+    from repro_torch.comm import TopK
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.data.synthetic import make_round_batches
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import problems, simulator
+
+    tau, population, cohort = 10, 3000, 30
+    data, reg, grad_fn, full_g, params0, L = problems.logreg_problem(
+        device=device)
+    eta_g, eta_tilde = 15.0, 0.5 / L
+    alg = simulator.DProxAlgorithm(reg, DProxConfig(
+        tau=tau, eta=eta_tilde / (eta_g * tau), eta_g=eta_g))
+
+    def batches(r, rng, *, client_ids=None):
+        ids = (np.arange(population) if client_ids is None
+               else np.asarray(client_ids))
+        full = make_round_batches(data, tau, None, rng)
+        return {k: np.asarray(v)[ids % 30] for k, v in full.items()}
+
+    eng = RoundEngine(alg, grad_fn, population, EngineConfig(
+        chunk_rounds=16, population=population, cohort=cohort,
+        transport=TopK(ratio=0.25)), device=device)
+    state, m = eng.run(eng.init(params0), batches, rounds, seed=0)
+    store = eng.population_store
+    return m["train_loss"], store.touched, store.nbytes
+
+
+def phase_cohort(card: str):
+    import torch
+
+    rounds, tau = 200, 10
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, touched, nbytes = _cohort_run("cuda", rounds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == _expect(fused_local_update=rounds * tau,
+                            threshold_select=rounds),
+          f"cohort: launches {counts}")
+    loss_cpu, touched_cpu, _ = _cpu_run(lambda: _cohort_run("cpu", rounds))
+    check(abs(loss[-1] - loss_cpu[-1]) <= 1e-6 * abs(loss_cpu[-1]),
+          f"cohort: final loss {loss[-1]!r} vs cpu {loss_cpu[-1]!r}")
+    check(touched == touched_cpu, f"cohort: store touched {touched} vs cpu "
+          f"{touched_cpu}")
+    log(f"[cohort] population 3000, cohort 30, top-k 25%: {rounds} rounds in "
+        f"{secs:.2f} s, launches {counts}, final loss {loss[-1]:.6f} (cpu "
+        f"{loss_cpu[-1]:.6f}), store {touched}/3000 rows, "
+        f"{nbytes / 1e3:.0f} KB host  [{card}]")
+    return {"rounds": rounds, "launches": counts, "seconds": secs,
+            "final_loss": loss[-1], "final_loss_cpu": loss_cpu[-1],
+            "touched": touched, "store_bytes": nbytes}
+
+
 def main() -> None:
     import torch
 
@@ -718,29 +1051,33 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(card)
     plane_rows, topk = phase_plane_kernels(card)
+    commit_rows = phase_commit_kernel(card)
     main = phase_main_path(card)
     wide_row = next(r for r in rows if r["shape"] == [30, 112_395])
     wide, ctx = phase_wide(card, wide_row["ms"])
     comp = phase_compressed_paper(card)
     wide_comp = phase_wide_compressed(card, ctx)
+    asyn = phase_async_paper(card)
+    wide_async = phase_wide_async(card, ctx)
+    cohort = phase_cohort(card)
 
     # launches on the main paths: every path's counts, read just after it
     paths = [main["tau10"], main["tau1"], wide, comp["topk"],
-             comp["quantize"], wide_comp["topk"], wide_comp["quantize"]]
-    launches = {k: sum(p["launches"][k] for p in paths)
-                for k in ("fused_local_update", "threshold_select",
-                          "quantize")}
+             comp["quantize"], wide_comp["topk"], wide_comp["quantize"],
+             asyn["a"], asyn["b"], wide_async, cohort]
+    launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": None}
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")}
 
     def plane_row(kernel):  # the wide compressed path's plane
-        return next(r for r in plane_rows if r["kernel"] == kernel
-                    and r["shape"] == [30, 112_512])
+        return next(r for r in plane_rows + commit_rows
+                    if r["kernel"] == kernel and r["shape"] == [30, 112_512])
 
     plane_src = "src/repro_torch/kernels/csrc/plane_ops.cu"
     summary = {
@@ -754,14 +1091,21 @@ def main() -> None:
                   plane_row("threshold_select")),
             entry("quantize", plane_src, "src/repro/kernels/plane_ops.py:68",
                   plane_row("quantize")),
+            entry("weighted_commit", plane_src,
+                  "src/repro/kernels/plane_ops.py:100",
+                  plane_row("weighted_commit")),
         ],
         "kernel_cases": rows,
         "plane_kernel_cases": plane_rows,
+        "commit_kernel_cases": commit_rows,
         "torch_topk": topk,
         "main_path": main,
         "wide": wide,
         "compressed_paper": comp,
         "wide_compressed": wide_comp,
+        "async_paper": asyn,
+        "wide_async": wide_async,
+        "cohort": cohort,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -11,7 +11,11 @@ for Hopper (``kernels/csrc/fused_prox.cu``); and the compressed uplink
 (``repro_torch.comm``: top-k, rand-k and quantization with error feedback,
 per leaf or over the whole flat plane, and the compressed downlink) through
 the engine's communication stages, with global top-k's threshold select and
-the stochastic quantizer as CUDA kernels (``kernels/csrc/plane_ops.cu``).
+the stochastic quantizer as CUDA kernels (``kernels/csrc/plane_ops.cu``);
+and simulated asynchrony and cohort-resident client state
+(``repro_torch.sched`` through the engine's Asynchrony and Cohort stages),
+with the buffered commit's client-axis sum on the flat plane as a CUDA
+kernel (``weighted_commit`` in ``kernels/csrc/plane_ops.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present they raise instead of carrying on quietly on the CPU.

@@ -1,14 +1,15 @@
 """Staleness-adaptive compression: a per-client uplink ratio policy.
 
-The counterpart of :mod:`repro.comm.schedule`, without its age signal.
-:class:`RatioSchedule` maps a client's report age to a top-k keep ratio
-(``constant``, ``linear`` in the age, or an explicit ``bucketed`` table).
-:class:`ScheduledTopK` threads it through magnitude top-k with the usual
-error-feedback stream at age zero for every client: the reference's
-``ages=`` argument, and the per-client byte accounting that goes with it,
-come with the asynchrony stage that supplies the ages.  So every kind keeps
-its age-0 count, which is what the reference does when ``ages`` is ``None``.
-A constant schedule is bitwise the fixed-ratio
+The counterpart of :mod:`repro.comm.schedule`.  :class:`RatioSchedule` maps
+a client's report age to a top-k keep ratio (``constant``, ``linear`` in the
+age, or an explicit ``bucketed`` table).  :class:`ScheduledTopK` threads it
+through magnitude top-k with the usual error-feedback stream:
+``compress(..., ages=)`` takes the per-client ``last_age`` ledger the
+asynchrony stage keeps (``None``: age zero for every client, the
+synchronous path), each row keeps its own count -- per-row thresholds for
+the threshold-select kernel -- and ``scheduled_bytes`` reports what each
+client's transmission costs at its age.  A constant schedule is bitwise the
+fixed-ratio
 :class:`~repro_torch.comm.transport.TopK`: the keep count comes from the
 same ``_k_of`` rounding and the same threshold select keeps the survivors
 untouched.
@@ -130,9 +131,11 @@ def _rowwise_select(flat, k):
 class ScheduledTopK(Transport):
     """Magnitude top-k whose keep ratio follows a :class:`RatioSchedule`.
 
-    Every client is at age zero (see the module docstring), so each keeps
-    the schedule's age-0 count.  Error feedback is threaded exactly as in
-    :class:`~repro_torch.comm.transport.TopK`.
+    ``ages`` (int, rounds, per client) is the staleness signal; ``None``
+    means age zero for every client, which yields the base ratio.  Error
+    feedback is threaded exactly as in
+    :class:`~repro_torch.comm.transport.TopK`: what the schedule drops
+    returns at the client's next transmission.
     """
 
     schedule: RatioSchedule = RatioSchedule()
@@ -140,6 +143,7 @@ class ScheduledTopK(Transport):
     granularity: str = "leaf"
     name: str = "topk_sched"
     wire_encoding: str = "sparse"
+    scheduled = True  # compress takes the ages (a class constant, no field)
 
     def __post_init__(self):
         _check_granularity(self.granularity)
@@ -152,62 +156,98 @@ class ScheduledTopK(Transport):
 
     # -- compression -------------------------------------------------------
 
-    def _keep_counts(self, n: int, d: int, device) -> torch.Tensor:
-        return self.schedule.keep_counts(
-            torch.zeros((n,), dtype=torch.int32, device=device), d)
+    def _keep_counts(self, ages, n: int, d: int, device) -> torch.Tensor:
+        if ages is None:
+            ages = torch.zeros((n,), dtype=torch.int32, device=device)
+        return self.schedule.keep_counts(ages.to(torch.int32), d)
 
-    def compress(self, comm_state, msg, draws=None):
+    def compress(self, comm_state, msg, draws=None, ages=None):
         target = tu.tree_add(comm_state, msg) if self.error_feedback else msg
-        msg_hat = self.apply(target, draws)
+        msg_hat = self.apply(target, draws, ages=ages)
         new_state = (tu.tree_sub(target, msg_hat)
                      if self.error_feedback else ())
         return msg_hat, new_state
 
-    def apply(self, msg, draws=None):
+    def apply(self, msg, draws=None, ages=None):
         if self.granularity == "global":
             spec = pln.SegmentSpec.from_tree(msg, batch_dims=1)
             return pln.unflatten(
-                spec, self.apply_flat(pln.flatten(spec, msg), draws, spec))
-        return self.apply_leaf(msg, draws)
+                spec, self.apply_flat(pln.flatten(spec, msg), draws, spec,
+                                      ages=ages))
+        return self.apply_leaf(msg, draws, ages=ages)
 
-    def apply_leaf(self, msg, draws=None):
+    def apply_leaf(self, msg, draws=None, ages=None):
         def one(x):
             flat = x.reshape(x.shape[0], -1)
-            k = self._keep_counts(flat.shape[0], flat.shape[1], flat.device)
+            k = self._keep_counts(ages, flat.shape[0], flat.shape[1],
+                                  flat.device)
             return _rowwise_select(flat, k).reshape(x.shape)
 
         return _map_leaves(one, msg)
 
-    def apply_flat(self, flat, draws, spec):
+    def apply_flat(self, flat, draws, spec, ages=None):
         # the k-th magnitude over the padded plane equals the k-th over the
         # valid region (padding is zero and k <= d)
-        k = self._keep_counts(flat.shape[0], spec.d, flat.device)
+        k = self._keep_counts(ages, flat.shape[0], spec.d, flat.device)
         return _rowwise_select(flat, k)
 
     # -- flat-plane surface (EngineConfig(plane=True)) ---------------------
 
-    def apply_plane(self, flat, draws, spec):
+    def apply_plane(self, flat, draws, spec, ages=None):
         if self.granularity == "global":
-            return self.apply_flat(flat, draws, spec)
+            return self.apply_flat(flat, draws, spec, ages=ages)
         return pln.flatten(spec, self.apply_leaf(pln.unflatten(spec, flat),
-                                                 draws))
+                                                 draws, ages=ages))
 
-    def compress_plane(self, comm_state, flat, draws, spec):
+    def compress_plane(self, comm_state, flat, draws, spec, ages=None):
         target = comm_state + flat if self.error_feedback else flat
-        hat = self.apply_plane(target, draws, spec)
+        hat = self.apply_plane(target, draws, spec, ages=ages)
         new_state = (target - hat) if self.error_feedback else comm_state
         return hat, new_state
 
     # -- byte accounting ---------------------------------------------------
 
     def uplink_bytes(self, msg_template) -> int:
-        """Base-ratio (age-0) bytes per client per round."""
+        """Base-ratio (age-0) bytes per client per round: the schedule only
+        hardens with age, so this is the per-round upper bound."""
         if self.granularity == "global":
             d, itemsize = _global_dims(msg_template)
             return _k_of(self.ratio, d) * (itemsize + 4)
         return sum(_k_of(self.ratio, _leaf_elements(l))
                    * (l.dtype.itemsize + 4)
                    for l in tu.tree_leaves(msg_template))
+
+    def _bytes_at(self, ages, sizes, itemsize: int) -> torch.Tensor:
+        ages = ages.to(torch.int32)
+        total = torch.zeros(tuple(ages.shape), dtype=torch.float32,
+                            device=ages.device)
+        for d in sizes:
+            total = total + (self.schedule.keep_counts(ages, d)
+                             * (itemsize + 4)).to(torch.float32)
+        return total
+
+    def scheduled_bytes(self, msg_template, ages) -> torch.Tensor:
+        """Per-client realized wire bytes at the given ages (float32) --
+        what the async step emits per commit, so the measured uplink
+        traffic follows the schedule, not the static upper bound."""
+        if self.granularity == "global":
+            d, itemsize = _global_dims(msg_template)
+            return self._bytes_at(ages, (d,), itemsize)
+        total = torch.zeros(tuple(ages.shape), dtype=torch.float32,
+                            device=ages.device)
+        for l in tu.tree_leaves(msg_template):
+            total = total + self._bytes_at(ages, (_leaf_elements(l),),
+                                           l.dtype.itemsize)
+        return total
+
+    def scheduled_bytes_flat(self, spec, ages) -> torch.Tensor:
+        """:meth:`scheduled_bytes` from a plane
+        :class:`~repro_torch.core.plane.SegmentSpec` (the segment sizes
+        recover the per-leaf accounting)."""
+        itemsize = spec.dtype.itemsize
+        if self.granularity == "global":
+            return self._bytes_at(ages, (spec.d,), itemsize)
+        return self._bytes_at(ages, spec.sizes, itemsize)
 
 
 def scheduled_transport(transport) -> Optional[ScheduledTopK]:

@@ -28,7 +28,9 @@ the kernels' plain versions run, which equal the reference bitwise.
 
 **Randomness.**  The reference threads a ``jax.random`` key; the port takes
 an explicit *draw source* instead: an object with ``uniform(shape, dtype,
-device)`` and ``permutation(n, device)``, consumed in a fixed order (leaves
+device)`` and ``permutation(n, device)`` (and, for the clocks of
+:mod:`repro_torch.sched`, ``normal(shape, dtype, device)`` and
+``bernoulli(p, shape, device)``), consumed in a fixed order (leaves
 in ``jax.tree_util`` order, then rows in order).  :class:`GeneratorDraws`
 is backed by a seeded ``torch.Generator``; :class:`ReplayDraws` replays a
 recorded list of arrays (the tests replay the reference's ``jax.random``
@@ -84,6 +86,16 @@ class GeneratorDraws:
                            device=self.device)
         return p.to(device)
 
+    def normal(self, shape, dtype, device) -> torch.Tensor:
+        z = torch.randn(tuple(shape), generator=self.generator, dtype=dtype,
+                        device=self.device)
+        return z.to(device)
+
+    def bernoulli(self, p: float, shape, device) -> torch.Tensor:
+        """Boolean draws, True with probability ``p`` (a float32 uniform
+        below ``p``, as ``jax.random.bernoulli`` draws them)."""
+        return self.uniform(shape, torch.float32, device) < p
+
 
 class ReplayDraws:
     """Replays a recorded sequence of draws (numpy arrays or tensors) in
@@ -115,6 +127,12 @@ class ReplayDraws:
 
     def permutation(self, n: int, device) -> torch.Tensor:
         return self._pop((int(n),)).to(device=device, dtype=torch.int64)
+
+    def normal(self, shape, dtype, device) -> torch.Tensor:
+        return self._pop(shape).to(device=device, dtype=dtype)
+
+    def bernoulli(self, p: float, shape, device) -> torch.Tensor:
+        return self._pop(shape).to(device=device, dtype=torch.bool)
 
 
 # ---------------------------------------------------------------------------
@@ -514,6 +532,12 @@ class PlaneTransport:
     def wire_encoding(self) -> str:
         return self.inner.wire_encoding
 
+    @property
+    def scheduled(self) -> bool:
+        """True when the wrapped transport follows a staleness-adaptive
+        ratio schedule (its ``compress`` takes the per-client ages)."""
+        return getattr(self.inner, "scheduled", False)
+
     def init_state(self, flat_template):
         if not self.inner.error_feedback:
             return ()
@@ -521,8 +545,16 @@ class PlaneTransport:
                            dtype=flat_template.dtype,
                            device=flat_template.device)
 
-    def compress(self, comm_state, flat, draws=None):
+    def compress(self, comm_state, flat, draws=None, ages=None):
+        if ages is not None:
+            return self.inner.compress_plane(comm_state, flat, draws,
+                                             self.spec, ages=ages)
         return self.inner.compress_plane(comm_state, flat, draws, self.spec)
+
+    def scheduled_bytes(self, msg_template, ages):
+        """Per-client realized bytes under the wrapped ratio schedule; the
+        plane spec stands in for the pytree template."""
+        return self.inner.scheduled_bytes_flat(self.spec, ages)
 
     def select_clients(self, mask, new_state, old_state):
         """Per-client-row advance guard on the flat residual."""
@@ -551,16 +583,10 @@ def get_transport(name: str, **kwargs) -> Transport:
 
 def uplink_message_spec(algorithm, grad_fn, state, batch):
     """``meta`` tensors of the shapes and dtypes of an algorithm's uplink
-    message.
+    message: a shape-only pass of the local half on ``state`` and ``batch``
+    (:func:`repro_torch.device.eval_shape`, the counterpart of the
+    reference's ``jax.eval_shape``)."""
+    from repro_torch.device import eval_shape
 
-    The reference traces the local half with ``jax.eval_shape``.  The port
-    cannot trace it on the ``meta`` device, because the local step's kernel
-    wrapper refuses any device but the CPU and CUDA, so this runs the local
-    half ONCE for real on ``state`` and ``batch`` (tensors on the device the
-    run uses) and keeps only the shapes.  The engine needs no such call: it
-    takes the message's shapes from its first real round.
-    """
-    msg, _ = algorithm.make_local_fn(grad_fn)(state, batch)
-    return tu.tree_map(
-        lambda l: torch.empty(tuple(l.shape), dtype=l.dtype, device="meta"),
-        msg)
+    msg, _ = eval_shape(algorithm.make_local_fn(grad_fn), state, batch)
+    return msg

@@ -175,13 +175,19 @@ def make_local_fn(cfg: DProxConfig, reg: Regularizer, grad_fn: GradFn):
 def make_server_fn(cfg: DProxConfig, reg: Regularizer):
     """Server half (Lines 14-15) plus the local correction rebuild (Line 18).
 
-    ``server_fn(state, msg, aux, active=None) -> (state, metrics)``.
-    ``active``: optional (n_clients,) bool mask -- partial client
-    participation: the server averages over participants only and
-    non-participants keep their correction terms.
+    ``server_fn(state, msg, aux, active=None, weighted_sum=None) ->
+    (state, metrics)``.  ``active``: optional (n_clients,) bool mask --
+    partial client participation, and the delivered reports of a buffered
+    asynchronous commit: the server averages over them only and the others
+    keep their correction terms.  ``weighted_sum(w)``, if given, returns the
+    tree ``sum_i w_i * msg_i`` in place of the per-leaf sum over the client
+    axis: the plane-mode engine passes one that reduces the whole
+    ``(n_clients, d_pad)`` message plane in one commit-kernel launch
+    (:func:`repro_torch.kernels.ops.plane_weighted_commit`).
     """
 
-    def server_fn(state: DProxState, msg, aux, active=None):
+    def server_fn(state: DProxState, msg, aux, active=None,
+                  weighted_sum=None):
         delta = msg  # per-client innovations z_hat_tau - P(x_bar)
         p = reg.prox(state.x_bar, cfg.eta_tilde)
 
@@ -192,12 +198,15 @@ def make_server_fn(cfg: DProxConfig, reg: Regularizer):
             active = torch.as_tensor(active, device=device_of(p))
             w = active.to(torch.float32)
             denom = torch.clamp_min(torch.sum(w), 1.0)
+            if weighted_sum is None:
+                def weighted_sum(w):
+                    return tu.tree_map(
+                        lambda z: torch.sum(z * w.reshape(
+                            (-1,) + (1,) * (z.ndim - 1)).to(z.dtype), dim=0),
+                        delta)
 
-            def _wmean(z):
-                wb = w.reshape((-1,) + (1,) * (z.ndim - 1)).to(z.dtype)
-                return torch.sum(z * wb, dim=0) / denom.to(z.dtype)
-
-            mean_delta = tu.tree_map(_wmean, delta)
+            mean_delta = tu.tree_map(lambda s: s / denom.to(s.dtype),
+                                     weighted_sum(w))
         x_bar_next = tu.tree_map(lambda pp, md: pp + cfg.eta_g * md, p,
                                  mean_delta)
 

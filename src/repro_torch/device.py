@@ -41,3 +41,41 @@ def to_device(tree, device):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
     return tree_map(move, tree)
+
+
+class _Spec:
+    """Shape and dtype of one array leaf (a pytree leaf itself)."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+
+
+def eval_shape(fn, *args):
+    """The shapes and dtypes of ``fn(*args)``, as ``meta`` tensors, with no
+    data and no arithmetic (the counterpart of ``jax.eval_shape``).
+
+    ``fn`` runs under PyTorch's fake-tensor mode on fake CPU copies of the
+    array leaves of ``args``: the kernel wrappers see CPU tensors and take
+    their plain versions, which compute nothing on fakes, so no kernel
+    launches and no counter moves."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.utils.tree import tree_map
+
+    def spec(x):
+        if isinstance(x, torch.Tensor):
+            return _Spec(x.shape, x.dtype)
+        if isinstance(x, np.ndarray):
+            return _Spec(x.shape,
+                         torch.from_numpy(np.empty(0, x.dtype)).dtype)
+        return x
+
+    def fake(s):
+        return torch.empty(s.shape, dtype=s.dtype) if isinstance(
+            s, _Spec) else s
+
+    specs = [tree_map(spec, a) for a in args]
+    with FakeTensorMode():
+        out = tree_map(spec, fn(*(tree_map(fake, sp) for sp in specs)))
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), out)

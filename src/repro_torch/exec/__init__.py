@@ -1,9 +1,10 @@
 """The round-execution engine, its stages and its batch suppliers.
 
-The counterpart of :mod:`repro.exec` with the communication stages so far:
-chunked rounds with one host sync per chunk, partial participation,
-compressed uplinks and downlinks (optionally on the flat plane),
-chunk-aware suppliers.
+The counterpart of :mod:`repro.exec` without placement: chunked rounds with
+one host sync per chunk, partial participation, compressed uplinks and
+downlinks (optionally on the flat plane), simulated asynchrony (buffered
+staleness-weighted commits), cohort-resident client state, chunk-aware
+suppliers.
 
     from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
 
@@ -15,15 +16,23 @@ chunk-aware suppliers.
     # global top-k 25% of the uplink, on the flat plane
     eng = RoundEngine(alg, grad_fn, n_clients, EngineConfig(
         plane=True, transport=TopK(0.25, granularity="global")))
+
+    # stragglers 4x slower, commit at 15 of 30 reports, staleness-corrected
+    eng = RoundEngine(alg, grad_fn, 30, EngineConfig(
+        clock=StragglerClock(slowdown=4.0), buffer_size=15,
+        staleness=Staleness("poly", correct=True)))
 """
 from repro_torch.exec.engine import (EngineConfig, RoundEngine,
                                      rounds_to_boundary, sample_active_masks,
                                      server_state_fields)
-from repro_torch.exec.stages import DownlinkComm, StageStack, UplinkComm
+from repro_torch.exec.stages import (Asynchrony, Cohort, DownlinkComm,
+                                     StageStack, UplinkComm)
 from repro_torch.exec.suppliers import (ArraySupplier, BatchSupplier,
-                                        CallableSupplier, as_supplier)
+                                        CallableSupplier, as_supplier,
+                                        supports_client_ids)
 
 __all__ = ["EngineConfig", "RoundEngine", "rounds_to_boundary",
            "sample_active_masks", "server_state_fields", "StageStack",
-           "UplinkComm", "DownlinkComm", "ArraySupplier", "BatchSupplier",
-           "CallableSupplier", "as_supplier"]
+           "UplinkComm", "DownlinkComm", "Asynchrony", "Cohort",
+           "ArraySupplier", "BatchSupplier", "CallableSupplier",
+           "as_supplier", "supports_client_ids"]

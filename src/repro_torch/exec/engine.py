@@ -1,9 +1,9 @@
 """The round-execution engine.
 
-The counterpart of :class:`repro.exec.RoundEngine` with its communication
-stages (uplink and downlink compression, :mod:`repro_torch.exec.stages`);
-placement, asynchrony and cohorts are not ported yet.  It runs one
-(algorithm, grad_fn, n_clients) triple round after round.
+The counterpart of :class:`repro.exec.RoundEngine` with its communication,
+asynchrony and cohort stages (:mod:`repro_torch.exec.stages`); placement is
+not ported yet.  It runs one (algorithm, grad_fn, n_clients) triple round
+after round.
 
   * A *chunk* of ``chunk_rounds`` rounds is a Python loop; the per-round
     metrics stay on the device and are fetched with ONE host sync per chunk.
@@ -19,23 +19,39 @@ placement, asynchrony and cohorts are not ported yet.  It runs one
 
 With no stage active a round is the algorithm's ``round_fn``.  With the
 UplinkComm stage (``transport=``) or the DownlinkComm stage (``downlink=``)
-the round is *split*, as the reference's compiled scan body
-(``repro/exec/engine.py:674-710``): the local half, then
-``transport.compress`` of the uplink message, then (under participation)
-``select_clients`` on the error feedback, then the server half, then
-``downlink.broadcast`` of the new server state.  Clients compute against the
-downlink shadow; the server state stays authoritative.  ``plane=True``
-carries the message and its error feedback as one ``(n_clients, d_pad)``
-plane.  The stages' state (``comm``: error feedback, ``dl``: the shadow)
-lives on the engine and persists across ``run``/``step`` calls; it is built
-from the first round's real message (the reference traces it with
-``jax.eval_shape``; the port takes it from that first call).
+the round is *split*, as the reference's compiled scan body: the local
+half, then ``transport.compress`` of the uplink message, then (under
+participation) ``select_clients`` on the error feedback, then the server
+half, then ``downlink.broadcast`` of the new server state.  Clients compute
+against the downlink shadow; the server state stays authoritative.
 
-Draws: the reference splits a ``jax.random`` key each round; the port's
-stochastic compressors consume ONE draw source (``draws=``, by default a
+With the Asynchrony stage (``clock=``, ``buffer_size=``, ``staleness=``,
+``queue_depth=``, ``edges=``) one round is one buffered server commit of
+:func:`repro_torch.sched.make_async_round`, and the metrics gain the
+staleness ledger: ``vtime``, ``staleness_mean``, ``staleness_max`` and the
+``report_age_hist`` vector.
+
+``plane=True`` carries the message, its error feedback and the async report
+buffers (queues) as ``(n_clients, d_pad)`` (``(depth, n_clients, d_pad)``)
+planes; the server half's weighted client-axis sum then runs as one launch
+of the weighted-commit kernel on the delivered plane.
+
+With the Cohort stage (``population=``, ``cohort=``) the per-client state is
+cohort-wide on the device and swapped against a host
+:class:`repro_torch.sched.PopulationStore` at chunk boundaries.
+
+The stages' state (``comm``: error feedback, ``dl``: the shadow, ``sched``:
+the report buffer) lives on the engine and persists across ``run``/``step``
+calls.  It is built before the first round from the message's shapes, which
+a shape-only pass of the local half on fake tensors gives
+(:func:`repro_torch.device.eval_shape`, the reference's ``jax.eval_shape``).
+
+Draws: the reference splits ``jax.random`` keys; the port's stochastic
+compressors consume ONE draw source (``draws=``, by default a
 ``torch.Generator`` on the engine's device seeded with ``comm_seed``) in a
 fixed order: per round, the uplink's draws (leaves in ``jax.tree_util``
-order, rows in order), then the downlink's.
+order, rows in order), then the downlink's.  The clock draws from its own
+source (``clock_draws=``, by default seeded with ``clock_seed``).
 """
 from __future__ import annotations
 
@@ -47,21 +63,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import plane as pln
-from repro_torch.device import resolve_device, to_device
-from repro_torch.exec.stages import DownlinkComm, StageStack, UplinkComm
-from repro_torch.exec.suppliers import as_supplier, has_chunk_path
+from repro_torch.device import eval_shape, resolve_device, to_device
+from repro_torch.exec.stages import (Asynchrony, Cohort, DownlinkComm,
+                                     StageStack, UplinkComm)
+from repro_torch.exec.suppliers import (as_supplier, has_chunk_path,
+                                        supports_client_ids)
 from repro_torch.utils import tree as tu
 
-# stage fields of the reference's EngineConfig that the port does not run
-# yet, and the slice of ROADMAP Queue 1 that brings each
-_ASYNC = "asynchrony stage (Queue 1 item 12, the async + cohort slice)"
-_LATER_STAGES = {
-    "mesh": "placement stage (Queue 1 item 15, launch/mesh + sharding)",
-    "clock": _ASYNC, "buffer_size": _ASYNC, "staleness": _ASYNC,
-    "queue_depth": _ASYNC, "edges": _ASYNC,
-    "population": "cohort stage (Queue 1 item 12, the async + cohort slice)",
-    "cohort": "cohort stage (Queue 1 item 12, the async + cohort slice)",
-}
+# the reference's placement field, which the port does not run yet, and
+# the slice of ROADMAP Queue 1 that brings it
+_PLACEMENT = "placement stage (Queue 1 item 15, launch/mesh + sharding)"
 
 
 def server_state_fields(algorithm, state) -> dict:
@@ -78,28 +89,47 @@ class EngineConfig:
     chunk_rounds   : rounds run between two host syncs of the metrics.
     participation  : if set, the fraction of clients active each round
                      (uniform sampling without replacement, >= 1 client).
-                     Requires a round function with an ``active`` argument.
-    plane          : carry the uplink message and its error feedback as ONE
-                     flat ``(n_clients, d_pad)`` plane
-                     (:mod:`repro_torch.core.plane`) between the round's
-                     halves.  A no-op without a communication stage;
-                     requires a single-dtype message.
+                     Requires a round function with an ``active`` argument;
+                     does not compose with asynchrony or cohorts.
+    plane          : carry the uplink message, its error feedback and the
+                     async report buffers as flat ``(n_clients, d_pad)``
+                     planes (:mod:`repro_torch.core.plane`).  A no-op
+                     without a communication stage; requires a single-dtype
+                     message.
 
     UplinkComm stage (active when ``transport`` is set, or implicitly under
-    ``downlink``, defaulting to Dense):
+    any other communication-shaped stage, defaulting to Dense):
     transport      : the uplink compressor (:mod:`repro_torch.comm`).
-    comm_seed      : seed of the default draw source (rand-k and stochastic
-                     quantization draws).
+    comm_seed      : seed of the default draw source.
 
     DownlinkComm stage (active when ``downlink`` is set):
     downlink       : a :class:`repro_torch.comm.DownlinkCompressor` (or a
-                     plain Transport, which gets wrapped) compressing the
-                     broadcast server-state innovation.
+                     plain Transport, which gets wrapped).
 
-    The reference's placement, asynchrony and cohort fields (``mesh``,
-    ``clock``, ``buffer_size``, ``staleness``, ``queue_depth``, ``edges``,
-    ``population``, ``cohort``) must stay ``None``: setting one raises and
-    names the slice that ports it.
+    Asynchrony stage (active when any of its fields is set):
+    clock          : a :mod:`repro_torch.sched` ClockModel (or its name);
+                     defaults to the zero-delay DeterministicClock.
+    buffer_size    : reports the server waits for before committing
+                     (FedBuff's K); defaults to the working client count.
+    staleness      : a :class:`repro_torch.sched.Staleness` (or "uniform",
+                     "poly").
+    queue_depth    : depth of the per-client report queue (``None``: the
+                     one-slot buffer; 1 is its queue-form equivalent).
+    clock_seed     : seed of the clock's default draw source.
+    edges          : the client->edge->root tree of the arrival selection
+                     and the commit normalization; must divide the working
+                     client width.
+
+    Cohort stage (active when ``population`` or ``cohort`` is set):
+    population     : total simulated clients; the engine's ``n_clients``
+                     IS the population, so both must agree when given.
+    cohort         : the working-set width per chunk (defaults to the
+                     population; ``cohort == population`` is the dense
+                     engine, bitwise).
+    cohort_seed    : seed of the per-chunk cohort id draws.
+
+    The reference's placement field ``mesh`` must stay ``None``: setting it
+    raises and names the slice that ports it.
     """
 
     chunk_rounds: int = 1
@@ -113,9 +143,11 @@ class EngineConfig:
     buffer_size: Optional[int] = None
     staleness: Any = None
     queue_depth: Optional[int] = None
+    clock_seed: int = 0
     edges: Optional[int] = None
     population: Optional[int] = None
     cohort: Optional[int] = None
+    cohort_seed: int = 0
 
     def resolve(self) -> StageStack:
         """Validate and map this config onto its :class:`StageStack`."""
@@ -126,25 +158,90 @@ class EngineConfig:
                 0.0 < self.participation <= 1.0):
             raise ValueError(
                 f"participation must be in (0, 1], got {self.participation}")
-        for field, later in _LATER_STAGES.items():
-            if getattr(self, field) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig({field}=...) is not ported yet: it comes "
-                    f"with the {later}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"EngineConfig(mesh=...) is not ported yet: it comes with the "
+                f"{_PLACEMENT}")
+        async_on = (self.clock is not None or self.buffer_size is not None
+                    or self.staleness is not None
+                    or self.queue_depth is not None or self.edges is not None)
+        cohort_on = self.population is not None or self.cohort is not None
+        downlink_on = self.downlink is not None
+        uplink_on = self.transport is not None or async_on or downlink_on
+        if cohort_on:
+            if self.participation is not None:
+                raise ValueError(
+                    "cohort-resident state subsumes participation: the "
+                    "sampled cohort IS the participating subset (set "
+                    "cohort < population instead of a participation "
+                    "fraction)")
+            if self.population is not None and self.population < 1:
+                raise ValueError(f"population must be >= 1, got "
+                                 f"{self.population}")
+            if self.cohort is not None and self.cohort < 1:
+                raise ValueError(f"cohort must be >= 1, got {self.cohort}")
+            if (self.population is not None and self.cohort is not None
+                    and self.cohort > self.population):
+                raise ValueError(
+                    f"cohort={self.cohort} exceeds population="
+                    f"{self.population}; the cohort is the participating "
+                    "subset of the population")
+        if self.edges is not None and self.edges < 1:
+            raise ValueError(f"edges must be >= 1, got {self.edges}")
         if self.transport is not None and not hasattr(self.transport,
                                                       "compress"):
             raise ValueError(
                 "transport must implement the repro_torch.comm.Transport "
                 f"interface, got {type(self.transport).__name__}")
-        downlink_on = self.downlink is not None
+        if async_on and self.participation is not None:
+            raise ValueError(
+                "the asynchrony stage does not compose with participation: "
+                "client subsampling is implicit in buffered aggregation "
+                "(set buffer_size < n_clients instead)")
+        if self.buffer_size is not None and self.buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got "
+                             f"{self.buffer_size}")
+        if self.queue_depth is not None and self.queue_depth < 1:
+            raise ValueError(f"queue_depth must be >= 1, got "
+                             f"{self.queue_depth}")
         return StageStack(
-            uplink=(UplinkComm(self.transport)
-                    if self.transport is not None or downlink_on else None),
+            uplink=UplinkComm(self.transport) if uplink_on else None,
             downlink=(DownlinkComm.coerce(self.downlink)
-                      if downlink_on else None))
+                      if downlink_on else None),
+            asynchrony=(Asynchrony(self.clock, self.buffer_size,
+                                   self.staleness, self.queue_depth,
+                                   edges=self.edges)
+                        if async_on else None),
+            cohort=(Cohort(self.population, self.cohort, self.cohort_seed)
+                    if cohort_on else None))
 
-    def validate(self) -> None:
+    def validate(self, n_clients: Optional[int] = None) -> None:
+        """Validate the config; with ``n_clients`` (the population under
+        cohort-resident state) also the width-dependent geometry: cohort vs
+        population, buffer_size and edges vs the working client width."""
         self.resolve()
+        if n_clients is None:
+            return
+        working = n_clients
+        if self.population is not None or self.cohort is not None:
+            from repro_torch.sched.cohort import CohortSpec
+
+            if self.population is not None and self.population != n_clients:
+                raise ValueError(
+                    f"EngineConfig(population={self.population}) disagrees "
+                    f"with n_clients={n_clients}; the engine's client count "
+                    "IS the population under cohort-resident state")
+            working = self.cohort if self.cohort is not None else n_clients
+            CohortSpec(n_clients, working, self.cohort_seed).validate()
+        if (self.buffer_size is not None or self.edges is not None
+                or self.clock is not None or self.staleness is not None
+                or self.queue_depth is not None):
+            from repro_torch.sched.aggregator import _validate_buffer
+
+            _validate_buffer(
+                self.buffer_size if self.buffer_size is not None
+                else working, working,
+                self.edges if self.edges is not None else 1)
 
 
 def rounds_to_boundary(r: int, every: int, total: int) -> int:
@@ -164,29 +261,71 @@ def sample_active_masks(n_clients: int, n_rounds: int, participation: float,
     return masks
 
 
+def _host_metrics(infos: list) -> list:
+    """Per-round ``{name: float | np.ndarray}`` from a chunk's device
+    metrics, fetched in ONE host copy (0-dim metrics become floats, vector
+    metrics such as ``report_age_hist`` stay arrays)."""
+    if not infos or not infos[0]:
+        return [{} for _ in infos]
+    keys = list(infos[0])
+    shapes = [tuple(infos[0][k].shape) for k in keys]
+    flat = torch.cat([info[k].reshape(-1).float() for info in infos
+                      for k in keys]).cpu().numpy()
+    out, pos = [], 0
+    for _ in infos:
+        row = {}
+        for k, shape in zip(keys, shapes):
+            n = int(np.prod(shape))
+            v = flat[pos:pos + n]
+            row[k] = float(v[0]) if shape == () else v.reshape(shape).copy()
+            pos += n
+        out.append(row)
+    return out
+
+
 class RoundEngine:
     """Runs federated rounds for one (algorithm, grad_fn, n_clients) triple
     on one device (``cuda`` unless ``device`` says otherwise).
 
-    ``draws`` is the draw source of the stochastic compressors (see the
-    module docstring); by default a ``torch.Generator`` on the engine's
-    device seeded with ``config.comm_seed``.
+    ``draws`` is the draw source of the stochastic compressors and
+    ``clock_draws`` the clock's (see the module docstring); by default
+    ``torch.Generator``\\ s on the engine's device seeded with
+    ``config.comm_seed`` and ``config.clock_seed``.  Under the cohort stage
+    ``n_clients`` is the population and every stage sees the cohort width.
     """
 
     def __init__(self, algorithm, grad_fn, n_clients: int,
                  config: EngineConfig = EngineConfig(), *, device=None,
-                 draws=None):
+                 draws=None, clock_draws=None):
         stack = config.resolve()
         self.algorithm = algorithm
         self.grad_fn = grad_fn
         self.n_clients = n_clients
+        self.population = n_clients
         self.config = config
         self.stack = stack
         self.device = resolve_device(device)
         self.transport = None
         self.downlink = None
+        self._cohort = None
+        self._cohort_round = 0
+        if stack.cohort is not None:
+            from repro_torch.sched.cohort import ResidentCohort
+
+            if (stack.cohort.population is not None
+                    and stack.cohort.population != n_clients):
+                raise ValueError(
+                    f"EngineConfig(population={stack.cohort.population}) "
+                    f"disagrees with the engine's n_clients={n_clients}; "
+                    "the engine's client count IS the population under "
+                    "cohort-resident state (pass the same value, or drop "
+                    "the population field)")
+            self._cohort = ResidentCohort(stack.cohort.spec(n_clients),
+                                          device=self.device)
+            # every stage below sees the WORKING width
+            self.n_clients = self._cohort.spec.cohort
         # per-client wire bytes of one uplink message / one broadcast, known
-        # once the first round has produced a message
+        # once the stages' state is built
         self.uplink_bytes_per_client_round: Optional[int] = None
         self.downlink_bytes_per_client_round: Optional[int] = None
         if stack.split:
@@ -197,13 +336,15 @@ class RoundEngine:
                 raise ValueError(
                     f"algorithm {algorithm.name!r} has no local/server split "
                     "(make_local_fn/make_server_fn); run it without "
-                    "communication stages") from e
+                    "communication/asynchrony stages") from e
             self._round_fn = None
             self._accepts_active = (
                 "active" in inspect.signature(self._server_fn).parameters)
             self.transport = stack.uplink.resolve_transport()
             if stack.downlink is not None:
                 self.downlink = stack.downlink.compressor
+            if stack.asynchrony is not None:
+                self._setup_async()
             # the halves + transport a round uses: the algorithm's own, or
             # (plane mode) wrapped around the flat message plane by
             # _install_plane once the message shape is known
@@ -221,12 +362,35 @@ class RoundEngine:
         self._use_active = config.participation is not None
         self._plane = bool(config.plane) and stack.split
         self._plane_spec = None  # SegmentSpec of the uplink message plane
-        self._extras = None  # the stages' state, built at the first round
+        self._extras = None  # the stages' state, built before the 1st round
         self.draws = draws
         if draws is None and stack.split:
             from repro_torch.comm import GeneratorDraws
 
             self.draws = GeneratorDraws(config.comm_seed, self.device)
+        self.clock_draws = clock_draws
+        if clock_draws is None and stack.asynchrony is not None:
+            from repro_torch.comm import GeneratorDraws
+
+            self.clock_draws = GeneratorDraws(config.clock_seed, self.device)
+
+    def _setup_async(self) -> None:
+        """Resolve and validate clock, staleness, buffer and queue; the step
+        itself is built with the stages' state (plane mode wraps the halves
+        around the message shape first)."""
+        from repro_torch.sched.aggregator import _validate_buffer
+
+        asyn = self.stack.asynchrony
+        self.clock = asyn.resolve_clock()
+        self.staleness = asyn.resolve_staleness()
+        self.buffer_size = (asyn.buffer_size if asyn.buffer_size is not None
+                            else self.n_clients)
+        self.edges = asyn.edges if asyn.edges is not None else 1
+        # the WORKING width: the buffer and the edge tree partition the
+        # participating clients, not the population
+        _validate_buffer(self.buffer_size, self.n_clients, self.edges)
+        self.queue_depth = asyn.queue_depth
+        self._async_round = None
 
     # -- the stages' state (read-only views) -------------------------------
 
@@ -238,26 +402,122 @@ class RoundEngine:
     def _dl_state(self):
         return None if self._extras is None else self._extras.get("dl")
 
+    @property
+    def _sched_state(self):
+        return None if self._extras is None else self._extras.get("sched")
+
     def init(self, params0):
-        """Algorithm state on the engine's device."""
+        """Algorithm state on the engine's device (working width)."""
         return self.algorithm.init(to_device(params0, self.device),
                                    self.n_clients)
+
+    def _init_extras(self, state, batches) -> dict:
+        """The stages' state from the message's shapes (a shape-only pass
+        of the local half on one round's ``batches``): the uplink error
+        feedback (one ``(n_clients, d_pad)`` plane in plane mode, after
+        :meth:`_install_plane` has wrapped the halves around it), the
+        downlink shadow, the async report buffer or queue; and the wire
+        bytes, a property of the message, not of the carried layout."""
+        msg_t, aux_t = eval_shape(self._local_fn, state, batches)
+        self.uplink_bytes_per_client_round = self.transport.uplink_bytes(
+            msg_t)
+        ex: dict = {}
+
+        def zeros(tree):
+            return tu.tree_map(lambda l: torch.zeros(
+                tuple(l.shape), dtype=l.dtype, device=self.device), tree)
+
+        buf = self._install_plane(msg_t) if self._plane else zeros(msg_t)
+        ex["comm"] = self._transport_eff.init_state(buf)
+        if self.downlink is not None:
+            fields = server_state_fields(self.algorithm, state)
+            self.downlink_bytes_per_client_round = (
+                self.downlink.downlink_bytes(fields))
+            ex["dl"] = self.downlink.init_state(fields)
+        if self.stack.asynchrony is not None:
+            from repro_torch.sched import (init_async_state, init_queue_state,
+                                           make_async_round)
+
+            if "round" not in aux_t:
+                raise ValueError(
+                    f"algorithm {self.algorithm.name!r} emits no "
+                    "report-round tag (aux['round']); the asynchrony stage "
+                    "needs it to age buffered reports")
+            start = int(state.round) if hasattr(state, "round") else 0
+            if self.queue_depth is not None:
+                ex["sched"] = init_queue_state(
+                    buf, aux_t, self.n_clients, self.queue_depth,
+                    start_round=start, with_resid=self.staleness.correct,
+                    device=self.device)
+            else:
+                ex["sched"] = init_async_state(
+                    buf, aux_t, self.n_clients, start_round=start,
+                    with_resid=(self.staleness.correct
+                                and self.buffer_size < self.n_clients),
+                    device=self.device)
+            server_fields_fn = None
+            if self.downlink is not None:
+                server_fields_fn = (
+                    lambda st: server_state_fields(self.algorithm, st))
+            self._async_round = make_async_round(
+                self._local_eff, self._server_eff, self._transport_eff,
+                self.clock, self.buffer_size, self.n_clients, self.staleness,
+                accepts_active=self._accepts_active,
+                queue_depth=self.queue_depth, downlink=self.downlink,
+                server_fields_fn=server_fields_fn, edges=self.edges)
+        return ex
+
+    def _install_plane(self, msg_template):
+        """Build the message plane's spec and wrap the round halves and the
+        transport onto the flat layout; returns a zero plane on the device.
+
+        With an ``active`` mask (participation, or the delivered reports of
+        an async commit) the server half's weighted client-axis sum is one
+        :func:`repro_torch.kernels.ops.plane_weighted_commit` launch over
+        the whole plane; the result unflattens to the tree only after it."""
+        from repro_torch.comm import PlaneTransport
+        from repro_torch.kernels import ops as kops
+
+        spec = pln.SegmentSpec.from_tree(msg_template, batch_dims=1)
+        self._plane_spec = spec
+        local_fn, server_fn = self._local_fn, self._server_fn
+        hook = "weighted_sum" in inspect.signature(server_fn).parameters
+
+        def local_eff(state, batches):
+            msg, aux = local_fn(state, batches)
+            return pln.flatten(spec, msg), aux
+
+        def server_eff(state, flat, aux, **active):
+            tree = pln.unflatten(spec, flat)
+            if active.get("active") is None or not hook:
+                return server_fn(state, tree, aux, **active)
+            return server_fn(
+                state, tree, aux, active=active["active"],
+                weighted_sum=lambda w: pln.unflatten(
+                    spec, kops.plane_weighted_commit(flat, w)))
+
+        self._local_eff = local_eff
+        self._server_eff = server_eff
+        self._transport_eff = PlaneTransport(self.transport, spec)
+        return pln.zeros(spec, self.n_clients, device=self.device)
 
     def _round(self, state, batches, active):
         batches = to_device(batches, self.device)
         if active is not None:
             active = torch.as_tensor(active, device=self.device)
-        if self.stack.split:
-            return self._split_round(state, batches, active)
-        if active is None:
-            return self._round_fn(state, batches)
-        return self._round_fn(state, batches, active=active)
+        if not self.stack.split:
+            if active is None:
+                return self._round_fn(state, batches)
+            return self._round_fn(state, batches, active=active)
+        if self._extras is None:
+            self._extras = self._init_extras(state, batches)
+        if self.stack.asynchrony is not None:
+            return self._async_step(state, batches)
+        return self._split_round(state, batches, active)
 
     def _split_round(self, state, batches, active):
         """One round: local half -> uplink compression -> server half ->
         downlink broadcast (``repro/exec/engine.py:674-710``)."""
-        if self._extras is None:
-            self._extras = self._init_downlink(state)
         ex = self._extras
         if self.downlink is not None:
             # clients compute against the compressed broadcast (what they
@@ -265,8 +525,6 @@ class RoundEngine:
             state = state._replace(**tu.tree_map(lambda l: l[0],
                                                  ex["dl"]["seen"]))
         msg, aux = self._local_eff(state, batches)
-        if "comm" not in ex:
-            msg = self._init_extras(msg)
         cs = ex["comm"]
         msg_hat, cs_new = self._transport_eff.compress(cs, msg, self.draws)
         if active is not None:
@@ -285,62 +543,137 @@ class RoundEngine:
                 self.draws)
         return state, info
 
-    def _init_downlink(self, state) -> dict:
-        """The downlink shadow, from the initial server state."""
-        if self.downlink is None:
-            return {}
-        fields = server_state_fields(self.algorithm, state)
-        self.downlink_bytes_per_client_round = (
-            self.downlink.downlink_bytes(fields))
-        return {"dl": self.downlink.init_state(fields)}
+    def _async_step(self, state, batches):
+        """One buffered commit (:func:`repro_torch.sched.make_async_round`)."""
+        ex = self._extras
+        state, ex["sched"], ex["comm"], dl, info = self._async_round(
+            state, ex["sched"], ex["comm"], batches, ex.get("dl"),
+            draws=self.draws, clock_draws=self.clock_draws)
+        if dl is not None:
+            ex["dl"] = dl
+        return state, info
 
-    def _init_extras(self, msg):
-        """The uplink's state from the first real message (the reference
-        builds it from ``jax.eval_shape`` of the local half): the error
-        feedback, shaped like the message -- or, in plane mode, one
-        ``(n_clients, d_pad)`` plane, once :meth:`_install_plane` has wrapped
-        the round's halves around it -- and the wire bytes, a property of
-        the message, not of the carried layout.  Returns the first message
-        in the carried layout."""
-        self.uplink_bytes_per_client_round = self.transport.uplink_bytes(msg)
-        if self._plane:
-            flat = self._install_plane(msg)
-            self._extras["comm"] = self._transport_eff.init_state(flat)
-            return flat
-        self._extras["comm"] = self._transport_eff.init_state(msg)
-        return msg
+    # -- cohort residency (stack.cohort; see repro_torch.sched.cohort) ------
 
-    def _install_plane(self, msg):
-        """Build the message plane's spec and wrap the round halves and the
-        transport onto the flat layout; returns ``msg`` as a plane."""
-        from repro_torch.comm import PlaneTransport
+    @property
+    def population_store(self):
+        """The host-resident population store (``None`` without the cohort
+        stage); current as of the last chunk boundary -- call
+        :meth:`flush_cohort` first after ``step`` loops."""
+        return None if self._cohort is None else self._cohort.store
 
-        spec = pln.SegmentSpec.from_tree(msg, batch_dims=1)
-        self._plane_spec = spec
-        local_fn, server_fn = self._local_fn, self._server_fn
+    @property
+    def cohort_ids(self):
+        """Global client ids of the resident working set (``None`` without
+        the cohort stage); before the first chunk, the cohort the next
+        :meth:`step` will materialize."""
+        if self._cohort is None:
+            return None
+        if self._cohort.current_ids is None:
+            return self._cohort.spec.sample(self._cohort_round)
+        return self._cohort.current_ids
 
-        def local_eff(state, batches):
-            msg, aux = local_fn(state, batches)
-            return pln.flatten(spec, msg), aux
+    def _cohort_entries(self, state) -> dict:
+        """``name -> (tree, client_axes)`` of every per-client slice the
+        resident cohort swaps: the algorithm's client-role fields, the
+        uplink error feedback, the per-client fields of the async buffer."""
+        try:
+            roles = self.algorithm.state_roles()
+        except NotImplementedError as e:
+            raise ValueError(
+                f"algorithm {self.algorithm.name!r} declares no state "
+                "roles; cohort-resident state needs state_roles() to know "
+                "which fields carry the client axis") from e
+        entries: dict = {}
+        client = {f: getattr(state, f)
+                  for f, r in roles.items() if r == "client"}
+        if client:
+            entries["alg"] = (client, {f: 0 for f in client})
+        if self._extras is not None:
+            comm = self._extras.get("comm")
+            if comm is not None and tu.tree_leaves(comm):
+                entries["comm"] = (comm, 0)
+            sched = self._extras.get("sched")
+            if sched is not None:
+                from repro_torch.sched.cohort import sched_client_axes
 
-        def server_eff(state, flat, aux, **active):
-            return server_fn(state, pln.unflatten(spec, flat), aux, **active)
+                axes = sched_client_axes(sched)
+                fields = {f: getattr(sched, f)
+                          for f, a in axes.items() if a is not None}
+                entries["sched"] = (fields, {f: axes[f] for f in fields})
+        return entries
 
-        self._local_eff = local_eff
-        self._server_eff = server_eff
-        self._transport_eff = PlaneTransport(self.transport, spec)
-        return pln.flatten(spec, msg)
+    def _cohort_swap(self, state, chunk_start: int):
+        """Scatter the current working set home under its global ids and
+        gather the cohort of the chunk starting at ``chunk_start``.  The
+        first call registers the entries from the initial working set (its
+        rows ARE the store's default rows)."""
+        rc = self._cohort
+        ids = rc.sample(chunk_start)
+        entries = self._cohort_entries(state)
+        if rc.current_ids is None:
+            for name, (tree, axes) in entries.items():
+                rc.register(name, tree, axes)
+            rc.current_ids = ids
+            return state
+        for name, (tree, _axes) in entries.items():
+            rc.scatter(name, rc.current_ids, tree)
+        rc.current_ids = ids
+        gathered = {name: rc.gather(name, ids) for name in entries}
+        if "alg" in gathered:
+            state = state._replace(**gathered["alg"])
+        if "comm" in gathered:
+            self._extras["comm"] = gathered["comm"]
+        if "sched" in gathered:
+            self._extras["sched"] = self._extras["sched"]._replace(
+                **gathered["sched"])
+        return state
+
+    def flush_cohort(self, state) -> None:
+        """Scatter the resident working set home to the population store;
+        :meth:`run` does this before returning."""
+        rc = self._cohort
+        if rc is None or rc.current_ids is None:
+            return
+        for name, (tree, _axes) in self._cohort_entries(state).items():
+            rc.scatter(name, rc.current_ids, tree)
+
+    def _cohort_batches(self, supplier, r0: int, c: int, rng,
+                        use_chunk: bool) -> list:
+        """One chunk's per-round batches for the cohort of round ``r0``."""
+        rc = self._cohort
+        kw = {}
+        if not rc.spec.is_full:
+            # the full cohort keeps the suppliers' plain call shape (bitwise
+            # the dense engine); a strict sub-cohort needs per-id draws
+            if not supports_client_ids(supplier):
+                raise ValueError(
+                    f"supplier {type(supplier).__name__} does not accept "
+                    "client_ids: a strict sub-cohort (cohort < population) "
+                    "needs per-id batch draws -- accept a client_ids "
+                    "keyword (an int64 array of global ids) in "
+                    "sample_round/sample_chunk, or use "
+                    "repro_torch.exec.ArraySupplier")
+            kw["client_ids"] = rc.sample(r0)
+        if use_chunk:
+            chunk = supplier.sample_chunk(r0, c, rng, **kw)
+            return [tu.tree_map(lambda x, i=i: x[i], chunk)
+                    for i in range(c)]
+        return [supplier.sample_round(r0 + i, rng, **kw) for i in range(c)]
+
+    # -- public API ---------------------------------------------------------
 
     def run(self, state, batch_supplier, rounds: int, *,
             rng: Optional[np.random.Generator] = None, seed: int = 0,
             start_round: int = 0):
         """Run ``rounds`` rounds from ``state``; returns (state, metrics).
 
-        ``metrics`` maps metric name -> list with one float per executed
-        round.  Chunk-aware suppliers serve whole chunks through
-        ``sample_chunk``; under partial participation, or for a plain
-        callable, batches are drawn per round, each followed by that round's
-        mask draw.
+        ``metrics`` maps metric name -> list with one entry per executed
+        round (a float, or an array for vector metrics).  Chunk-aware
+        suppliers serve whole chunks through ``sample_chunk``; under partial
+        participation, or for a plain callable, batches are drawn per round,
+        each followed by that round's mask draw.  Under the cohort stage
+        each chunk first swaps the working set to the chunk's cohort.
         """
         if rng is None:
             rng = np.random.default_rng(seed)
@@ -352,7 +685,19 @@ class RoundEngine:
             c = min(self.config.chunk_rounds, rounds - done)
             r0 = start_round + done
             infos = []
-            if use_chunk:
+            if self._cohort is not None:
+                per_round = self._cohort_batches(supplier, r0, c, rng,
+                                                 use_chunk)
+                if self.stack.split and self._extras is None:
+                    # the stages' state must exist before the first swap
+                    # registers it (its init rows are the default rows)
+                    self._extras = self._init_extras(
+                        state, to_device(per_round[0], self.device))
+                state = self._cohort_swap(state, r0)
+                for b in per_round:
+                    state, info = self._round(state, b, None)
+                    infos.append(info)
+            elif use_chunk:
                 chunk = supplier.sample_chunk(r0, c, rng)
                 for i in range(c):
                     state, info = self._round(
@@ -367,25 +712,31 @@ class RoundEngine:
                     state, info = self._round(state, batches, active)
                     infos.append(info)
             # the chunk's ONE host sync: every round's metrics in one copy
-            keys = list(infos[0])
-            if keys:
-                vals = torch.stack([torch.stack([info[k].float() for k in keys])
-                                    for info in infos]).cpu().numpy()
-                for j, k in enumerate(keys):
-                    metrics.setdefault(k, []).extend(
-                        float(v) for v in vals[:, j])
+            for row in _host_metrics(infos):
+                for k, v in row.items():
+                    metrics.setdefault(k, []).append(v)
             done += c
+        if self._cohort is not None:
+            self._cohort_round = start_round + rounds
+            self.flush_cohort(state)
         return state, metrics
 
     def step(self, state, batches, active=None):
-        """One round (the ``round_fn(state, batches)`` surface)."""
+        """One round (the ``round_fn(state, batches)`` surface).  Under the
+        cohort stage it runs on the current working set (the first call
+        materializes the announced :attr:`cohort_ids`)."""
         if active is not None and not self._accepts_active:
             raise ValueError("this algorithm's round_fn takes no active mask")
         if self._use_active and active is None:
             raise ValueError("engine configured with participation; pass the "
                              "active mask explicitly to step()")
+        if self._cohort is not None and self._cohort.current_ids is None:
+            if self.stack.split and self._extras is None:
+                self._extras = self._init_extras(
+                    state, to_device(batches, self.device))
+            state = self._cohort_swap(state, self._cohort_round)
         state, info = self._round(state, batches, active)
-        return state, {k: float(v) for k, v in info.items()}
+        return state, _host_metrics([info])[0]
 
     def global_params(self, state):
         return self.algorithm.global_params(state)

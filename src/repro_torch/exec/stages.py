@@ -1,7 +1,6 @@
 """Composable execution stages of the round engine.
 
-The counterpart of :mod:`repro.exec.stages`, with the two communication
-stages ported so far:
+The counterpart of :mod:`repro.exec.stages`, without the placement stage:
 
   ============ =========================================================
   stage        concern (and its slice of the engine's carried state)
@@ -11,12 +10,18 @@ stages ported so far:
   DownlinkComm the server->client broadcast through a
                :class:`repro_torch.comm.DownlinkCompressor` (the
                client-visible shadow state)
+  Asynchrony   simulated client asynchrony via :mod:`repro_torch.sched`
+               (the in-flight report buffer or queue + staleness ledger;
+               optionally a client->edge->root tree via ``edges``)
+  Cohort       cohort-resident client state
+               (:mod:`repro_torch.sched.cohort`): per-client state is
+               cohort-wide on the device, gathered from and scattered to a
+               host population store at chunk boundaries
   ============ =========================================================
 
 :meth:`repro_torch.exec.EngineConfig.resolve` builds a :class:`StageStack`
-from the config's stage fields.  The reference's Placement, Asynchrony and
-Cohort stages are not ported yet: their config fields raise, naming the
-slice that brings them.
+from the config's stage fields.  The reference's Placement stage is not
+ported yet: ``mesh=`` raises, naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -64,18 +69,86 @@ class DownlinkComm:
 
 
 @dataclass(frozen=True)
+class Asynchrony:
+    """Simulated client asynchrony: virtual-time clock, buffered commits,
+    staleness weighting, and optionally a ``queue_depth``-deep per-client
+    report queue (``None`` keeps the one-slot buffer)."""
+
+    clock: Any = None
+    buffer_size: Optional[int] = None
+    staleness: Any = None
+    queue_depth: Optional[int] = None
+    name: str = "asynchrony"
+    # client->edge->root aggregation tree (None/1: flat selection)
+    edges: Optional[int] = None
+
+    def resolve_clock(self):
+        from repro_torch.sched import DeterministicClock, get_clock
+
+        clock = self.clock
+        if clock is None:
+            clock = DeterministicClock()
+        elif isinstance(clock, str):
+            clock = get_clock(clock)
+        if not hasattr(clock, "durations"):
+            raise ValueError(
+                f"clock must implement the repro_torch.sched.ClockModel "
+                f"interface (durations), got {type(clock).__name__}")
+        return clock
+
+    def resolve_staleness(self):
+        from repro_torch.sched import as_staleness
+
+        return as_staleness(self.staleness)
+
+
+@dataclass(frozen=True)
+class Cohort:
+    """Cohort-resident client state (:mod:`repro_torch.sched.cohort`).
+
+    Lives at the chunk boundary: the engine's per-client state (algorithm
+    client fields, error-feedback residuals, report buffers) is cohort-wide
+    on the device, and this stage gathers and scatters it against the host
+    population store between chunks.  ``cohort == population`` is the
+    dense engine, bitwise.
+    """
+
+    population: Optional[int] = None  # None: the engine's n_clients
+    cohort: Optional[int] = None      # None: the full population
+    seed: int = 0
+    name: str = "cohort"
+
+    def spec(self, n_clients: int):
+        """The resolved :class:`repro_torch.sched.cohort.CohortSpec` for an
+        engine with ``n_clients`` clients (the population)."""
+        from repro_torch.sched.cohort import CohortSpec
+
+        population = (self.population if self.population is not None
+                      else n_clients)
+        spec = CohortSpec(population,
+                          self.cohort if self.cohort is not None
+                          else population, self.seed)
+        spec.validate()
+        return spec
+
+
+@dataclass(frozen=True)
 class StageStack:
     """The resolved, validated stage combination one engine runs."""
 
     uplink: Optional[UplinkComm] = None
     downlink: Optional[DownlinkComm] = None
+    asynchrony: Optional[Asynchrony] = None
+    cohort: Optional[Cohort] = None
 
     @property
     def split(self) -> bool:
         """Whether the round runs as local/server halves joined by an
         explicit message exchange (any communication-shaped stage)."""
-        return self.uplink is not None or self.downlink is not None
+        return (self.uplink is not None or self.downlink is not None
+                or self.asynchrony is not None)
 
     def names(self) -> Tuple[str, ...]:
-        return tuple(s.name for s in (self.uplink, self.downlink)
+        return tuple(s.name for s in (self.uplink, self.downlink,
+                                      self.asynchrony, self.cohort)
                      if s is not None)

@@ -14,6 +14,11 @@ not ported yet):
 
 rng contract: :class:`ArraySupplier` derives a fresh generator per round from
 ``(seed, round_idx)``, so trajectories do not depend on ``chunk_rounds``.
+
+``client_ids`` (an int64 array of global client ids, passed by the engine's
+cohort-resident mode) restricts a draw to those clients' data.  A supplier
+that cannot serve per-id draws does not accept the keyword, and the engine
+checks :func:`supports_client_ids` before a strict sub-cohort passes it.
 """
 from __future__ import annotations
 
@@ -43,26 +48,55 @@ def _stack_batches(per_round: list) -> Batch:
 class BatchSupplier:
     """Protocol: per-round sampling plus an optional vectorized chunk path."""
 
-    def sample_round(self, round_idx: int, rng: np.random.Generator) -> Batch:
-        """One round's batches ``(n_clients, tau, ...)``."""
+    def sample_round(self, round_idx: int, rng: np.random.Generator, *,
+                     client_ids=None) -> Batch:
+        """One round's batches ``(n_clients, tau, ...)`` (leading axis
+        ``len(client_ids)`` when ids are given)."""
         raise NotImplementedError
 
     def sample_chunk(self, start_round: int, n_rounds: int,
-                     rng: np.random.Generator) -> Batch:
+                     rng: np.random.Generator, *, client_ids=None) -> Batch:
         """Batches for ``n_rounds`` rounds, leaves gaining a leading rounds
         axis.  Default: per-round sampling + stack."""
-        return _stack_batches([self.sample_round(start_round + i, rng)
+        kw = {} if client_ids is None else {"client_ids": client_ids}
+        return _stack_batches([self.sample_round(start_round + i, rng, **kw)
                                for i in range(n_rounds)])
 
 
+def _accepts_client_ids(fn) -> bool:
+    import inspect
+
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    return any(p.name == "client_ids" or p.kind is inspect.Parameter.VAR_KEYWORD
+               for p in params)
+
+
 class CallableSupplier(BatchSupplier):
-    """Adapter giving a plain ``fn(round_idx, rng)`` the supplier surface."""
+    """Adapter giving a plain ``fn(round_idx, rng)`` the supplier surface; a
+    callable that accepts a ``client_ids`` keyword serves per-id draws."""
 
     def __init__(self, fn):
         self.fn = fn
+        self.accepts_client_ids = _accepts_client_ids(fn)
 
-    def sample_round(self, round_idx, rng):
+    def sample_round(self, round_idx, rng, *, client_ids=None):
+        if client_ids is not None:
+            return self.fn(round_idx, rng, client_ids=client_ids)
         return self.fn(round_idx, rng)
+
+
+def supports_client_ids(supplier) -> bool:
+    """Whether a supplier serves per-id batch draws: declared by an
+    ``accepts_client_ids`` attribute, or both ``sample_round`` and
+    ``sample_chunk`` accept the keyword."""
+    explicit = getattr(supplier, "accepts_client_ids", None)
+    if explicit is not None:
+        return bool(explicit)
+    return (_accepts_client_ids(supplier.sample_round)
+            and _accepts_client_ids(supplier.sample_chunk))
 
 
 def as_supplier(supplier) -> BatchSupplier:
@@ -121,15 +155,20 @@ class ArraySupplier(BatchSupplier):
         return cls({"a": data.features, "y": data.labels}, tau, batch_size,
                    seed=seed, device_cache=device_cache, device=device)
 
-    def _round_idx(self, r: int) -> np.ndarray:
+    def _round_idx(self, r: int, client_ids=None) -> np.ndarray:
+        # the draw is always the full (n_clients, ...) stream, subset AFTER:
+        # a client's minibatch stream depends only on (seed, round), never
+        # on which other clients share its cohort
         rng = np.random.default_rng((self.seed, r))
-        return rng.integers(0, self.n_examples,
-                            size=(self.n_clients, self.tau, self.batch_size))
+        idx = rng.integers(0, self.n_examples,
+                           size=(self.n_clients, self.tau, self.batch_size))
+        return idx if client_ids is None else idx[np.asarray(client_ids)]
 
-    def _gather(self, idx: np.ndarray) -> Batch:
+    def _gather(self, idx: np.ndarray, client_ids=None) -> Batch:
         # idx: (..., clients, tau, b); result leaves (..., clients, tau, b,
         # *example_shape) -- one fancy-gather per array
-        rows = np.arange(self.n_clients)
+        rows = (np.arange(self.n_clients) if client_ids is None
+                else np.asarray(client_ids))
         cidx = rows.reshape((1,) * (idx.ndim - 3) + (len(rows), 1, 1))
         if self.device_cache:
             dev = next(iter(self._arrays.values())).device
@@ -137,8 +176,13 @@ class ArraySupplier(BatchSupplier):
             idx = torch.as_tensor(idx, device=dev)
         return {k: v[cidx, idx] for k, v in self._arrays.items()}
 
-    def _full_batch(self, lead: tuple) -> Batch:
+    def _full_batch(self, lead: tuple, client_ids=None) -> Batch:
         def one(v):
+            if client_ids is not None:
+                ids = np.asarray(client_ids)
+                if isinstance(v, torch.Tensor):
+                    ids = torch.as_tensor(ids, device=v.device)
+                v = v[ids]  # copy: the cohort's rows
             shape = lead + (v.shape[0], self.tau) + tuple(v.shape[1:])
             src = v[:, None] if not lead else v[None, :, None]
             if isinstance(v, torch.Tensor):
@@ -147,14 +191,16 @@ class ArraySupplier(BatchSupplier):
 
         return {k: one(v) for k, v in self._arrays.items()}
 
-    def sample_round(self, round_idx, rng=None):
+    def sample_round(self, round_idx, rng=None, *, client_ids=None):
         if self.batch_size is None:
-            return self._full_batch(())
-        return self._gather(self._round_idx(round_idx))
+            return self._full_batch((), client_ids)
+        return self._gather(self._round_idx(round_idx, client_ids),
+                            client_ids)
 
-    def sample_chunk(self, start_round, n_rounds, rng=None):
+    def sample_chunk(self, start_round, n_rounds, rng=None, *,
+                     client_ids=None):
         if self.batch_size is None:
-            return self._full_batch((n_rounds,))
-        idx = np.stack([self._round_idx(start_round + i)
+            return self._full_batch((n_rounds,), client_ids)
+        idx = np.stack([self._round_idx(start_round + i, client_ids)
                         for i in range(n_rounds)])
-        return self._gather(idx)
+        return self._gather(idx, client_ids)

@@ -1,9 +1,15 @@
 """Weights and states carried across from the JAX reference.
 
-The reference's params and ``DProxState`` arrive as numpy arrays (anything
-``np.asarray`` accepts, JAX arrays included) and leave as numpy arrays; this
-module imports neither ``jax`` nor ``repro``.  Tests feed both packages the
-same numbers through it.
+The reference's params, ``DProxState`` and async states arrive as numpy
+arrays (anything ``np.asarray`` accepts, JAX arrays included) and leave as
+numpy arrays; this module imports neither ``jax`` nor ``repro``.  Tests feed
+both packages the same numbers through it.
+
+The reference's async states carry a ``clock_key`` (a ``jax.random`` key);
+the port's carry none.  The key's draws reach the port as the clock's draw
+source instead: :func:`clock_draws` wraps the normals (and, for a
+non-persistent straggler clock, the bernoullis) the caller computed from
+the key, in the order the clock consumes them.
 """
 from __future__ import annotations
 
@@ -49,3 +55,35 @@ def state_to_numpy(state: DProxState) -> DProxState:
     return DProxState(x_bar=params_to_numpy(state.x_bar),
                       c=params_to_numpy(state.c),
                       round=state.round.detach().cpu().numpy())
+
+
+def async_state_to_torch(sched, device):
+    """A reference ``AsyncState`` or ``QueueState`` (report buffers as
+    pytrees or planes, the staleness residual, the ledger; dtypes kept) ->
+    the port's state of the same kind on ``device``, without the clock key
+    (see the module docstring)."""
+    from repro_torch.sched.aggregator import AsyncState, QueueState
+
+    kind = QueueState if hasattr(sched, "slot_filled") else AsyncState
+    return kind(**{f: params_to_torch(getattr(sched, f), device)
+                   for f in kind._fields})
+
+
+def async_state_to_numpy(sched):
+    """The port's async state -> the same ``NamedTuple`` of numpy arrays."""
+    return type(sched)(**{f: params_to_numpy(getattr(sched, f))
+                          for f in sched._fields})
+
+
+def clock_draws(normals, bernoullis=None):
+    """The port's clock draw source from draws made with the reference's
+    clock key: per commit one ``normal`` vector, then (non-persistent
+    straggler clock) one ``bernoulli`` vector."""
+    from repro_torch.comm import ReplayDraws
+
+    seq = []
+    for i, z in enumerate(normals):
+        seq.append(np.asarray(z, np.float32))
+        if bernoullis is not None:
+            seq.append(np.asarray(bernoullis[i], bool))
+    return ReplayDraws(seq)

@@ -100,4 +100,8 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int, vp]
     fn.restype = ctypes.c_int
+    fn = lib.repro_weighted_commit
+    fn.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int64, ctypes.c_int64,
+                   vp]
+    fn.restype = ctypes.c_int
     return lib

@@ -1,5 +1,5 @@
-// Flat-plane compression kernels (global top-k select, stochastic
-// quantization), for Hopper.
+// Flat-plane kernels (global top-k select, stochastic quantization, the
+// weighted commit of the asynchronous server), for Hopper.
 //
 // Replace the Pallas TPU kernels of repro/kernels/plane_ops.py:
 //   * _threshold_kernel (threshold_select_3d): for each element of a
@@ -11,18 +11,28 @@
 //     scale,
 //         s = scale[row] == 0 ? 1 : scale[row]
 //         y = x / s * L,  lo = floor(y),  q = lo + (u < y - lo),
-//         out = q / L * s.
+//         out = q / L * s;
+//   * _commit_kernel (weighted_commit_3d): the weighted client-axis sum of
+//     an (n_rows, d_pad) report plane,
+//         out[j] = sum_i w[i] * x[i, j],   i = 0 .. n_rows - 1 in order,
+//     the reduction of the buffered commit's server half.
 //
-// Bound: both are elementwise passes bound by device memory. The select
-// reads x once and writes out once (2 moves of n * itemsize bytes), the
-// quantizer reads x and u and writes out (3 moves); a handful of operations
-// per element against 67 (fp32) / 34 (fp64) TFLOP/s is far below the
-// bytes. Design for that bound: one grid-stride launch over the whole
-// plane (no per-row or per-leaf launches, no lane padding), 16-byte vector
-// loads and stores where every pointer is aligned, a scalar loop for the
-// ragged tail. The row of an element is i / d_pad, computed once per
-// vector and carried across row boundaries inside the vector; the per-row
-// scalars are read through the cache (30 rows: a few hundred bytes).
+// Bound: all three are passes bound by device memory. The select reads x
+// once and writes out once (2 moves of n * itemsize bytes), the quantizer
+// reads x and u and writes out (3 moves), the commit reads the plane once
+// and writes one row (n_rows + 1 moves of d_pad * itemsize bytes); a
+// handful of operations per element against 67 (fp32) / 34 (fp64) TFLOP/s
+// is far below the bytes. Design for that bound: one grid-stride launch
+// over the whole plane (no per-row or per-leaf launches, no lane padding),
+// 16-byte vector loads and stores where every pointer is aligned, a scalar
+// loop for the ragged tail. In the select and the quantizer the row of an
+// element is i / d_pad, computed once per vector and carried across row
+// boundaries inside the vector; the per-row scalars are read through the
+// cache (30 rows: a few hundred bytes). The commit gives each thread one
+// 16-byte vector of columns and walks the rows in order, so each row is
+// read coalesced across the warp and the sum needs no cross-thread
+// reduction and no atomics: it is deterministic and adds in the plain
+// version's order.
 //
 // Rounding: the results must equal the plain PyTorch versions
 // (repro_torch/kernels/plane_ops.py) bitwise, so every add, subtract,
@@ -30,8 +40,11 @@
 // FMA, never an approximate division; the build passes -fmad=false), and
 // floor is exact. float and double compute in their own type; bfloat16 and
 // half compute in float and round once at the store (the select passes x
-// through untouched). NaN follows IEEE: |NaN| >= t is false, so the select
-// writes 0.
+// through untouched). The commit's weights come in the compute type
+// (float64 for float64 planes, float otherwise), as repro/kernels/ref.py
+// computes in the plane's dtype; the Pallas kernel takes them, and sums,
+// in float32 for every dtype. NaN follows IEEE: |NaN| >= t is false, so
+// the select writes 0.
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers. Each launch
 // goes on the caller's stream, allocates nothing, and the entry returns
@@ -182,6 +195,41 @@ __global__ void quantize_kernel(const T* __restrict__ x, const T* __restrict__ u
   }
 }
 
+// w: per-row weights in the compute type W; out: (d_pad,) in T.
+template <typename T, typename W>
+__global__ void weighted_commit_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                                       T* __restrict__ out, int64_t n_rows, int64_t d_pad,
+                                       bool vectorized) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t head = 0;
+  if (vectorized) {  // every row starts on a 16-byte boundary
+    constexpr int N = Vec<T>::N;
+    const int64_t nvec = d_pad / N;
+    for (int64_t v = tid; v < nvec; v += stride) {
+      W acc[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) acc[k] = W(0);
+      for (int64_t i = 0; i < n_rows; ++i) {
+        const Vec<T> a = reinterpret_cast<const Vec<T>*>(x + i * d_pad)[v];
+        const W wi = w[i];
+#pragma unroll
+        for (int k = 0; k < N; ++k) acc[k] = add_rn(acc[k], mul_rn(wi, load_w(a.v[k])));
+      }
+      Vec<T> o;
+#pragma unroll
+      for (int k = 0; k < N; ++k) o.v[k] = store_t<T>(acc[k]);
+      reinterpret_cast<Vec<T>*>(out)[v] = o;
+    }
+    head = nvec * N;
+  }
+  for (int64_t j = head + tid; j < d_pad; j += stride) {
+    W acc = W(0);
+    for (int64_t i = 0; i < n_rows; ++i) acc = add_rn(acc, mul_rn(w[i], load_w(x[i * d_pad + j])));
+    out[j] = store_t<T>(acc);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 constexpr int kThreads = 256;
@@ -222,6 +270,17 @@ int launch_quantize(const void* x, const void* u, const void* scale, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename W>
+int launch_commit(const void* x, const void* w, void* out, int64_t n_rows, int64_t d_pad,
+                  cudaStream_t stream) {
+  const bool vec = aligned16(x) && aligned16(out) && (d_pad * int64_t(sizeof(T))) % 16 == 0;
+  const unsigned grid = grid_for<T>(d_pad, vec);
+  weighted_commit_kernel<T, W><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), n_rows, d_pad,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype codes: 0 float32, 1 float64, 2 bfloat16, 3 float16.
@@ -252,6 +311,21 @@ extern "C" int repro_quantize(int dtype, const void* x, const void* u, const voi
     case 2:
       return launch_quantize<__nv_bfloat16, float>(x, u, scale, out, n_rows, d_pad, levels, s);
     case 3: return launch_quantize<__half, float>(x, u, scale, out, n_rows, d_pad, levels, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// w: (n_rows,) in double for float64, float otherwise; out: (d_pad,) in x's
+// dtype.
+extern "C" int repro_weighted_commit(int dtype, const void* x, const void* w, void* out,
+                                     int64_t n_rows, int64_t d_pad, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows <= 0 || d_pad <= 0) return 0;
+  switch (dtype) {
+    case 0: return launch_commit<float, float>(x, w, out, n_rows, d_pad, s);
+    case 1: return launch_commit<double, double>(x, w, out, n_rows, d_pad, s);
+    case 2: return launch_commit<__nv_bfloat16, float>(x, w, out, n_rows, d_pad, s);
+    case 3: return launch_commit<__half, float>(x, w, out, n_rows, d_pad, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -67,3 +67,11 @@ def plane_quantize(flat_plane, u, scale, levels: int):
     launch)."""
     return plane_ops.quantize_2d(flat_plane.contiguous(), u.contiguous(),
                                  scale, levels)
+
+
+def plane_weighted_commit(buf, w):
+    """Staleness-weighted buffered commit on a ``(clients, d_pad)``
+    report plane: ``sum_i w[i] * buf[i]`` over the client axis, clients
+    added in order, as one kernel launch.  ``w`` holds the mixing weights,
+    zero for undelivered clients.  Returns the ``(d_pad,)`` row."""
+    return plane_ops.weighted_commit_2d(buf.contiguous(), w)

@@ -1,16 +1,20 @@
-"""Flat-plane compression kernels: the CUDA kernels' wrappers and their plain
-PyTorch versions.
+"""Flat-plane kernels: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
 The port of the Pallas TPU kernels of ``repro/kernels/plane_ops.py``
-(``_threshold_kernel`` / ``threshold_select_3d`` and ``_quantize_kernel`` /
-``quantize_3d``).  Both run over a contiguous ``(n_rows, d_pad)`` plane --
-one row per client, or one row for a broadcast -- with a per-row scalar:
+(``_threshold_kernel`` / ``threshold_select_3d``, ``_quantize_kernel`` /
+``quantize_3d`` and ``_commit_kernel`` / ``weighted_commit_3d``).  All run
+over a contiguous ``(n_rows, d_pad)`` plane -- one row per client, or one
+row for a broadcast -- with a per-row scalar:
 
   * :func:`threshold_select_2d` -- ``out = |x| >= thresh[row] ? x : 0``, the
     select half of global top-k once the per-row k-th magnitude is known;
   * :func:`quantize_2d` -- stochastic uniform quantization given the draws
     ``u`` and a per-row ``scale`` (0 quantizes as 1):
-    ``y = x/s*L``, ``q = floor(y) + [u < y - floor(y)]``, ``out = q/L*s``.
+    ``y = x/s*L``, ``q = floor(y) + [u < y - floor(y)]``, ``out = q/L*s``;
+  * :func:`weighted_commit_2d` -- ``out[j] = sum_i w[i] * x[i, j]``, added
+    in row order: the client-axis reduction of the buffered commit's server
+    half (``repro.sched.aggregator``).
 
 The kernels (``csrc/plane_ops.cu``) make one grid-stride launch each over
 the whole plane.  float32 computes in float32, float64 in float64, bfloat16
@@ -58,6 +62,18 @@ def quantize_plain(x, u, scale, levels: int):
     lo = torch.floor(y)
     q = lo + (u.to(work) < (y - lo)).to(work)
     return (q / L * s).to(dt)
+
+
+def weighted_commit_plain(x, w):
+    """The commit kernel's function in plain PyTorch: ``acc = acc + w[i] *
+    x[i]`` over the rows in order, in the compute type, rounded once to
+    ``x``'s dtype."""
+    work = _work_dtype(x.dtype)
+    wt = w.to(work)
+    acc = torch.zeros(tuple(x.shape[1:]), dtype=work, device=x.device)
+    for i in range(x.shape[0]):
+        acc = acc + wt[i] * x[i].to(work)
+    return acc.to(x.dtype)
 
 
 def _check_plane(name: str, x, *others):
@@ -164,3 +180,33 @@ def quantize_2d(x, u, scale, levels: int):
 
 
 quantize_2d.launches = 0
+
+
+def weighted_commit_2d(x, w):
+    """The weighted row sum ``sum_i w[i] * x[i]`` of an ``(n_rows, d_pad)``
+    plane, rows added in order; ``w`` is ``(n_rows,)`` of any float dtype
+    (cast to the compute type first).  Returns ``(d_pad,)`` in ``x``'s
+    dtype.
+
+    CPU tensors take :func:`weighted_commit_plain`.  CUDA tensors launch
+    the kernel (counted in ``weighted_commit_2d.launches``) or raise;
+    nothing falls back.
+    """
+    _check_plane("weighted_commit", x, w)
+    _check_rows("weighted_commit", x, w)
+    if x.shape[0] < 1:
+        raise ValueError("weighted_commit needs at least one row")
+    if not _kernel_device("weighted_commit", x):
+        return weighted_commit_plain(x, w)
+    if not x.is_contiguous():
+        raise ValueError("weighted_commit_2d needs a contiguous plane")
+    wt = w.to(_work_dtype(x.dtype)).contiguous()
+    out = torch.empty((x.shape[1],), dtype=x.dtype, device=x.device)
+    _launch("weighted_commit", "repro_weighted_commit",
+            x, _DTYPE_CODES[x.dtype], x.data_ptr(), wt.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[1])
+    weighted_commit_2d.launches += 1
+    return out
+
+
+weighted_commit_2d.launches = 0

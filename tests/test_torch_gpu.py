@@ -176,3 +176,75 @@ def test_one_launch_per_global_compress_call(cuda, name):
     assert counter.launches == before + 1
     assert torch.equal(hat.cpu(), hat_cpu)
     assert torch.equal(new_state.cpu(), flat.cpu() - hat_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("shape", [(30, 128), (30, 112_512), (1, 112_512),
+                                   (3, 4099), (5, 3)])
+def test_weighted_commit_matches_plain_bitwise_on_card(cuda, dtype, shape):
+    x, _ = _plane(cuda, shape, dtype, seed=shape[1] + 7)
+    k = min(len(_SPECIALS), shape[1])
+    x[0, :k] = torch.tensor(_SPECIALS[:k], dtype=dtype)
+    w = torch.rand(shape[0], device=cuda, dtype=torch.float64) + 0.5
+    w[::3] = 0.0  # undelivered clients
+    before = plane_ops.weighted_commit_2d.launches
+    got = plane_ops.weighted_commit_2d(x, w)
+    exp = plane_ops.weighted_commit_plain(x, w)
+    torch.cuda.synchronize()
+    assert plane_ops.weighted_commit_2d.launches == before + 1
+    assert got.shape == (shape[1],) and got.dtype == dtype
+    assert _bits_equal(got, exp)
+
+
+@pytest.mark.gpu
+def test_weighted_commit_on_unaligned_views(cuda):
+    """A plane off a 16-byte boundary, or rows of an odd width, take the
+    scalar path and still equal the plain version."""
+    base, _ = _plane(cuda, (4, 1001), torch.float64, seed=2)
+    x = base.reshape(-1)[1:4001].reshape(4, 1000)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    w = torch.tensor([0.5, 0.0, 2.0, 1.0], device=cuda, dtype=torch.float64)
+    assert _bits_equal(plane_ops.weighted_commit_2d(x, w),
+                       plane_ops.weighted_commit_plain(x, w))
+    y = base[:, :999].contiguous()
+    assert _bits_equal(plane_ops.weighted_commit_2d(y, w),
+                       plane_ops.weighted_commit_plain(y, w))
+    with pytest.raises(ValueError, match="contiguous"):
+        plane_ops.weighted_commit_2d(base.t(), torch.ones(1001, device=cuda))
+
+
+@pytest.mark.gpu
+def test_plane_async_commit_launches_the_commit_kernel(cuda):
+    """A buffered async commit on the plane is one commit-kernel launch,
+    and equals the same commits on the CPU given the same draws."""
+    import numpy as np
+
+    from repro_torch import sched
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.core.prox import L1
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import simulator
+    from repro_torch.models import logreg
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((6, 3, 8, 10)) / 4
+    y = np.sign(rng.standard_normal((6, 3, 8)))
+    alg = simulator.DProxAlgorithm(L1(0.01), DProxConfig(3, 0.05, 2.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = RoundEngine(alg, logreg.make_grad_fn(), 6, EngineConfig(
+            plane=True, transport=comm.TopK(0.5, granularity="global"),
+            clock=sched.StragglerClock(slowdown=3.0), buffer_size=3,
+            staleness=sched.Staleness("poly", correct=True), queue_depth=2),
+            device=dev, clock_draws=comm.GeneratorDraws(1, "cpu"))
+        st = eng.init({"w": torch.zeros(10, dtype=torch.float64),
+                       "b": torch.zeros((), dtype=torch.float64)})
+        before = plane_ops.weighted_commit_2d.launches
+        st, m = eng.run(st, lambda r, g: {"a": a, "y": y}, 5)
+        out[dev] = (st, m, plane_ops.weighted_commit_2d.launches - before)
+    assert out["cuda"][2] == 5 and out["cpu"][2] == 0
+    assert out["cuda"][1]["staleness_mean"] == out["cpu"][1]["staleness_mean"]
+    assert torch.allclose(out["cuda"][0].x_bar["w"].cpu(),
+                          out["cpu"][0].x_bar["w"], rtol=1e-9, atol=1e-12)

@@ -41,7 +41,8 @@ def test_package_imports_with_jax_blocked():
             "import repro_torch, repro_torch.interop, repro_torch.fed.simulator\n"
             "import repro_torch.fed.problems, repro_torch.kernels.ops\n"
             "import repro_torch.comm, repro_torch.exec.stages\n"
-            "import repro_torch.kernels.plane_ops\n"
+            "import repro_torch.kernels.plane_ops, repro_torch.sched\n"
+            "import repro_torch.exec, repro_torch.sched.cohort\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

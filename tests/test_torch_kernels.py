@@ -1,6 +1,6 @@
 """The port's kernel modules against the JAX reference (repro_torch.kernels
 vs repro.kernels): the fused local-update + L1-prox step, and the flat-plane
-threshold select and quantizer.
+threshold select, quantizer and weighted commit.
 
 On the CPU the wrapper runs the kernel's plain PyTorch version; the CUDA
 kernel itself is compared with that plain version on the card
@@ -23,7 +23,15 @@ Tolerances:
     bfloat16, the port computes in float32 and rounds once: held to two
     quantization steps ``2*s/L`` (a level can move by one where a bfloat16
     rounding of ``y`` crosses an integer or ``u`` the fraction) plus two
-    bfloat16 ulps of the output.
+    bfloat16 ulps of the output;
+  * the weighted commit's plain version adds the rows in order in the
+    plane's dtype, as ``ref.plane_weighted_commit``'s ``jnp.sum`` does on
+    the CPU for at most 32 rows: held BITWISE there (float32, float64; NaN,
+    +-0, +-inf and zero weights included).  Against the Pallas kernel run
+    by the interpreter (weights cast to float32, float32 sums, possibly
+    contracted into FMAs) float32 is held to ``n * eps32 * sum_i |w_i
+    x_i|`` per column, and float64 to the same bound, since the Pallas
+    kernel rounds a float64 plane to float32 first.
 """
 import jax
 import jax.numpy as jnp
@@ -370,3 +378,83 @@ def test_plane_wrappers_raise_on_a_device_without_kernel():
     plane_ops.quantize_2d(x, x * 0.5, torch.ones(3), 255)
     assert (plane_ops.threshold_select_2d.launches,
             plane_ops.quantize_2d.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the weighted commit (kernel 4)
+# ---------------------------------------------------------------------------
+
+
+def _commit_inputs(shape, dtype, seed=0, specials=True):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * np.exp(
+        rng.uniform(-8, 8, (shape[0], 1)))).astype(dtype)
+    w = rng.uniform(0.1, 2.0, shape[0])
+    w[rng.random(shape[0]) < 0.3] = 0.0  # undelivered clients
+    if specials and shape[1] >= 6:
+        x[0, :5] = [np.nan, -0.0, 0.0, np.inf, -np.inf]
+        x[:, 5] = -0.0  # a column of negative zeros sums to +0
+    return x, w
+
+
+@pytest.mark.parametrize("n", [1, 15, 30, 32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_weighted_commit_plain_matches_ref_bitwise(n, dtype):
+    x, w = _commit_inputs((n, 128 * 3), dtype, seed=n)
+    exp = ref.plane_weighted_commit(jnp.asarray(x), jnp.asarray(w, dtype))
+    got = ops.plane_weighted_commit(torch.from_numpy(x),
+                                    torch.from_numpy(w.astype(dtype)))
+    assert got.dtype == torch.from_numpy(x).dtype and got.shape == (384,)
+    if n == 1:
+        # XLA folds a one-row sum into the row itself, so a -0 product
+        # stays -0 there; the loop starts from +0 and gives +0
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+        return
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(exp)))
+
+
+def test_weighted_commit_plain_computes_in_the_plane_dtype():
+    """float64 sums in float64 with float64 weights (``ref.py``), where the
+    Pallas kernel would round both to float32; bfloat16 sums in float32 and
+    rounds once."""
+    x = torch.tensor([[1.0, 3.0], [1e-12, 1.0]], dtype=torch.float64)
+    w = torch.tensor([1.0, 1.0 / 3.0], dtype=torch.float64)
+    got = plane_ops.weighted_commit_plain(x, w).numpy()
+    exp = (np.float64(0) + 1.0 * x[0].numpy()) + (1.0 / 3.0) * x[1].numpy()
+    np.testing.assert_array_equal(got, exp)
+    assert got[0] != np.float32(1.0) + np.float32(1e-12) / np.float32(3.0)
+    xb = torch.tensor([[1.0], [2.0 ** -8], [2.0 ** -8]],
+                      dtype=torch.bfloat16)
+    got = plane_ops.weighted_commit_plain(xb, torch.ones(3))
+    # in bfloat16 each 2^-8 would round away (a tie to even at 1.0); in
+    # float32 they add up first and the sum rounds once
+    assert got.dtype == torch.bfloat16 and got.item() == 1.0 + 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_weighted_commit_matches_pallas_interpret_at_f32_rounding(dtype):
+    n = 30
+    x, w = _commit_inputs((n, 1024), dtype, seed=5, specials=False)
+    exp = np.asarray(jops.plane_weighted_commit(
+        jnp.asarray(x), jnp.asarray(w), interpret=True))
+    got = ops.plane_weighted_commit(torch.from_numpy(x),
+                                    torch.from_numpy(w)).numpy()
+    tol = n * EPS32 * np.abs(w[:, None] * x.astype(np.float64)).sum(axis=0)
+    assert np.all(np.abs(got.astype(np.float64) - exp) <= tol)
+
+
+def test_weighted_commit_wrapper_checks_and_counts():
+    x = torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="per-row"):
+        plane_ops.weighted_commit_2d(x, torch.zeros(4))
+    with pytest.raises(ValueError, match="plane"):
+        plane_ops.weighted_commit_2d(torch.zeros(8), torch.zeros(8))
+    with pytest.raises(ValueError, match="dtype"):
+        plane_ops.weighted_commit_2d(x.int(), torch.zeros(3))
+    with pytest.raises(ValueError, match="no weighted_commit kernel"):
+        plane_ops.weighted_commit_2d(torch.empty(3, 8, device="meta"),
+                                     torch.empty(3, device="meta"))
+    before = plane_ops.weighted_commit_2d.launches
+    plane_ops.weighted_commit_2d(torch.ones(3, 8), torch.ones(3))
+    assert plane_ops.weighted_commit_2d.launches == before  # CPU: plain
+    assert "repro_weighted_commit" in (_build.CSRC / "plane_ops.cu").read_text()
