@@ -58,7 +58,41 @@ Phases, each asserting (any failure exits non-zero and prints no result):
   9. cohort      -- the quickstart's cohort run: population 3,000, cohort 30,
                   TopK(0.25), chunk 16, 200 rounds on the Fig. 2 problem, on
                   the card and on the CPU: the final loss at rtol 1e-6 and
-                  the population store's touched rows equal.
+                  the population store's touched rows equal;
+ 10. flash     -- the flash-attention kernel against its plain version at
+                  the serving path's shapes, twice: inputs scaled by 0.5,
+                  max abs error 3e-2 (bf16) / 2e-5 (f32) (the reference's
+                  check); then q, k scaled to logits of std 16, where the
+                  softcap bends and the softmax is peaked, against the plain
+                  version in f32, max row error ||got - exp|| / ||exp||
+                  1e-2 (bf16) / 1e-4 (f32), with controls (softcap dropped,
+                  window moved by 32 keys, causal flipped) that must move
+                  the plain version by 10x that; gemma2-9b prefill
+                  (1, 4608, 16/8, 256) bf16 softcap 50, global and window
+                  4,096; (2, 1000, 16/8, 256) (ragged S); mistral-nemo
+                  (1, 4096, 32/8, 128) bf16; stablelm (2, 512, 32/32, 64)
+                  f32; (2, 1000, 32/8, 128) bf16 not causal.  Kernel ms
+                  (CUDA events and profiler), plain ms, the bound (causal
+                  FLOPs at 989 TFLOP/s bf16, 67 f32, against the bytes), and
+                  F.scaled_dot_product_attention's ms where it computes the
+                  same function (timed only);
+ 11. gemma2-9b serving -- (a) full width, one local+global period, float32,
+                  window 96, 2 x 160-token prompts and 8 teacher-forced
+                  decode steps (the ring cache rolls at prefill and wraps in
+                  decode): the card's logits equal the CPU port's within
+                  1e-4 x max|logit|, the caches within 1e-4 x max|cache|;
+                  serve == sequential generate greedily on the card (a
+                  flip only where the top-2 margin is below the logits'
+                  tolerance); (b) full width and depth
+                  (42 layers, 9.24 B random bf16 params from a seed):
+                  generate 2 x 1024 + 32, then serve 4 requests (prompts
+                  4,608 / 1,024 / 2,500 / 640, 32 new each) on 2 slots,
+                  segment 8, max_len 8,192: every request finishes with
+                  finite logprobs, the flash kernel launched 42 times per
+                  prefill and nothing else; prefill ms per request, decode
+                  ms per token, and for one profiled decode step and
+                  prefills of 4,608 and 1,024 tokens the device busy time,
+                  the idle share and the kernel's share of busy time.
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
@@ -72,7 +106,7 @@ float64, with NaN, +-0 and +-inf injected and zero weights for undelivered
 clients, and times ``torch.mv(buf.t(), w)`` beside it.
 
 Every launch counter is set to 0 just before each path of phases 3-9 and
-read just after.  The line before the last is the kernels' JSON summary;
+11 and read just after.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
 """
@@ -115,12 +149,13 @@ def log(msg: str) -> None:
 
 
 def _counters():
-    from repro_torch.kernels import fused_prox, plane_ops
+    from repro_torch.kernels import flash_attention, fused_prox, plane_ops
 
     return {"fused_local_update": fused_prox.fused_local_update_2d,
             "threshold_select": plane_ops.threshold_select_2d,
             "quantize": plane_ops.quantize_2d,
-            "weighted_commit": plane_ops.weighted_commit_2d}
+            "weighted_commit": plane_ops.weighted_commit_2d,
+            "flash_attention": flash_attention.flash_attention_bshd}
 
 
 def _expect(**launches) -> dict:
@@ -166,7 +201,9 @@ def phase_build():
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load_library()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
+    each = ", ".join(f"{k} {v:.2f} s" for k, v in _build.build.seconds.items())
+    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s (nvcc in "
+        f"parallel: {each or 'already built'})")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -251,24 +288,47 @@ def phase_kernels(card: str):
             for seed, (shape, dt) in enumerate(cases)]
 
 
-def _device_ms(fn, calls: int = 20) -> float:
-    """Device time of one ``fn()`` from ``torch.profiler``: every CUDA
-    kernel's time over ``calls`` calls, divided by ``calls``.  Unlike
-    :func:`_time_ms` it leaves out the host's gaps between launches, which
-    set the pace of back-to-back calls on a small plane."""
+def _profile_kernels(fn, calls: int, sessions: int = 3) -> dict:
+    """Device ms by kernel name over ``calls`` calls of ``fn`` from
+    ``torch.profiler``, taken from the session (of ``sessions``) that
+    recorded the most kernels: on the H100 machine a session now and then
+    loses some or all of its kernel records (the same three calls profiled
+    80 times over recorded 2 or 0 kernels a few times), which would read as
+    less device time.
+    ``_profile_kernels.records`` holds that session's record count by
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / calls
+    best, best_n = {}, -1
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name, counts, n = {}, {}, 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n += 1
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3)
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if n > best_n:
+            best, best_n = by_name, n
+            _profile_kernels.records = counts
+    return best
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` from ``torch.profiler``: every CUDA
+    kernel's time over ``calls`` calls, divided by ``calls`` (0 when the
+    profiler saw no kernel).  Unlike :func:`_time_ms` it leaves out the
+    host's gaps between launches, which set the pace of back-to-back calls
+    on a small plane."""
+    return sum(_profile_kernels(fn, calls).values()) / calls
 
 
 def _bit_diff(a, b) -> int:
@@ -1035,6 +1095,449 @@ def phase_cohort(card: str):
             "touched": touched, "store_bytes": nbytes}
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+PEAK_BF16 = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:120
+# The reference's check above (max abs error, inputs x 0.5) cannot see a
+# dropped softcap or a shifted window at these shapes: its logits are ~0.25,
+# the softcap of 50 never bends them and the softmax is near uniform, so an
+# output row is ~0.01 in size.  The sharp check: q and k scaled so the scaled
+# logits have a std of LOGIT_STD (the softcap bends the largest, the softmax
+# is peaked), the kernel against the plain version in float32 on the same
+# inputs, each output row's error against its own size, max over rows of
+# ||got - exp|| / ||exp||.  ROW_TOL: bf16 -- the kernel rounds the
+# probabilities and the output to bf16, 2^-8 each; f32 -- summation order of
+# 256-term dots of size ~16 (~1e-5 of a logit).  Controls: the plain version
+# with the softcap dropped, the window moved by a 32-key tile either way, or
+# the causal flag flipped, must each differ from it by CONTROL x ROW_TOL.
+LOGIT_STD = 16.0
+ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+CONTROL = 10.0
+
+
+def _admitted_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask admits in one head: the work the
+    attention does on these inputs."""
+    if not causal:
+        return s * s
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flash_plain_bshd(q, k, v, **kw):
+    """The plain version on the (B, S, H, D) layout, kv heads repeated."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rep = q.shape[2] // k.shape[2]
+    return fa.flash_attention_plain(
+        q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+        v.repeat_interleave(rep, 2).transpose(1, 2), **kw).transpose(1, 2)
+
+
+def _row_rel_err(got, exp) -> float:
+    """max over output rows (b, s, h) of ||got - exp|| / ||exp||."""
+    g, e = got.float().flatten(0, 2), exp.float().flatten(0, 2)
+    return float(((g - e).norm(dim=1) / e.norm(dim=1)).max())
+
+
+def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed):
+    """The sharp check (see ROW_TOL) and its controls; returns (max row
+    error, {control: its max row difference from the plain version})."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = LOGIT_STD ** 0.5  # q.k / sqrt(D) has std sd * sd
+    q, k, v = ((torch.randn((b, s, n, d), generator=gen, device="cuda")
+                * f).to(dtype) for n, f in ((h, sd), (kh, sd), (kh, 1.0)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention_bshd(q, k, v, **kw)
+    q, k, v = q.float(), k.float(), v.float()
+    exp = _flash_plain_bshd(q, k, v, **kw)
+    err = _row_rel_err(got, exp)
+    del got
+    controls = {}
+    if softcap is not None:
+        controls["softcap dropped"] = dict(kw, softcap=None)
+    if causal and window is not None:
+        for w in (window - 32, window + 32):
+            controls[f"window {w}"] = dict(kw, window=w)
+    controls["causal flipped"] = dict(kw, causal=not causal)
+    ctl = {}
+    for name, ckw in controls.items():
+        ctl[name] = _row_rel_err(_flash_plain_bshd(q, k, v, **ckw), exp)
+        torch.cuda.empty_cache()
+    return err, ctl
+
+
+def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
+                softcap=None, seed=0):
+    """The flash kernel against its plain version at one shape (the
+    reference's check, then the sharp one with its controls); times the
+    kernel, the plain version and, where it computes the same function,
+    ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = ((torch.randn((b, s, n, d), generator=gen, device="cuda")
+                * 0.5).to(dtype) for n in (h, kh, kh))
+    rep = h // kh
+
+    def kern():
+        return fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+
+    def plain():
+        return _flash_plain_bshd(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+
+    got, exp = kern(), plain()
+    torch.cuda.synchronize()
+    wname = str(dtype).replace("torch.", "")
+    where = (f"{(b, s, h, kh, d)} {wname} causal={causal} window={window} "
+             f"softcap={softcap}")
+    err = float((got.float() - exp.float()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"flash {where}: non-finite output")
+    check(err <= FLASH_TOL[wname], f"flash kernel != plain at {where}: max "
+          f"abs err {err:.3e} > {FLASH_TOL[wname]}")
+    del got, exp
+    row_err, ctl = _flash_sharp(b, s, h, kh, d, dtype, causal, window,
+                                softcap, seed + 1000)
+    row_tol = ROW_TOL[wname]
+    check(row_err <= row_tol, f"flash kernel != plain at {where}, logit std "
+          f"{LOGIT_STD}: max row error {row_err:.3e} > {row_tol}")
+    for name, diff in ctl.items():
+        check(diff >= CONTROL * row_tol, f"flash control at {where}: {name} "
+              f"moves the plain version by only {diff:.3e} < {CONTROL} x "
+              f"{row_tol}, so the check could not see it")
+    ms = _time_ms(kern, 5, 3)
+    # the kernel's mean over the records the profiler kept (None: it kept
+    # none), so a lost record does not read as a faster kernel
+    recs = {k: (v, _profile_kernels.records[k])
+            for k, v in _profile_kernels(kern, 5).items() if "flash_" in k}
+    device_ms = (sum(v for v, _ in recs.values())
+                 / sum(n for _, n in recs.values())) if recs else None
+    plain_ms = _time_ms(plain, 3, 2)
+    library_ms = None
+    if softcap is None and (window is None or not causal):
+        # SDPA computes the same function (no softcap, no window); timed
+        # only, on the (B, H, S, D) layout it takes
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=rep > 1)
+        try:
+            lib_err = float((lib().transpose(1, 2).float()
+                             - kern().float()).abs().max())
+        except TypeError as e:  # a PyTorch without enable_gqa
+            log(f"[flash] SDPA not timed: {e}")
+        else:
+            check(lib_err <= FLASH_TOL[wname],
+                  f"SDPA disagrees with the kernel by {lib_err:.3e}")
+            library_ms = _time_ms(lib, 5, 3)
+        del qt, kt, vt
+    pairs = _admitted_pairs(s, causal, window)
+    flops = 4 * d * h * b * pairs
+    nbytes = b * s * (2 * h + 2 * kh) * d * q.element_size()
+    peak = PEAK_BF16 if dtype != torch.float32 else PEAK_OPS["float32"]
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    row = {"kernel": "flash_attention", "shape": [b, s, h, kh, d],
+           "dtype": wname, "causal": causal, "window": window,
+           "softcap": softcap, "max_abs_err": err, "tol": FLASH_TOL[wname],
+           "max_row_rel_err": row_err, "row_tol": row_tol,
+           "controls": ctl,
+           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "gflop": flops / 1e9,
+           "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
+    log(f"[flash] (B {b}, S {s}, H {h}/{kh}, D {d}) {wname} causal={causal} "
+        f"window={window} softcap={softcap}: max abs err {err:.3e} (tol "
+        f"{FLASH_TOL[wname]}); logit std {LOGIT_STD}: max row err "
+        f"{row_err:.3e} (tol {row_tol}), controls "
+        + ", ".join(f"{n} {c:.3e}" for n, c in ctl.items())
+        + f"; kernel {ms:.4f} ms (device "
+        f"{'%.4f ms' % device_ms if device_ms else 'not measured'}, "
+        f"{row['TFLOP_per_s']:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.4f} ms, SDPA "
+        f"{'%.4f ms' % library_ms if library_ms is not None else 'n/a'}  "
+        f"[{card}]")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_flash_kernel(card: str):
+    """Phase 10: the flash kernel at the serving path's shapes."""
+    import torch
+
+    bf = torch.bfloat16
+    cases = [
+        dict(b=1, s=4608, h=16, kh=8, d=256, dtype=bf, softcap=50.0),
+        dict(b=1, s=4608, h=16, kh=8, d=256, dtype=bf, softcap=50.0,
+             window=4096),
+        dict(b=2, s=1000, h=16, kh=8, d=256, dtype=bf, softcap=50.0),
+        dict(b=1, s=4096, h=32, kh=8, d=128, dtype=bf),
+        dict(b=2, s=512, h=32, kh=32, d=64, dtype=torch.float32),
+        dict(b=2, s=1000, h=32, kh=8, d=128, dtype=bf, causal=False),
+    ]
+    return [_flash_case(card, seed=200 + i, **c) for i, c in enumerate(cases)]
+
+
+# -- phase 11 -----------------------------------------------------------------
+
+def _gemma(**over):
+    from repro_torch.configs import registry
+
+    return registry.get("gemma2_9b").with_overrides(**over)
+
+
+def _teacher_forced(params, cfg, prompts, steps, max_len):
+    """Last-position prefill logits, then ``steps`` decode logits feeding
+    the prompt's own continuation; returns ([logits...], caches)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    toks = torch.as_tensor(prompts, device=params["embed"].device)
+    s = toks.shape[1] - steps
+    logits, caches, cache_len = T.prefill(params, cfg, {"tokens": toks[:, :s]},
+                                          max_len=max_len, last_only=True)
+    out = [logits[:, -1].float().cpu()]
+    for i in range(steps):
+        lg, caches = T.decode_step(params, cfg, caches, toks[:, s + i:s + i + 1],
+                                   cache_len)
+        out.append(lg[:, 0].float().cpu())
+        cache_len = cache_len + 1
+    return out, caches
+
+
+def phase_gemma_card_vs_cpu(card: str):
+    """Phase 11a: gemma2-9b at full width, one local+global period, float32,
+    window 96 and 168-token inputs (the ring cache rolls and wraps), card
+    against CPU; then serve == sequential generate on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.utils import tree as tu
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    cfg = _gemma(n_layers=2, window_local=96, param_dtype=torch.float32)
+    steps, s_prompt, max_len = 8, 160, 256
+    t0 = time.perf_counter()
+    params_cpu = T.init_model(torch.Generator().manual_seed(0), cfg)
+    params = tu.tree_map(lambda x: x.to("cuda"), params_cpu)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    prompts = rng.integers(0, cfg.vocab, (2, s_prompt + steps), dtype=np.int32)
+
+    reset_counts()
+    got, caches = _teacher_forced(params, cfg, prompts, steps, max_len)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == _expect(flash_attention=2), f"11a card: launches {counts},"
+          " expected 2 flash launches (one per layer of one prefill)")
+    before = read_counts()
+    t0 = time.perf_counter()
+    exp, caches_cpu = _teacher_forced(params_cpu, cfg, prompts, steps,
+                                      max_len)
+    cpu_s = time.perf_counter() - t0
+    check(read_counts() == before, "the CPU run launched a kernel")
+    scale = max(float(e.abs().max()) for e in exp)
+    errs = [float((g - e).abs().max()) for g, e in zip(got, exp)]
+    tol = 1e-4 * scale
+    check(all(math.isfinite(e) for e in errs) and max(errs) <= tol,
+          f"11a: card vs CPU logits differ by {max(errs):.3e} > {tol:.3e} "
+          f"(per step {errs})")
+    cache_err = max(float((a.float().cpu() - c.float()).abs().max())
+                    for a, c in zip(tu.tree_leaves(caches),
+                                    tu.tree_leaves(caches_cpu)))
+    cache_scale = max(float(c.abs().max()) for c in tu.tree_leaves(caches_cpu))
+    tol_cache = 1e-4 * cache_scale
+    check(math.isfinite(cache_err) and cache_err <= tol_cache,
+          f"11a: card vs CPU caches differ by {cache_err:.3e} > "
+          f"{tol_cache:.3e} (1e-4 x max|cache|)")
+    ring = caches["stack"]["b0"]["k"].shape[2]
+    log(f"[gemma-11a] full width, 2 layers (local window 96 + global), f32, "
+        f"2 x {s_prompt}-token prompts + {steps} teacher-forced steps: max "
+        f"|logit| {scale:.4f}, card vs CPU max abs diff {max(errs):.3e} (tol "
+        f"1e-4 x max|logit| = {tol:.3e}; prefill {errs[0]:.3e}, decode "
+        f"{max(errs[1:]):.3e}); caches {cache_err:.3e} (tol 1e-4 x max|cache|"
+        f" = {tol_cache:.3e}; ring T = {ring}); "
+        f"init {init_s:.1f} s, CPU run {cpu_s:.1f} s  [{card}]")
+    del caches, caches_cpu, params_cpu
+
+    # serve == sequential generate, greedy, on the card
+    eng = ServingEngine(cfg, params, max_len=max_len, device="cuda")
+    lens, news = (160, 100, 130), (12, 9, 12)
+    reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, n,
+                                              dtype=np.int32),
+                    max_new_tokens=m) for i, (n, m) in enumerate(zip(lens,
+                                                                     news))]
+    reset_counts()
+    served = eng.serve(reqs, slots=2, segment=4)
+    torch.cuda.synchronize()
+    n_flash = 2 * len(reqs)  # one launch per layer of each admission
+    check(read_counts() == _expect(flash_attention=n_flash),
+          f"11a serve: launches {read_counts()}, expected {n_flash} flash")
+    flips = []
+    for r in served:
+        seq = eng.generate(reqs[r.id].prompt[None, :],
+                           max_new_tokens=reqs[r.id].max_new_tokens)
+        check(len(r.tokens) == reqs[r.id].max_new_tokens,
+              f"11a serve: request {r.id} has {len(r.tokens)} tokens")
+        diff = np.nonzero(r.tokens != seq.tokens[0])[0]
+        if diff.size:
+            i = int(diff[0])
+            # the flip's top-2 margin, from the sequential trajectory
+            toks = np.concatenate([reqs[r.id].prompt, seq.tokens[0][:i]])
+            lg, _ = _teacher_forced(params, cfg, toks[None], i, max_len)
+            top2 = torch.topk(lg[-1][0], 2).values
+            margin = float(top2[0] - top2[1])
+            flips.append((r.id, i, margin))
+            check(margin <= tol, f"11a serve: request {r.id} flips at step "
+                  f"{i} with top-2 margin {margin:.3e} > {tol:.3e}")
+    log(f"[gemma-11a] serve (3 requests, 2 slots, segment 4) == sequential "
+        f"generate on the card: {len(served)} requests, flips {flips}, "
+        f"{n_flash} flash launches  [{card}]")
+    del params, eng
+    torch.cuda.empty_cache()
+    return {"launches": _expect(flash_attention=2 + n_flash),
+            "max_abs_diff": max(errs), "tol": tol, "max_abs_logit": scale,
+            "errs": errs, "cache_max_abs_diff": cache_err,
+            "cache_tol": tol_cache, "flips": flips,
+            "init_s": init_s, "cpu_s": cpu_s}
+
+
+def _prefill_ms(params, cfg, b, s, rng, max_len):
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = T.prefill(params, cfg, {"tokens": toks}, max_len=max_len,
+                    last_only=True)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def phase_gemma_full(card: str):
+    """Phase 11b: gemma2-9b at full width and depth in bfloat16: generate,
+    then continuous batching with mixed prompt lengths."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = _gemma()
+    max_len, new = 8192, 32
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(0),
+                          cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.count_params(params)
+    eng = ServingEngine(cfg, params, max_len=max_len, device="cuda")
+    rng = np.random.default_rng(12)
+    eng.generate(rng.integers(0, cfg.vocab, (1, 64), dtype=np.int32),
+                 max_new_tokens=2)  # warm-up: cuBLAS handles, allocator
+
+    prompts = rng.integers(0, cfg.vocab, (2, 1024), dtype=np.int32)
+    lens = (4608, 1024, 2500, 640)
+    reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, n,
+                                              dtype=np.int32),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_gen = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    t_serve = time.perf_counter()
+    served = eng.serve(reqs, slots=2, segment=8)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = read_counts()
+    prefills = 1 + len(reqs)
+    check(counts == _expect(flash_attention=cfg.n_layers * prefills),
+          f"11b: launches {counts}, expected {cfg.n_layers} flash launches "
+          f"per prefill x {prefills} prefills and nothing else")
+    check(gen.tokens.shape == (2, new) and np.isfinite(gen.logprobs).all(),
+          "11b generate: bad shape or non-finite logprobs")
+    check([r.id for r in served] == list(range(len(reqs))),
+          f"11b serve: finished {[r.id for r in served]}")
+    for r in served:
+        check(len(r.tokens) == new and np.isfinite(r.logprobs).all()
+              and ((0 <= r.tokens) & (r.tokens < cfg.vocab)).all(),
+              f"11b serve: request {r.id} incomplete or non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[gemma-11b] gemma2-9b full width and depth ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, bf16, init {init_s:.1f} s): generate"
+        f" 2 x 1024 + {new} in {t_serve - t_gen:.2f} s; serve {len(reqs)} "
+        f"requests (prompts {lens}, {new} new each) on 2 slots, segment 8, "
+        f"max_len {max_len} in {t_end - t_serve:.2f} s; launches {counts}; peak "
+        f"{peak_gb:.1f} GB  [{card}]")
+
+    # timings outside the counted path
+    prefill_ms = {}
+    for n in lens:
+        prefill_ms[n], _ = _prefill_ms(params, cfg, 1, n, rng, max_len)
+    prefill_ms["2x1024"], (logits, caches, cache_len) = _prefill_ms(
+        params, cfg, 2, 1024, rng, max_len)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._segment(params, caches, tok, cache_len, new, 0.0, [None])
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / new
+    decode_busy = sum(_profile_kernels(lambda: eng._segment(
+        params, caches, tok, cache_len, 1, 0.0, [None]), 1, 2).values())
+    del caches, logits
+    log(f"[gemma-11b] prefill ms (host clock, synchronised, B=1): "
+        + ", ".join(f"S={k}: {v:.1f}" for k, v in prefill_ms.items())
+        + f"; decode {decode_ms:.2f} ms/token at batch 2, cache {max_len}, "
+        f"one profiled step device busy {decode_busy:.2f} ms (idle share "
+        f"{1 - decode_busy / decode_ms:.3f})  [{card}]")
+    profiles = {}
+    for n in lens[:2]:  # 4,608 and 1,024 tokens
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
+                               device="cuda")
+        by_name = _profile_kernels(lambda: T.prefill(
+            params, cfg, {"tokens": toks}, max_len=max_len, last_only=True),
+            1, sessions=2)
+        busy = sum(by_name.values())
+        flash_ms = sum(v for k, v in by_name.items() if "flash_" in k)
+        profiles[n] = {"device_busy_ms": busy, "flash_ms": flash_ms,
+                       "flash_share": flash_ms / busy if busy > 0 else None,
+                       "idle_share": 1 - busy / prefill_ms[n]}
+        log(f"[gemma-11b] profiled prefill S={n}: device busy {busy:.2f} ms "
+            f"(idle share {profiles[n]['idle_share']:.3f} of the host-clock "
+            f"prefill), flash kernel {flash_ms:.2f} ms "
+            f"({profiles[n]['flash_share'] or 0:.3f} of busy)  [{card}]")
+        if n == lens[0]:
+            for kname, ms in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:8]:
+                log(f"[gemma-11b]   {ms:9.3f} ms  {kname[:110]}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return {"launches": counts, "n_params": n_params, "init_s": init_s,
+            "generate_s": t_serve - t_gen, "serve_s": t_end - t_serve,
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_step_device_busy_ms": decode_busy,
+            "prefill_profiles": profiles, "peak_gb": peak_gb,
+            "serve_tokens": {r.id: r.tokens.tolist() for r in served}}
+
+
 def main() -> None:
     import torch
 
@@ -1060,11 +1563,14 @@ def main() -> None:
     asyn = phase_async_paper(card)
     wide_async = phase_wide_async(card, ctx)
     cohort = phase_cohort(card)
+    flash_rows = phase_flash_kernel(card)
+    gemma_a = phase_gemma_card_vs_cpu(card)
+    gemma_b = phase_gemma_full(card)
 
     # launches on the main paths: every path's counts, read just after it
     paths = [main["tau10"], main["tau1"], wide, comp["topk"],
              comp["quantize"], wide_comp["topk"], wide_comp["quantize"],
-             asyn["a"], asyn["b"], wide_async, cohort]
+             asyn["a"], asyn["b"], wide_async, cohort, gemma_a, gemma_b]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -1094,6 +1600,9 @@ def main() -> None:
             entry("weighted_commit", plane_src,
                   "src/repro/kernels/plane_ops.py:100",
                   plane_row("weighted_commit")),
+            entry("flash_attention",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:30", flash_rows[0]),
         ],
         "kernel_cases": rows,
         "plane_kernel_cases": plane_rows,
@@ -1106,6 +1615,9 @@ def main() -> None:
         "async_paper": asyn,
         "wide_async": wide_async,
         "cohort": cohort,
+        "flash_kernel_cases": flash_rows,
+        "gemma_card_vs_cpu": gemma_a,
+        "gemma_full": gemma_b,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

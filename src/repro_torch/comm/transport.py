@@ -96,6 +96,14 @@ class GeneratorDraws:
         below ``p``, as ``jax.random.bernoulli`` draws them)."""
         return self.uniform(shape, torch.float32, device) < p
 
+    def gumbel(self, shape, dtype, device) -> torch.Tensor:
+        """Standard Gumbel draws ``-log(-log(u))``, ``u`` uniform on
+        ``[tiny, 1)``, as ``jax.random.gumbel`` draws them."""
+        u = torch.rand(tuple(shape), generator=self.generator, dtype=dtype,
+                       device=self.device)
+        u.clamp_min_(torch.finfo(dtype).tiny)
+        return (-torch.log(-torch.log(u))).to(device)
+
 
 class ReplayDraws:
     """Replays a recorded sequence of draws (numpy arrays or tensors) in
@@ -133,6 +141,9 @@ class ReplayDraws:
 
     def bernoulli(self, p: float, shape, device) -> torch.Tensor:
         return self._pop(shape).to(device=device, dtype=torch.bool)
+
+    def gumbel(self, shape, dtype, device) -> torch.Tensor:
+        return self._pop(shape).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

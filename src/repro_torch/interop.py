@@ -20,13 +20,34 @@ from repro_torch.core.algorithm import DProxState
 from repro_torch.utils import tree as tu
 
 
+def _array_to_tensor(x) -> torch.Tensor:
+    """A host copy of ``x`` as a CPU tensor.  bfloat16 (which numpy lacks;
+    the reference's arrays carry ``ml_dtypes.bfloat16``) crosses bitwise
+    through a 16-bit integer view, without a float32 round trip."""
+    arr = np.array(x, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16; only needed on the way out
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_to_torch(params, device, dtype=None):
-    """A pytree of arrays -> the same pytree of tensors on ``device``.
-    Floating leaves are cast to ``dtype`` when it is given."""
+    """A pytree of arrays -> the same pytree of tensors on ``device``: the
+    reference's nested dicts and lists, its ``"stack"`` leaves with their
+    leading period axis, bfloat16 leaves bitwise.  Floating leaves are cast
+    to ``dtype`` when it is given."""
     dev = torch.device(device)
 
     def one(x):
-        t = torch.from_numpy(np.array(x, copy=True)).to(dev)
+        t = _array_to_tensor(x).to(dev)
         if dtype is not None and torch.is_floating_point(t):
             t = t.to(dtype)
         return t
@@ -35,8 +56,9 @@ def params_to_torch(params, device, dtype=None):
 
 
 def params_to_numpy(params):
-    """A pytree of tensors -> the same pytree of numpy arrays (host copies)."""
-    return tu.tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """A pytree of tensors -> the same pytree of numpy arrays (host copies;
+    bfloat16 leaves as ``ml_dtypes.bfloat16`` arrays, bitwise)."""
+    return tu.tree_map(_tensor_to_array, params)
 
 
 def state_to_torch(state, device, dtype=None) -> DProxState:

@@ -1,7 +1,7 @@
-"""Pytree and plane entry points of the port's kernels.
+"""Pytree, plane and attention entry points of the port's kernels.
 
-The counterpart of :mod:`repro.kernels.ops` for the fused local update and
-the flat-plane compression kernels.  For the fused local update the
+The counterpart of :mod:`repro.kernels.ops` for the fused local update,
+the flat-plane compression kernels and flash attention.  For the fused local update the
 whole tree is flattened onto ONE contiguous plane (:mod:`repro_torch.core.plane`,
 no lane padding: the CUDA kernel masks its own ragged tail) and updated by
 one kernel call.  With ``batch_dims=1`` a client-stacked tree becomes the
@@ -12,6 +12,7 @@ not needed.  Mixed-dtype trees cannot share a plane and raise.
 from __future__ import annotations
 
 from repro_torch.core import plane as pln
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_prox, plane_ops
 from repro_torch.utils import tree as tu
 
@@ -75,3 +76,22 @@ def plane_weighted_commit(buf, w):
     added in order, as one kernel launch.  ``w`` holds the mixing weights,
     zero for undelivered clients.  Returns the ``(d_pad,)`` row."""
     return plane_ops.weighted_commit_2d(buf.contiguous(), w)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def gqa_flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
+    """Flash attention for ``(B, S, H, D)`` activations with K kv heads
+    (``k``, ``v``: ``(B, S, K, D)``); returns ``(B, S, H, D)``.
+
+    On CUDA tensors one kernel launch reads the kv heads in place (no
+    repeat, no transposes) at any S; the kernel owns its tiling, so there
+    are no block-size arguments.  On CPU tensors the plain version runs
+    after repeating the kv heads (``repro.kernels.ops.gqa_flash_attention``
+    repeats them on every backend).
+    """
+    return fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)

@@ -1,0 +1,356 @@
+"""Config-driven model stack: the serving part of
+:mod:`repro.models.transformer`.
+
+A model is a sequence of blocks, each ``norm -> mixer -> residual [-> norm
+-> mlp -> residual]`` (gemma2's post-norms included).  Ported mixers:
+``attn`` (full causal GQA attention) and ``local`` (sliding-window
+attention, ``window = cfg.window_local``), with a dense MLP.  The layer
+stack is ``prefix_blocks`` + a repeating ``block_pattern`` with its params
+stacked ``n_periods`` times (the reference's ``lax.scan`` over periods is a
+Python loop over views of the stacked params and caches here) +
+``suffix_blocks``.
+
+Entry points: ``forward``, ``prefill`` (logits + cache) and ``decode_step``
+(one token against the cache, which is updated in place).  Training
+(``loss_fn``, ``make_grad_fn``), the MoE/RG-LRU/SSM mixers and the audio
+and vision front ends are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.device import device_of
+from repro_torch.models import layers as L
+from repro_torch.utils import tree as tu
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """The reference's ``ArchConfig`` less its training, sharding and
+    long-context fields, which serving on one card does not read."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    attn: Optional[L.AttnCfg] = None
+    block_pattern: tuple = ("attn",)
+    prefix_blocks: tuple = ()
+    suffix_blocks: tuple = ()
+    mlp_kind: str = "dense"  # mlp of the pattern: dense | moe | none
+    prefix_mlp_kind: str = "dense"
+    act: str = "swiglu"
+    tie_embeddings: bool = True
+    scale_embed: bool = False  # gemma convention: embed * sqrt(d)
+    final_softcap: Optional[float] = None
+    post_norm: bool = False  # gemma2: extra norm after mixer/mlp outputs
+    window_local: Optional[int] = None
+    frontend: Optional[str] = None  # None | "audio" | "vision" (not ported)
+    param_dtype: torch.dtype = torch.bfloat16
+    norm_eps: float = 1e-6
+    attn_impl: str = "naive"  # CPU formulation: naive | blocked
+    attn_block_q: int = 512
+    decode_supported: bool = True
+    citation: str = ""
+
+    @property
+    def n_pattern_layers(self):
+        return self.n_layers - len(self.prefix_blocks) - len(self.suffix_blocks)
+
+    @property
+    def n_periods(self):
+        k = len(self.block_pattern)
+        assert self.n_pattern_layers % k == 0, (
+            f"{self.name}: {self.n_pattern_layers} pattern layers not divisible"
+            f" by pattern {self.block_pattern}"
+        )
+        return self.n_pattern_layers // k
+
+    def with_overrides(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# block init / apply
+# ---------------------------------------------------------------------------
+
+
+def _mixer_cfg(cfg: ArchConfig, kind: str):
+    if kind == "attn":
+        return dataclasses.replace(cfg.attn, impl=cfg.attn_impl,
+                                   block_q=cfg.attn_block_q)
+    if kind == "local":
+        return dataclasses.replace(cfg.attn, window=cfg.window_local,
+                                   impl=cfg.attn_impl,
+                                   block_q=cfg.attn_block_q)
+    if kind in ("rec", "ssm"):
+        raise L._not_ported(f"the {kind!r} mixer")
+    raise ValueError(kind)
+
+
+def _check_mlp(mlp_kind: str):
+    if mlp_kind == "moe":
+        raise L._not_ported("the MoE block")
+
+
+def init_block(gen, cfg: ArchConfig, kind: str, mlp_kind: str):
+    _check_mlp(mlp_kind)
+
+    def norm():
+        return L.init_norm(cfg.d_model, torch.float32, gen.device)
+
+    p = {"norm1": norm(),
+         "mixer": L.init_attention(gen, _mixer_cfg(cfg, kind), cfg.d_model,
+                                   cfg.param_dtype)}
+    if cfg.post_norm:
+        p["post_norm1"] = norm()
+    if mlp_kind == "dense":
+        p["norm2"] = norm()
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+    if cfg.post_norm and mlp_kind != "none":
+        p["post_norm2"] = norm()
+    return p
+
+
+def apply_block(p, cfg: ArchConfig, kind: str, mlp_kind: str, x, positions,
+                mode: str, cache, cache_len):
+    """Returns (x, cache, aux_loss); in decode and prefill mode ``cache``'s
+    buffers are written in place."""
+    _check_mlp(mlp_kind)
+    mcfg = _mixer_cfg(cfg, kind)
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    new_cache = cache
+    if mode == "decode":
+        y, new_cache = L.attention_decode(p["mixer"], mcfg, h, cache,
+                                          cache_len)
+    else:
+        y = L.attention_train(p["mixer"], mcfg, h, positions)
+        if mode == "prefill":
+            new_cache = _fill_attn_cache(p["mixer"], mcfg, h, positions,
+                                         cache)
+    if cfg.post_norm:
+        y = L.rms_norm(y, p["post_norm1"], cfg.norm_eps)
+    x = x + y
+    if mlp_kind != "none":
+        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        y = L.mlp(p["mlp"], h, cfg.act)
+        if cfg.post_norm:
+            y = L.rms_norm(y, p["post_norm2"], cfg.norm_eps)
+        x = x + y
+    return x, new_cache, 0.0
+
+
+# --- prefill cache filler ----------------------------------------------------
+
+
+def _ring_scatter(full, T):
+    """full: (B,S,...) values for absolute positions 0..S-1; the last
+    min(S,T) of them placed into a (B,T,...) ring buffer at slot p % T.
+
+    The target slots form a contiguous cyclic range, so a pad (S <= T) or a
+    roll (ring) does it."""
+    B, S = full.shape[0], full.shape[1]
+    if S <= T:
+        pad = torch.zeros((B, T - S) + tuple(full.shape[2:]),
+                          dtype=full.dtype, device=full.device)
+        return torch.cat([full, pad], dim=1)
+    # element i of `last` holds absolute position p = S-T+i and belongs at
+    # slot p % T = (i + (S-T)) % T
+    last = full[:, S - T:]
+    return torch.roll(last, shifts=(S - T) % T, dims=1)
+
+
+def _fill_attn_cache(p, mcfg: L.AttnCfg, h, positions, cache):
+    """The prompt's K/V written into ``cache``'s buffers in place."""
+    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    k = L.rope(k, positions, mcfg.rope_theta)
+    T = cache["k"].shape[1]
+    cache["k"].copy_(_ring_scatter(k.to(cache["k"].dtype), T))
+    cache["v"].copy_(_ring_scatter(v.to(cache["v"].dtype), T))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def _block_sequence(cfg: ArchConfig):
+    """[(kind, mlp_kind)] for prefix, pattern (one period) and suffix."""
+    pat_mlp = "none" if cfg.mlp_kind == "none" else cfg.mlp_kind
+    prefix = [(k, cfg.prefix_mlp_kind) for k in cfg.prefix_blocks]
+    pattern = [(k, pat_mlp) for k in cfg.block_pattern]
+    suffix = [(k, cfg.prefix_mlp_kind) for k in cfg.suffix_blocks]
+    return prefix, pattern, suffix
+
+
+def _check_frontend(cfg: ArchConfig):
+    if cfg.frontend is not None:
+        raise L._not_ported(f"the {cfg.frontend!r} front end")
+
+
+def init_model(gen: torch.Generator, cfg: ArchConfig):
+    """Seeded random params on ``gen``'s device, in the reference's layout
+    (``embed``, ``prefix``/``suffix`` block lists, the ``stack`` of
+    ``n_periods`` periods on a leading axis, ``final_norm``, ``unembed``
+    when untied).  The stacked periods are filled in place one period at a
+    time, so the peak is the model plus one period."""
+    _check_frontend(cfg)
+    prefix, pattern, suffix = _block_sequence(cfg)
+    p = {"embed": L.init_embed(gen, cfg.vocab, cfg.d_model, cfg.param_dtype)}
+    for name, blocks in (("prefix", prefix), ("suffix", suffix)):
+        if blocks:
+            p[name] = [init_block(gen, cfg, kind, mk) for kind, mk in blocks]
+
+    def one_period():
+        return {f"b{j}": init_block(gen, cfg, kind, mk)
+                for j, (kind, mk) in enumerate(pattern)}
+
+    first = one_period()
+    n = cfg.n_periods
+    stack = tu.tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    tu.tree_map(lambda dst, src: dst[0].copy_(src), stack, first)
+    del first
+    for i in range(1, n):
+        tu.tree_map(lambda dst, src: dst[i].copy_(src), stack, one_period())
+    p["stack"] = stack
+    p["final_norm"] = L.init_norm(cfg.d_model, torch.float32, gen.device)
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.init_dense(gen, (cfg.d_model, cfg.vocab),
+                                    cfg.param_dtype)
+    return p
+
+
+def _embed(p, cfg: ArchConfig, tokens):
+    x = p["embed"][tokens]
+    if cfg.scale_embed:
+        # sqrt(d) rounded to the embedding's dtype first, as the reference's
+        # jnp.asarray(sqrt(d), x.dtype); a Python scalar, so no host-device
+        # copy (and no host sync) per decode step
+        scale = torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+        x = x * scale
+    return x
+
+
+def _embed_inputs(p, cfg: ArchConfig, batch):
+    """Returns (x (B,S,d), positions (1,S))."""
+    _check_frontend(cfg)
+    x = _embed(p, cfg, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    return x, positions
+
+
+def _period(tree, i):
+    """Period ``i`` of a stacked tree: views, so writes reach the stack."""
+    return tu.tree_map(lambda a: a[i], tree)
+
+
+def _apply_stack(p, cfg: ArchConfig, x, positions, mode, caches, cache_len):
+    """caches: {"prefix": [..], "stack": stacked, "suffix": [..]} or None;
+    in prefill and decode mode their buffers are written in place and the
+    same dict is returned."""
+    prefix, pattern, suffix = _block_sequence(cfg)
+    aux_total = 0.0
+
+    def run_blocks(blocks, params_list, cache_list, x, aux_total):
+        for j, (kind, mk) in enumerate(blocks):
+            c = cache_list[j] if cache_list is not None else None
+            x, _, aux = apply_block(params_list[j], cfg, kind, mk, x,
+                                    positions, mode, c, cache_len)
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    if prefix:
+        x, aux_total = run_blocks(prefix, p["prefix"],
+                                  caches["prefix"] if caches else None,
+                                  x, aux_total)
+    for i in range(cfg.n_periods):
+        pp = _period(p["stack"], i)
+        pc = _period(caches["stack"], i) if caches else None
+        for j, (kind, mk) in enumerate(pattern):
+            c = pc[f"b{j}"] if pc is not None else None
+            x, _, aux = apply_block(pp[f"b{j}"], cfg, kind, mk, x, positions,
+                                    mode, c, cache_len)
+            aux_total = aux_total + aux
+    if suffix:
+        x, aux_total = run_blocks(suffix, p["suffix"],
+                                  caches["suffix"] if caches else None,
+                                  x, aux_total)
+    return x, caches, aux_total
+
+
+def _logits(p, cfg: ArchConfig, x):
+    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ p["embed"].t()
+    else:
+        logits = x @ p["unembed"]
+    if cfg.final_softcap is not None:
+        logits = L.softcap(logits.float(), cfg.final_softcap)
+    return logits
+
+
+def forward(p, cfg: ArchConfig, batch, mode="train", caches=None,
+            cache_len=None, last_only=False):
+    x, positions = _embed_inputs(p, cfg, batch)
+    if mode == "decode":
+        positions = None  # decode paths derive positions from cache_len
+    x, new_caches, aux = _apply_stack(p, cfg, x, positions, mode, caches,
+                                      cache_len)
+    if last_only:
+        # serving prefill: only the final position is sampled from; slicing
+        # BEFORE the unembed removes the (B, S, V) materialization entirely
+        x = x[:, -1:]
+    return _logits(p, cfg, x), new_caches, aux
+
+
+# --- serving -----------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    """Zeroed cache buffers for the whole model, in the reference's layout
+    (the stacked blocks' buffers with a leading ``n_periods`` axis)."""
+    prefix, pattern, suffix = _block_sequence(cfg)
+
+    def one(kind, lead=()):
+        return L.init_attn_cache(_mixer_cfg(cfg, kind), batch, max_len,
+                                 cfg.param_dtype, device, lead)
+
+    return {"prefix": [one(kind) for kind, _ in prefix],
+            "suffix": [one(kind) for kind, _ in suffix],
+            "stack": {f"b{j}": one(kind, (cfg.n_periods,))
+                      for j, (kind, _) in enumerate(pattern)}}
+
+
+def prefill(p, cfg: ArchConfig, batch, max_len=None, last_only=False):
+    """Forward over the prompt; returns (logits, caches, cache_len).
+
+    ``last_only`` emits logits for the final position only (what a serving
+    engine samples from)."""
+    B, S = batch["tokens"].shape
+    caches = init_cache(cfg, B, max_len or S, device_of(p))
+    logits, new_caches, _ = forward(p, cfg, batch, mode="prefill",
+                                    caches=caches, cache_len=None,
+                                    last_only=last_only)
+    return logits, new_caches, torch.full((), S, dtype=torch.int32,
+                                          device=logits.device)
+
+
+def decode_step(p, cfg: ArchConfig, caches, token, cache_len):
+    """One-token decode: token (B,1) int -> (logits (B,1,V), caches), the
+    cache buffers updated in place."""
+    x = _embed(p, cfg, token)
+    x, new_caches, _ = _apply_stack(p, cfg, x, None, "decode", caches,
+                                    cache_len)
+    return _logits(p, cfg, x), new_caches
+
+
+def count_params(params) -> int:
+    return sum(int(x.numel()) for x in tu.tree_leaves(params))

@@ -1,0 +1,166 @@
+"""The port's flash attention against the JAX reference: the plain version
+(``repro_torch.kernels.flash_attention.flash_attention_plain``) against
+``repro.kernels.ref.flash_attention`` and against the interpreted Pallas
+kernel, ``ops.gqa_flash_attention`` against the reference wrapper, and the
+model's attention (``naive`` and ``blocked`` on the CPU) against its JAX
+twin.
+
+On the CPU the kernel wrapper runs the plain version; the CUDA kernel is held
+against the plain version on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py`` phase 10).
+
+Tolerances: the reference's own (``tests/test_kernels.py``), on inputs
+scaled by 0.5 -- 2e-5 in float32 (summation order) and 3e-2 in bfloat16
+(the logits rounded to bfloat16 by the ``einsum``, the probabilities cast to
+bfloat16 before the PV product: both packages round there, but their
+bfloat16 products round differently).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch import interop
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+DTYPES = [("float32", jnp.float32, torch.float32),
+          ("bfloat16", jnp.bfloat16, torch.bfloat16)]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _inputs(shape, seed, jdt, tdt, n=3):
+    rng = np.random.default_rng(seed)
+    arrs = [(rng.normal(size=shape) * 0.5).astype(np.float32)
+            for _ in range(n)]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+def _close(got, exp, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("s,d", [(128, 64), (256, 128), (512, 64)])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES, ids=[d[0] for d in DTYPES])
+def test_plain_matches_ref_causal(s, d, name, jdt, tdt):
+    (q, k, v), (tq, tk, tv) = _inputs((2, 3, s, d), 1, jdt, tdt)
+    exp = ref.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True)
+    assert got.dtype == tdt
+    _close(got, exp, TOL[name])
+
+
+@pytest.mark.parametrize("s,d,bq,bk", [(128, 64, 64, 64),
+                                       (256, 128, 128, 128),
+                                       (512, 64, 128, 64)])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES, ids=[d[0] for d in DTYPES])
+def test_plain_matches_interpreted_pallas(s, d, bq, bk, name, jdt, tdt):
+    (q, k, v), (tq, tk, tv) = _inputs((2, 3, s, d), 1, jdt, tdt)
+    exp = pallas_flash(q, k, v, causal=True, bq=bq, bk=bk, interpret=True)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True)
+    _close(got, exp, TOL[name])
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_plain_window_softcap(window, softcap):
+    (q, k, v), (tq, tk, tv) = _inputs((1, 2, 256, 64), 2, jnp.float32,
+                                      torch.float32)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True, window=window,
+                                   softcap=softcap)
+    exp_ref = ref.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=softcap)
+    exp_pallas = pallas_flash(q, k, v, causal=True, window=window,
+                              softcap=softcap, bq=64, bk=64, interpret=True)
+    _close(got, exp_ref, 3e-5)
+    _close(got, exp_pallas, 3e-5)
+
+
+def test_plain_not_causal_ignores_window():
+    """Without causal, ``ref.flash_attention`` (and the port) apply no
+    window; the Pallas kernel would (ROADMAP Queue 3)."""
+    (q, k, v), (tq, tk, tv) = _inputs((1, 2, 128, 64), 4, jnp.float32,
+                                      torch.float32)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=False, window=32)
+    _close(got, ref.flash_attention(q, k, v, causal=False, window=32), 2e-5)
+    _close(got, ref.flash_attention(q, k, v, causal=False), 2e-5)
+
+
+@pytest.mark.parametrize("s,h,kh,d,window,softcap", [
+    (128, 8, 2, 64, None, None),       # test_kernels.py's GQA case
+    (128, 4, 2, 32, 48, 50.0),         # gemma2 smoke: window + softcap
+    (100, 4, 4, 64, None, None),       # ragged S, no GQA
+])
+def test_gqa_wrapper_matches_reference_wrapper(s, h, kh, d, window, softcap):
+    rng = np.random.default_rng(3)
+    arrs = [(rng.normal(size=(2, s, n, d)) * 0.3).astype(np.float32)
+            for n in (h, kh, kh)]
+    exp = jops.gqa_flash_attention(*map(jnp.asarray, arrs), causal=True,
+                                   window=window, softcap=softcap,
+                                   interpret=True)
+    before = fa.flash_attention_bshd.launches
+    got = ops.gqa_flash_attention(*map(torch.from_numpy, arrs), causal=True,
+                                  window=window, softcap=softcap)
+    assert fa.flash_attention_bshd.launches == before  # CPU: plain version
+    assert got.shape == (2, s, h, d)
+    _close(got, exp, 3e-5)
+
+
+@pytest.mark.parametrize("impl", ["naive", "blocked"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, 50.0)])
+def test_attention_train_matches_reference(impl, window, softcap):
+    """The model's full-sequence GQA attention on the CPU, each formulation
+    against its JAX twin (weights carried across from the reference)."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+
+    jcfg = JL.AttnCfg(num_heads=4, num_kv_heads=2, head_dim=32,
+                      window=window, logit_softcap=softcap, impl=impl,
+                      block_q=32)
+    cfg = L.AttnCfg(num_heads=4, num_kv_heads=2, head_dim=32, window=window,
+                    logit_softcap=softcap, impl=impl, block_q=32)
+    p, _ = JL.init_attention(jax.random.PRNGKey(0), jcfg, 64, jnp.float32)
+    x = np.random.default_rng(5).normal(size=(2, 96, 64)).astype(np.float32)
+    pos = np.arange(96)[None]
+    exp = JL.attention_train(p, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    got = L.attention_train(interop.params_to_torch(p, "cpu"), cfg,
+                            torch.from_numpy(x), torch.from_numpy(pos))
+    _close(got, exp, 1e-5)
+
+
+def test_kernel_layout_checks():
+    """What the kernel refuses raises before any launch (checked here on
+    CPU tensors; the checks do not look at the device)."""
+    q = torch.zeros(1, 8, 4, 64)
+    fa._check_kernel_layout(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="dtype"):
+        fa._check_kernel_layout(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="head dim"):
+        w = torch.zeros(1, 8, 4, 40)
+        fa._check_kernel_layout(w, w, w)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        t = torch.zeros(1, 8, 64, 4).transpose(2, 3)
+        fa._check_kernel_layout(t, t, t)
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_attention_bshd(q, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError, match="different dtypes"):
+        fa.flash_attention_bshd(q, q.half(), q)
+    m = q.to("meta")
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        fa.flash_attention_bshd(m, m, m)

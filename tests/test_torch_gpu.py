@@ -11,7 +11,7 @@ import torch
 
 from repro_torch import comm
 from repro_torch.core import plane as pln
-from repro_torch.kernels import fused_prox, ops, plane_ops
+from repro_torch.kernels import flash_attention, fused_prox, ops, plane_ops
 
 ETA, THRESH = 0.37, 0.21
 _INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -248,3 +248,161 @@ def test_plane_async_commit_launches_the_commit_kernel(cuda):
     assert out["cuda"][1]["staleness_mean"] == out["cpu"][1]["staleness_mean"]
     assert torch.allclose(out["cuda"][0].x_bar["w"].cpu(),
                           out["cpu"][0].x_bar["w"], rtol=1e-9, atol=1e-12)
+
+
+# -- flash attention ----------------------------------------------------------
+
+_FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+
+
+def _flash_inputs(cuda, b, s, h, kh, d, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [(torch.randn((b, s, n, d), generator=gen, device=cuda) * 0.5)
+            .to(dtype) for n in (h, kh, kh)]
+
+
+def _flash_plain(q, k, v, **kw):
+    rep = q.shape[2] // k.shape[2]
+    return flash_attention.flash_attention_plain(
+        q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+        v.repeat_interleave(rep, 2).transpose(1, 2), **kw).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,h,kh,causal,window,softcap", [
+    (200, 4, 2, True, None, None),      # GQA, S not a multiple of a tile
+    (333, 4, 1, True, 70, 50.0),        # MQA, window + softcap
+    (130, 2, 2, False, None, None),     # not causal
+    (64, 8, 4, True, 1, None),          # window 1: the diagonal only
+])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, d, s, h, kh, causal,
+                                            window, softcap):
+    q, k, v = _flash_inputs(cuda, 2, s, h, kh, d, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.flash_attention_bshd.launches
+    got = flash_attention.flash_attention_bshd(q, k, v, **kw)
+    exp = _flash_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - exp.float()).abs().max())
+    assert err <= _FLASH_TOL[dtype], err
+
+
+# the check above cannot see a dropped softcap or a shifted window: at inputs
+# x 0.5 the logits are ~0.25, so the softcap never bends them and the softmax
+# is near uniform.  Here q and k give scaled logits of std 16 (sd * sd) and
+# each output row is held to its own size against the plain version in
+# float32: ||got - exp|| / ||exp||.  bf16 / f16 round the probabilities and
+# the output (2^-8 / 2^-11 each); f32 differs by summation order only.
+_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+def _row_rel_err(got, exp):
+    g, e = got.float().flatten(0, 2), exp.float().flatten(0, 2)
+    return float(((g - e).norm(dim=1) / e.norm(dim=1)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,h,kh,causal,window,softcap", [
+    (333, 4, 1, True, 70, 20.0),        # MQA, window + softcap
+    (200, 4, 2, True, None, 20.0),      # GQA, softcap, ragged S
+    (130, 2, 2, False, None, None),     # not causal
+])
+def test_flash_kernel_matches_plain_at_large_logits(cuda, dtype, d, s, h, kh,
+                                                    causal, window, softcap):
+    """Logits large enough that the softcap bends them and the softmax is
+    peaked; controls (softcap dropped, window moved by 32 keys, causal
+    flipped) move the plain version by 10x the tolerance, so a kernel
+    without the feature would fail."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    sd = 4.0
+    q, k, v = [(torch.randn((2, s, n, d), generator=gen, device=cuda) * f)
+               .to(dtype) for n, f in ((h, sd), (kh, sd), (kh, 1.0))]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention.flash_attention_bshd(q, k, v, **kw)
+    q, k, v = q.float(), k.float(), v.float()
+    exp = _flash_plain(q, k, v, **kw)
+    assert _row_rel_err(got, exp) <= _ROW_TOL[dtype]
+    controls = [dict(kw, causal=not causal)]
+    if softcap is not None:
+        controls.append(dict(kw, softcap=None))
+    if window is not None:
+        controls += [dict(kw, window=w) for w in (window - 32, window + 32)]
+    for ckw in controls:
+        diff = _row_rel_err(_flash_plain(q, k, v, **ckw), exp)
+        assert diff >= 10 * _ROW_TOL[dtype], (ckw, diff)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views of one fused (B, S, H + 2K, D) projection: read in
+    place through their strides."""
+    b, s, h, kh, d = 2, 150, 8, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = (torch.randn((b, s, h + 2 * kh, d), generator=gen, device=cuda)
+           * 0.5).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    assert not q.is_contiguous()
+    got = ops.gqa_flash_attention(q, k, v, causal=True, softcap=30.0)
+    exp = _flash_plain(q, k, v, causal=True, softcap=30.0)
+    assert float((got.float() - exp.float()).abs().max()) <= 3e-2
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention.flash_attention_bshd(q, q, q)
+    q = torch.zeros(1, 16, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_bshd(q, q, q)
+    base = torch.zeros(1, 16, 2, 65, device=cuda, dtype=torch.bfloat16)
+    q = base[..., 1:]  # off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.flash_attention_bshd(q, q, q)
+
+
+@pytest.mark.gpu
+def test_serving_on_card_launches_the_kernel_per_layer(cuda):
+    """Prefill on the card takes the flash kernel once per layer, greedy
+    serve equals sequential generate, and the logits match the CPU run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.utils import tree as tu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = registry.get_smoke("gemma2_9b")  # head_dim 32: not a kernel width
+    cfg = smoke.with_overrides(param_dtype=torch.float32,
+                               attn=dataclasses.replace(smoke.attn,
+                                                        head_dim=64))
+    params = T.init_model(torch.Generator().manual_seed(0), cfg)
+    params_cuda = tu.tree_map(lambda x: x.to(cuda), params)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 80))
+    before = flash_attention.flash_attention_bshd.launches
+    lg, _, _ = T.prefill(params_cuda, cfg,
+                         {"tokens": torch.as_tensor(toks, device=cuda)},
+                         max_len=96)
+    assert flash_attention.flash_attention_bshd.launches == before + 2
+    exp, _, _ = T.prefill(params, cfg, {"tokens": torch.as_tensor(toks)},
+                          max_len=96)
+    tol = 1e-4 * float(exp.abs().max())
+    assert float((lg.cpu() - exp).abs().max()) <= tol
+    eng = ServingEngine(cfg, params_cuda, max_len=96, device=cuda)
+    reqs = [Request(id=i, prompt=toks[i % 2, :40 + 20 * i],
+                    max_new_tokens=6) for i in range(3)]
+    for r in eng.serve(reqs, slots=2, segment=4):
+        seq = eng.generate(reqs[r.id].prompt[None], max_new_tokens=6)
+        np.testing.assert_array_equal(r.tokens, seq.tokens[0])

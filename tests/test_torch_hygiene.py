@@ -43,6 +43,9 @@ def test_package_imports_with_jax_blocked():
             "import repro_torch.comm, repro_torch.exec.stages\n"
             "import repro_torch.kernels.plane_ops, repro_torch.sched\n"
             "import repro_torch.exec, repro_torch.sched.cohort\n"
+            "import repro_torch.serving, repro_torch.models.transformer\n"
+            "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
+            "import repro_torch.configs.registry, repro_torch.obs\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -80,6 +83,32 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ArraySupplier(arrays, 1, None, device_cache=True)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serving_and_attention_need_a_gpu_or_the_cpu(no_gpu):
+    """The serving engine runs on the card unless ``device="cpu"`` is
+    passed; flash attention runs its kernel on CUDA tensors, its plain
+    version on CPU tensors (no launch) and refuses other devices."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServingEngine
+
+    cfg = registry.get_smoke("stablelm_1_6b").with_overrides(
+        n_layers=1, param_dtype=torch.float32)
+    params = T.init_model(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params)
+    eng = ServingEngine(cfg, params, max_len=16, device="cpu")
+    assert eng.generate(np.zeros((1, 4), np.int32),
+                        max_new_tokens=2).tokens.shape == (1, 2)
+    q = torch.zeros(1, 8, 4, 64)
+    before = flash_attention.flash_attention_bshd.launches
+    assert ops.gqa_flash_attention(q, q, q).shape == q.shape
+    assert flash_attention.flash_attention_bshd.launches == before
+    m = q.to("meta")
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        ops.gqa_flash_attention(m, m, m)
 
 
 def _run_smoke(cwd: Path):

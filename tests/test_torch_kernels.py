@@ -208,7 +208,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     srcs = _build._sources()
-    assert [s.name for s in srcs] == ["fused_prox.cu", "plane_ops.cu"]
+    assert [s.name for s in srcs] == ["flash_attention.cu", "fused_prox.cu",
+                                      "plane_ops.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
     # the library name changes with the sources
