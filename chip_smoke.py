@@ -7,7 +7,11 @@ Phases, each asserting (any failure exits non-zero and prints no result):
 
   0. device    -- a CUDA card is present; print its name and power limit
                   (nvidia-smi) and the torch / CUDA versions;
-  1. build     -- build the kernel library from src/repro_torch/kernels/csrc;
+  1. build     -- build the kernel library from src/repro_torch/kernels/csrc,
+                  one nvcc per source in parallel; print ptxas's registers,
+                  spills and notes for each flash-attention kernel: the six
+                  tensor-core instantiations must spill nothing and carry no
+                  (C75xx) note of a serialised wgmma;
   2. kernels   -- the fused local-update + L1-prox kernel against its plain
                   PyTorch version on the card, compared as integer bit
                   patterns (-0.0 and NaN included), in float32, bfloat16 and
@@ -67,7 +71,10 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   version in f32, max row error ||got - exp|| / ||exp||
                   1e-2 (bf16) / 1e-4 (f32), with controls (softcap dropped,
                   window moved by 32 keys, causal flipped) that must move
-                  the plain version by 10x that; gemma2-9b prefill
+                  the plain version by 10x that; first, the compiled
+                  kernel's own tile plan (flash_attention.kernel_tile_plan)
+                  equals the Python one the CPU tests hold to a brute-force
+                  mask; gemma2-9b prefill
                   (1, 4608, 16/8, 256) bf16 softcap 50, global and window
                   4,096; (2, 1000, 16/8, 256) (ragged S); mistral-nemo
                   (1, 4096, 32/8, 128) bf16; stablelm (2, 512, 32/32, 64)
@@ -75,7 +82,7 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   (CUDA events and profiler), plain ms, the bound (causal
                   FLOPs at 989 TFLOP/s bf16, 67 f32, against the bytes), and
                   F.scaled_dot_product_attention's ms where it computes the
-                  same function (timed only);
+                  same function (no softcap, no window);
  11. gemma2-9b serving -- (a) full width, one local+global period, float32,
                   window 96, 2 x 160-token prompts and 8 teacher-forced
                   decode steps (the ring cache rolls at prefill and wraps in
@@ -92,7 +99,16 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   prefill and nothing else; prefill ms per request, decode
                   ms per token, and for one profiled decode step and
                   prefills of 4,608 and 1,024 tokens the device busy time,
-                  the idle share and the kernel's share of busy time.
+                  the idle share and the kernel's share of busy time;
+ 12. flex      -- the library yardstick of phase 10's softcap cases, which
+                  SDPA cannot compute: torch.compile'd flex_attention (the
+                  softcap as score_mod, the causal window as the block mask)
+                  on the same inputs, its compile seconds and ms, held to the
+                  kernel at the bf16 tolerance (fatal).  Only a failure to
+                  import, compile or first call it is logged and carries on,
+                  as "not measured": the port never calls it.  It runs last
+                  so that no torch.compile precedes the serving phase's
+                  host-clock timings.
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
@@ -114,6 +130,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -204,6 +222,39 @@ def phase_build():
     each = ", ".join(f"{k} {v:.2f} s" for k, v in _build.build.seconds.items())
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s (nvcc in "
         f"parallel: {each or 'already built'})")
+    report = {}
+    for name, rec in sorted(_build.build.ptxas.items()):
+        if not name:
+            continue
+        short = _kernel_name(name)
+        report[short] = rec
+        log(f"[build] ptxas {short}: {rec.get('registers')} registers, spill "
+            f"stores {rec.get('spill_stores')} / loads "
+            f"{rec.get('spill_loads')} bytes, stack {rec.get('stack')} bytes"
+            + "".join(f"; {w[:160]}" for w in rec["warnings"]))
+    wgmma = {k: r for k, r in report.items()
+             if k.startswith("flash_wgmma_kernel")}
+    check(len(wgmma) == 6, f"ptxas reported the tensor-core flash kernels "
+          f"{sorted(wgmma)}, expected bf16 and f16 at D 64, 128 and 256")
+    for k, r in wgmma.items():
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"ptxas: {k} spills ({r.get('spill_stores')} bytes stored, "
+              f"{r.get('spill_loads')} loaded)")
+        check(not any("(C75" in w for w in r["warnings"]),
+              f"ptxas: {k} has a serialised wgmma: {r['warnings']}")
+    return {"seconds": dict(_build.build.seconds), "ptxas": report}
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_wgmma_kernel<bf16, 256>`` from ptxas's mangled name."""
+    m = re.search(r"([a-z_]+_kernel)I(.*)E", mangled)
+    if not m:
+        return mangled
+    ty = ("bf16" if "bfloat16" in m.group(2) else
+          "f16" if "__half" in m.group(2) else None)
+    d = re.search(r"Li(\d+)E", m.group(2))
+    args = [x for x in (ty, d.group(1) if d else None) if x]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -1173,6 +1224,15 @@ def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed):
     return err, ctl
 
 
+def _flash_inputs(b, s, h, kh, d, dtype, seed):
+    """q, k, v of the reference's check: standard normals times 0.5."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple((torch.randn((b, s, n, d), generator=gen, device="cuda")
+                  * 0.5).to(dtype) for n in (h, kh, kh))
+
+
 def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
                 softcap=None, seed=0):
     """The flash kernel against its plain version at one shape (the
@@ -1185,9 +1245,7 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     from repro_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = ((torch.randn((b, s, n, d), generator=gen, device="cuda")
-                * 0.5).to(dtype) for n in (h, kh, kh))
+    q, k, v = _flash_inputs(b, s, h, kh, d, dtype, seed)
     rep = h // kh
 
     def kern():
@@ -1251,11 +1309,12 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = {"kernel": "flash_attention", "shape": [b, s, h, kh, d],
            "dtype": wname, "causal": causal, "window": window,
-           "softcap": softcap, "max_abs_err": err, "tol": FLASH_TOL[wname],
+           "softcap": softcap, "seed": seed, "max_abs_err": err,
+           "tol": FLASH_TOL[wname],
            "max_row_rel_err": row_err, "row_tol": row_tol,
            "controls": ctl,
            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
+           "library_ms": library_ms, "flex": None, "bound_ms": bound_ms,
            "bound_by": bound_by, "gflop": flops / 1e9,
            "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
     log(f"[flash] (B {b}, S {s}, H {h}/{kh}, D {d}) {wname} causal={causal} "
@@ -1266,18 +1325,91 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
         + f"; kernel {ms:.4f} ms (device "
         f"{'%.4f ms' % device_ms if device_ms else 'not measured'}, "
         f"{row['TFLOP_per_s']:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-        f"({bound_by}), plain {plain_ms:.4f} ms, SDPA "
-        f"{'%.4f ms' % library_ms if library_ms is not None else 'n/a'}  "
-        f"[{card}]")
+        f"({bound_by}), plain {plain_ms:.4f} ms, "
+        f"SDPA {'%.4f ms' % library_ms if library_ms is not None else 'n/a'}"
+        f"  [{card}]")
     del q, k, v
     torch.cuda.empty_cache()
     return row
+
+
+def _flex_yardstick(q, k, v, got, causal, window, softcap, tol,
+                    where: str) -> dict:
+    """``torch.nn.attention.flex_attention``, compiled once with the softcap
+    as ``score_mod`` and the causal window as the block mask: one PyTorch
+    call that computes the kernel's function where SDPA cannot (no softcap).
+    Timed only -- the port never calls it -- and held to the kernel's output
+    ``got`` at the reference's tolerance (fatal).  Only a failure to import,
+    compile or first call it is logged and carries on: ms is then None,
+    "not measured"."""
+    import torch
+
+    b, s, h, d = q.shape
+    out = {"ms": None, "compile_s": None, "err": None, "error": None}
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def score_mod(score, b_, h_, qi, kv):
+            return softcap * torch.tanh(score / softcap)
+
+        def mask_mod(b_, h_, qi, kv):
+            ok = kv <= qi if causal else kv >= 0
+            if causal and window is not None:
+                ok = ok & (kv > qi - window)
+            return ok
+
+        t0 = time.perf_counter()
+        mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        fn = torch.compile(flex_attention)
+
+        def call():
+            return fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                      enable_gqa=h != k.shape[2])
+
+        res = call()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 -- the import, compile, first call
+        out["error"] = f"{type(e).__name__}: {str(e)[:300]}"
+        log(f"[flex] {where}: flex_attention yardstick not measured: "
+            f"{out['error']}")
+        return out
+    out["compile_s"] = time.perf_counter() - t0
+    out["err"] = float((res.transpose(1, 2).float() - got.float())
+                       .abs().max())
+    check(out["err"] <= tol, f"flex_attention disagrees with the kernel at "
+          f"{where} by {out['err']:.3e} > {tol}")
+    out["ms"] = _time_ms(call, 5, 3)
+    log(f"[flex] {where}: flex_attention (softcap as score_mod, window as "
+        f"block mask) compiled in {out['compile_s']:.1f} s, max abs diff "
+        f"from the kernel {out['err']:.3e} (tol {tol}), {out['ms']:.4f} ms "
+        f"(CUDA events)")
+    del qt, kt, vt, res
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_flash_kernel(card: str):
     """Phase 10: the flash kernel at the serving path's shapes."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
+
+    # the compiled kernel's own tile sizes and kv_tiles / tile_masked, run on
+    # the host, against the plan tests/test_torch_flash.py holds to a
+    # brute-force mask
+    for d in fa.HEAD_DIMS:
+        for s in (1, 65, 129, 1000, 4096, 4608, 4609):
+            for causal, window in ((True, None), (True, 1), (True, 33),
+                                   (True, 4096), (False, None)):
+                kw = dict(causal=causal, window=window)
+                check(fa.kernel_tile_plan(s, d, **kw)
+                      == fa.warpgroup_plan(s, d, **kw),
+                      f"flash kernel's tile plan != tile_plan at D {d}, "
+                      f"S {s}, {kw}")
+    log("[flash] the kernel's tile plan equals tile_plan (D 64/128/256, 7 "
+        "lengths, 5 masks)")
     bf = torch.bfloat16
     cases = [
         dict(b=1, s=4608, h=16, kh=8, d=256, dtype=bf, softcap=50.0),
@@ -1289,6 +1421,33 @@ def phase_flash_kernel(card: str):
         dict(b=2, s=1000, h=32, kh=8, d=128, dtype=bf, causal=False),
     ]
     return [_flash_case(card, seed=200 + i, **c) for i, c in enumerate(cases)]
+
+
+def phase_flex_yardstick(card: str, rows: list) -> None:
+    """Phase 12: flex_attention beside the kernel at phase 10's softcap
+    cases, on the same inputs; fills each row's ``library_ms``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    for row in rows:
+        if row["softcap"] is None:
+            continue
+        b, s, h, kh, d = row["shape"]
+        kw = dict(causal=row["causal"], window=row["window"],
+                  softcap=row["softcap"])
+        q, k, v = _flash_inputs(b, s, h, kh, d, getattr(torch, row["dtype"]),
+                                row["seed"])
+        where = f"{(b, s, h, kh, d)} {row['dtype']} {kw}"
+        row["flex"] = _flex_yardstick(q, k, v, fa.flash_attention_bshd(
+            q, k, v, **kw), tol=row["tol"], where=where, **kw)
+        row["library_ms"] = row["flex"]["ms"]
+        if row["library_ms"] is not None:
+            log(f"[flex] kernel {row['ms']:.4f} ms (device "
+                f"{row['device_ms'] or float('nan'):.4f} ms) vs "
+                f"flex_attention {row['library_ms']:.4f} ms  [{card}]")
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 # -- phase 11 -----------------------------------------------------------------
@@ -1549,9 +1708,16 @@ def main() -> None:
         fail(f"no src/repro_torch next to {Path(__file__).name}: run it "
              "from a checkout of the repository")
     sys.path.insert(0, str(src))
+    # torch.compile (the flex_attention yardstick) caches inside the checkout
+    # and compiles in this process: no pool of compile workers to outlive it
+    cache = ROOT / "build"
+    for var, val in (("TORCHINDUCTOR_CACHE_DIR", str(cache / "inductor")),
+                     ("TRITON_CACHE_DIR", str(cache / "triton")),
+                     ("TORCHINDUCTOR_COMPILE_THREADS", "1")):
+        os.environ.setdefault(var, val)
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    build = phase_build()
     rows = phase_kernels(card)
     plane_rows, topk = phase_plane_kernels(card)
     commit_rows = phase_commit_kernel(card)
@@ -1566,6 +1732,7 @@ def main() -> None:
     flash_rows = phase_flash_kernel(card)
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
+    phase_flex_yardstick(card, flash_rows)
 
     # launches on the main paths: every path's counts, read just after it
     paths = [main["tau10"], main["tau1"], wide, comp["topk"],
@@ -1604,6 +1771,7 @@ def main() -> None:
                   "src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:30", flash_rows[0]),
         ],
+        "build": build,
         "kernel_cases": rows,
         "plane_kernel_cases": plane_rows,
         "commit_kernel_cases": commit_rows,

@@ -164,3 +164,133 @@ def test_kernel_layout_checks():
     m = q.to("meta")
     with pytest.raises(ValueError, match="no flash_attention kernel"):
         fa.flash_attention_bshd(m, m, m)
+
+
+# -- what surrounds the tensor-core kernel ------------------------------------
+
+def _admitted(s, causal, window):
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    if not causal:
+        return np.ones((s, s), bool)
+    ok = j <= i
+    if window is not None:
+        ok &= j > i - window
+    return ok
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 80), (128, 128), (64, 80),
+                                   (64, 128), (128, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_plan_covers_every_admitted_pair(bq, bk, causal):
+    """Against a brute-force mask: every admitted pair lies in a visited
+    tile, a tile is masked exactly when it holds a refused pair, every block
+    visits a tile, and a warpgroup's tiles lie in its block's (the producer
+    loads the block's tiles), the others masked whole for it."""
+    for s in (1, 17, 63, 64, 65, 127, 128, 129, 200, 1000):
+        for window in (None, 1, 33, bk - 1, bk, bk + 1, 500, s, s + 7):
+            ok = _admitted(s, causal, window)
+            plan = fa.tile_plan(s, causal=causal, window=window, bq=bq, bk=bk)
+            assert [q0 for q0, *_ in plan] == list(range(0, s, bq))
+            for q0, t0, t1, masked in plan:
+                rows = ok[q0:q0 + bq]
+                assert 0 <= t0 < t1 <= -(-s // bk), (s, window, q0)
+                keys = np.nonzero(rows.any(axis=0))[0]
+                assert keys.size and t0 <= keys[0] // bk \
+                    and keys[-1] // bk < t1, (s, window, q0)
+                assert len(masked) == t1 - t0
+                for t, m in zip(range(t0, t1), masked):
+                    tile = rows[:, t * bk:(t + 1) * bk]
+                    full = tile.shape[1] == bk and tile.all()
+                    assert m == (not full), (s, window, q0, t)
+                if bq == fa.BLOCK_Q:
+                    for w in range(2):
+                        qw = q0 + w * fa.WARPGROUP_Q
+                        if qw >= s:
+                            continue
+                        w0, w1 = fa.kv_tile_range(
+                            s, qw, fa.WARPGROUP_Q, bk, causal=causal,
+                            window=window if causal else None)
+                        assert t0 <= w0 < w1 <= t1, (s, window, q0, w)
+                        for t in [*range(t0, w0), *range(w1, t1)]:
+                            assert fa.tile_masked(
+                                s, qw, fa.WARPGROUP_Q, t * bk, bk,
+                                causal=causal,
+                                window=window if causal else None)
+                            assert not ok[qw:qw + fa.WARPGROUP_Q,
+                                          t * bk:(t + 1) * bk].any()
+
+
+def test_tile_plan_skips_masks_on_full_tiles():
+    """gemma2's prefill shape: of the 4,608-token causal plan at the
+    kernel's D = 256 tiles, only the tiles on a block's diagonal (at most
+    3 of 80 keys across 128 rows) and the ragged last one take the
+    per-element mask; with the 4,096 window, also those on its lower
+    edge."""
+    bk = fa.block_k(256)
+    plan = fa.tile_plan(4608, causal=True, bq=fa.BLOCK_Q, bk=bk)
+    n_tiles = sum(t1 - t0 for _, t0, t1, _ in plan)
+    per_block = [sum(m) for *_, m in plan]
+    assert max(per_block) <= 3 and min(per_block) >= 1
+    assert sum(per_block) < 0.1 * n_tiles
+    local = fa.tile_plan(4608, causal=True, window=4096, bq=fa.BLOCK_Q,
+                         bk=bk)
+    assert sum(t1 - t0 for _, t0, t1, _ in local) < n_tiles
+    assert max(sum(m) for *_, m in local) <= 6
+    assert sum(sum(m) for *_, m in local) > sum(per_block)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_warpgroup_plan_against_brute_force(d, causal):
+    """The plan the compiled kernel must report (``kernel_tile_plan`` is
+    held to it on the card): ``tile_plan``'s block ranges at the kernel's
+    tile sizes, and per tile a warpgroup masks exactly when the tile holds a
+    refused pair for its rows below S."""
+    bk = fa.block_k(d)
+    for s in (1, 65, 129, bk + 1, 700):
+        for window in (None, 1, bk, 300):
+            ok = _admitted(s, causal, window)
+            sizes, plan = fa.warpgroup_plan(s, d, causal=causal,
+                                            window=window)
+            assert sizes == (fa.BLOCK_Q, fa.WARPGROUP_Q, bk)
+            ranges = fa.tile_plan(s, causal=causal, window=window,
+                                  bq=fa.BLOCK_Q, bk=bk)
+            assert [p[:3] for p in plan] == [r[:3] for r in ranges]
+            for q0, t0, t1, masks in plan:
+                assert len(masks) == t1 - t0
+                for t, pair in zip(range(t0, t1), masks):
+                    for w, m in enumerate(pair):
+                        qw = q0 + w * fa.WARPGROUP_Q
+                        if qw >= s:
+                            continue  # no rows: nothing of it is written
+                        tile = ok[qw:qw + fa.WARPGROUP_Q,
+                                  t * bk:(t + 1) * bk]
+                        full = tile.shape[1] == bk and tile.all()
+                        assert m == (not full), (s, window, q0, t, w)
+
+
+def _kernel_softcap(x, cap):
+    """The kernel's softcap in float32: cap * (1 - 2 / (1 + 2^(2 y log2 e)))
+    with y = x / cap (csrc/flash_attention.cu: softmax_tile, there in base-2
+    units; ex2 and rcp as exact float32 operations here)."""
+    f = np.float32
+    x = np.asarray(x, f)
+    e = np.exp2(x * f(2 * np.log2(np.e) / cap))
+    return f(cap) * (f(1) - f(2) / (f(1) + e))
+
+
+@pytest.mark.parametrize("cap", [20.0, 30.0, 50.0])
+def test_kernel_softcap_formula_matches_tanh(cap):
+    """Within 1e-3 of cap * tanh(x / cap) in absolute terms over
+    |x| <= 8 cap -- a tenth of the bfloat16 row tolerance, since a logit off
+    by d scales its probability by about 1 + d -- and finite, within
+    [-cap, cap], far beyond."""
+    x = np.linspace(-8 * cap, 8 * cap, 400_001)
+    with np.errstate(over="ignore"):
+        got = _kernel_softcap(x, cap).astype(np.float64)
+        far = _kernel_softcap(np.array([-1e30, -1e6, 1e6, 1e30]), cap)
+    exp = cap * np.tanh(x.astype(np.float32).astype(np.float64) / cap)
+    assert np.abs(got - exp).max() <= 1e-3
+    assert np.isfinite(far).all() and (np.abs(far) <= cap).all()
+    np.testing.assert_allclose(far, [-cap, -cap, cap, cap])

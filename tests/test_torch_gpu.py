@@ -341,6 +341,110 @@ def test_flash_kernel_matches_plain_at_large_logits(cuda, dtype, d, s, h, kh,
         assert diff >= 10 * _ROW_TOL[dtype], (ckw, diff)
 
 
+# The tensor-core kernel's tiling: 128-row blocks of two 64-row warpgroups,
+# kv tiles of BK = 80 keys at D = 256 and 128 below. S below one tile, at
+# and around the tile edges and ragged; windows of 1, 33, BK - 1, BK, BK + 1
+# and beyond S; groups of 1-16 query heads per kv head; B = 3; q, k, v cut
+# as strided views from one fused (B, S, H + 2K, D) projection. Each case at
+# the reference's tolerance and at the large-logit row tolerance with its
+# controls (those that change the mask or the logits).
+_BF, _F16 = torch.bfloat16, torch.float16
+_TILING_CASES = [
+    # s, d, group, kh, causal, window, softcap, dtype
+    (1, 64, 1, 1, True, None, None, _BF),
+    (17, 256, 2, 2, True, None, 50.0, _BF),
+    (63, 128, 4, 1, True, None, None, _F16),
+    (64, 64, 8, 1, True, None, None, _BF),
+    (65, 256, 1, 2, True, None, 30.0, _F16),
+    (127, 128, 2, 1, True, None, None, _BF),
+    (128, 256, 16, 1, True, None, 50.0, _BF),
+    (129, 64, 4, 2, False, None, None, _BF),
+    (1000, 128, 8, 1, True, None, None, _BF),
+    (4609, 256, 2, 1, True, None, 50.0, _BF),
+    *[(300, 256, 2, 1, True, w, 50.0, _BF) for w in (1, 33, 79, 80, 81, 305)],
+    *[(300, 128, 2, 1, True, w, None, _F16) for w in (1, 33, 127, 128, 129,
+                                                       305)],
+    *[(200, 128, g, 2, g != 4, None, None, _BF) for g in (1, 2, 4, 8, 16)],
+]
+
+
+def _flash_views(cuda, b, s, h, kh, d, dtype, qk_scale, v_scale, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, s, h + 2 * kh, d), generator=gen, device=cuda)
+    x[:, :, :h + kh] *= qk_scale
+    x[:, :, h + kh:] *= v_scale
+    x = x.to(dtype)
+    return x[:, :, :h], x[:, :, h:h + kh], x[:, :, h + kh:]
+
+
+def _mask(s, causal, window):
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    if not causal:
+        return torch.ones(s, s, dtype=torch.bool)
+    ok = j <= i
+    return ok & (j > i - window) if window is not None else ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,group,kh,causal,window,softcap,dtype",
+                         _TILING_CASES, ids=lambda x: str(x).replace(
+                             "torch.", ""))
+def test_flash_kernel_tiling_on_card(cuda, s, d, group, kh, causal, window,
+                                     softcap, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h = 3, kh * group
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = _flash_views(cuda, b, s, h, kh, d, dtype, 0.5, 0.5, seed=s)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    before = flash_attention.flash_attention_bshd.launches
+    got = flash_attention.flash_attention_bshd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - _flash_plain(q, k, v, **kw).float())
+                .abs().max())
+    assert err <= _FLASH_TOL[dtype], err
+
+    q, k, v = _flash_views(cuda, b, s, h, kh, d, dtype, 4.0, 1.0, seed=s + 1)
+    got = flash_attention.flash_attention_bshd(q, k, v, **kw)
+    q, k, v = q.float(), k.float(), v.float()
+    exp = _flash_plain(q, k, v, **kw)
+    assert _row_rel_err(got, exp) <= _ROW_TOL[dtype]
+    mask = _mask(s, causal, window)
+    controls = [dict(kw, causal=not causal)]
+    if softcap is not None:
+        controls.append(dict(kw, softcap=None))
+    if window is not None:
+        controls += [dict(kw, window=w) for w in (window - 32, window + 32)
+                     if w >= 1]
+    one_key = bool((mask.sum(1) == 1).all())  # softmax of one logit: 1
+    checked = 0
+    for ckw in controls:
+        same_mask = torch.equal(_mask(s, ckw["causal"], ckw["window"]), mask)
+        if same_mask and (ckw["softcap"] == softcap or one_key):
+            continue  # the same function: nothing to see
+        diff = _row_rel_err(_flash_plain(q, k, v, **ckw), exp)
+        assert diff >= 10 * _ROW_TOL[dtype], (ckw, diff)
+        checked += 1
+    assert checked or s == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_kernel_tile_plan_is_the_python_plan(cuda, d):
+    """The compiled kernel's tile sizes and its kv_tiles / tile_masked, run
+    on the host, give the plan that tests/test_torch_flash.py holds against
+    a brute-force mask: an edit to either side shows here."""
+    bk = flash_attention.block_k(d)
+    for s in (1, 17, 64, 65, 127, 128, 129, 1000, 4608, 4609):
+        for causal in (True, False):
+            for window in (None, 1, 33, bk - 1, bk, bk + 1, 4096, s + 1):
+                kw = dict(causal=causal, window=window)
+                assert flash_attention.kernel_tile_plan(s, d, **kw) == \
+                    flash_attention.warpgroup_plan(s, d, **kw), (s, kw)
+
+
 @pytest.mark.gpu
 def test_flash_kernel_reads_strided_views(cuda):
     """q, k, v as views of one fused (B, S, H + 2K, D) projection: read in

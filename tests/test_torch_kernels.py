@@ -206,14 +206,50 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.find_nvcc()
 
 
-def test_build_sources_and_flags():
+def test_build_sources_and_flags(monkeypatch):
     srcs = _build._sources()
     assert [s.name for s in srcs] == ["flash_attention.cu", "fused_prox.cu",
                                       "plane_ops.cu"]
-    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert "-fmad=false" in _build.NVCC_FLAGS
-    # the library name changes with the sources
-    assert len(_build._digest(srcs)) == 16
+    flags = {s.name: _build.source_flags(s) for s in srcs}
+    for f in flags.values():
+        assert "arch=compute_90a,code=sm_90a" in f
+    # the bitwise plane kernels never contract into an FMA; the flash kernel
+    # (held to a tolerance) does, and reports its registers and spills
+    assert "-fmad=false" in flags["fused_prox.cu"]
+    assert "-fmad=false" in flags["plane_ops.cu"]
+    assert "-fmad=true" in flags["flash_attention.cu"]
+    assert "-fmad=false" not in flags["flash_attention.cu"]
+    assert "-v" in flags["flash_attention.cu"]
+    # the library name changes with the sources and with any source's flags
+    digest = _build._digest(srcs)
+    assert len(digest) == 16
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "flash_attention.cu",
+                        ("-fmad=false",))
+    assert _build._digest(srcs) != digest
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    text = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 197696 bytes smem, 960 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas warning : (C7508) setmaxnreg ignored; unable to determine register count at entry
+ptxas info    : Function properties for _Z3barv
+    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 360 bytes cmem[0]
+"""
+    rep = _build.parse_ptxas(text)
+    assert set(rep) == {"_Z3fooPf", "_Z3barv"}
+    assert rep["_Z3fooPf"] == {"warnings": [], "stack": 0, "spill_stores": 0,
+                               "spill_loads": 0, "registers": 168,
+                               "smem": 197696}
+    bar = rep["_Z3barv"]
+    assert (bar["registers"], bar["smem"], bar["spill_stores"],
+            bar["spill_loads"], bar["stack"]) == (40, 0, 12, 4, 8)
+    assert bar["warnings"] and "C7508" in bar["warnings"][0]
 
 
 def test_fused_step_is_a_drop_in_for_the_plain_step():
