@@ -2,11 +2,13 @@
 """On-card smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py          # needs one CUDA card; exits non-zero without
+    python3 chip_smoke.py --ab DIR # A/B: the checkout at DIR (an earlier
+                                   # tree) and this one, alternated
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
   0. device    -- a CUDA card is present; print its name and power limit
-                  (nvidia-smi) and the torch / CUDA versions;
+                  (nvidia-smi), the torch / CUDA versions and nvcc's;
   1. build     -- build the kernel library from src/repro_torch/kernels/csrc,
                   one nvcc per source in parallel; print ptxas's registers,
                   spills and notes for each flash-attention kernel: the six
@@ -27,10 +29,11 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   state width of the paper's Fig. 4 CNN), features cached on
                   the card, tau = 10 for 20 rounds: launches == rounds * tau,
                   optimality finite and decreasing; s/round and the kernel's
-                  share of the round's device time; and, for the record of
-                  its two departures from the reference's set-up, the
-                  gradient at zero against the paper's lam and the
-                  trajectory with the reference's L;
+                  share of the round's device time, no cat kernel launched
+                  once a local step (the leaves are read in place); and, for
+                  the record of its two departures from the reference's
+                  set-up, the gradient at zero against the paper's lam and
+                  the trajectory with the reference's L;
   5. compressed paper path -- the Fig. 2 problem, tau = 10, with the uplink
                   compressed on the flat plane (EngineConfig(plane=True)):
                   TopK(0.25, global) and Quantize(8, global) (its draws made
@@ -118,11 +121,27 @@ NaN, +-0, +-inf, |x| == thresh and a zero-scale row injected, and times
 ``torch.topk`` at the wide plane beside the select.  It holds the weighted
 commit kernel against its plain version, bit for bit, at (30, 128) and
 (30, 112,512) float64 and at (30, 4,194,304) in float32, bfloat16 and
-float64, with NaN, +-0 and +-inf injected and zero weights for undelivered
-clients, and times ``torch.mv(buf.t(), w)`` beside it.
+float64 (float64 weights), with float32 weights (the main path's) on the
+two float64 planes, a plane 8 bytes off a 16-byte boundary and 300 rows,
+with NaN, +-0 and +-inf injected and zero weights for undelivered clients,
+and times ``torch.mv(buf.t(), w)`` and the plain-load commit kernel
+(``weighted_commit_2d(..., loads=True)``, bitwise checked too) beside it.  It runs the fused update's
+tree entry (``ops.fused_local_update``) on the paper tree {w: (30, 20),
+b: (30,)} and the wide tree {w: (30, 112,394), b: (30,)} float64, from
+contiguous leaves and from views of a previous output plane: bitwise
+equal to the plain version, one launch and one kernel a call (profiler),
+no copy.  Then the host cost of a wrapper call by parts (10,000 calls of
+each piece).
 
-Every launch counter is set to 0 just before each path of phases 3-9 and
-11 and read just after.  The line before the last is the kernels' JSON summary;
+``--ab DIR`` runs, in four processes (DIR, this tree, this tree, DIR),
+each with its own package and kernels: kernel 1 on phase 2's planes and
+on the two trees, kernel 4 at its record's shapes, phase 3's 500-round
+paths, phase 4's wide round and phase 7b's commits; the results go to
+``chiprun_out/ab.json``.
+
+Every launch counter, and the fused update's ``copies``, is set to 0 just
+before each path of phases 3-9 and 11 and read just after; no path may
+copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
 """
@@ -177,8 +196,10 @@ def _counters():
 
 
 def _expect(**launches) -> dict:
-    """Expected counter readings: the given kernels, every other at 0."""
+    """Expected counter readings: the given kernels, every other at 0, and
+    no copy made before the fused local update (``copies``)."""
     out = {name: 0 for name in _counters()}
+    out["copies"] = 0
     out.update(launches)
     return out
 
@@ -186,10 +207,13 @@ def _expect(**launches) -> dict:
 def reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["fused_local_update"].copies = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    out = {name: fn.launches for name, fn in _counters().items()}
+    out["copies"] = getattr(_counters()["fused_local_update"], "copies", 0)
+    return out
 
 
 # -- phase 0 ------------------------------------------------------------------
@@ -208,6 +232,12 @@ def phase_device():
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"devices {torch.cuda.device_count()}")
+    from repro_torch.kernels import _build
+
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"],
+                          capture_output=True, text=True, timeout=60)
+    check(nvcc.returncode == 0, f"nvcc --version failed: {nvcc.stderr}")
+    log(f"[device] nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     return card
 
 
@@ -311,6 +341,8 @@ def _kernel_case(shape, dtype, card: str, seed: int):
                   15, batch)
     plain_ms = _time_ms(
         lambda: fp.fused_local_update_plain(zh, g, c, ETA, THRESH), 15, batch)
+    device_ms = _device_ms(
+        lambda: fp.fused_local_update_2d(zh, g, c, ETA, THRESH))
     nbytes = 5 * n * zh.element_size()
     work = str(dtype).replace("torch.", "")
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
@@ -318,12 +350,13 @@ def _kernel_case(shape, dtype, card: str, seed: int):
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= OPS_PER_ELEMENT * n / PEAK_OPS[work] else "operations")
     row = {"shape": list(shape), "dtype": work, "bitwise_equal": True,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "GB_per_s": nbytes / (ms * 1e-3) / 1e9}
     log(f"[kernels] {tuple(shape)} {work}: bitwise equal; kernel "
-        f"{ms:.4f} ms ({row['GB_per_s']:.0f} GB/s), bound {bound_ms:.4f} ms "
-        f"({bound_by}), plain {plain_ms:.4f} ms  [{card}]")
+        f"{ms:.4f} ms ({row['GB_per_s']:.0f} GB/s; device {device_ms:.4f} "
+        f"ms), bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms"
+        f"  [{card}]")
     del zh, g, c, k_zh, k_z, p_zh, p_z
     torch.cuda.empty_cache()
     return row
@@ -634,14 +667,19 @@ def phase_compressed_paper(card: str):
 
 # -- phase 4 ------------------------------------------------------------------
 
-def phase_wide(card: str, kernel_ms: float):
+WIDE_D, WIDE_TAU = 112_394, 10
+
+
+def _wide_problem():
+    """Phase 4's set-up: the Fig. 2 model and generator at d = 112,394,
+    features cached on the card; DProx at tau = 10."""
     import torch
 
     from repro_torch.core.algorithm import DProxConfig
-    from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
+    from repro_torch.exec import ArraySupplier
     from repro_torch.fed import problems, simulator
 
-    d, tau, rounds, every = 112_394, 10, 20, 5
+    d, tau = WIDE_D, WIDE_TAU
     # features normalized to unit max row norm shrink each coordinate, and
     # so each |df/dw_j|, by about sqrt(20/d) against the paper's d = 20; at
     # lam = 0.003 every |df/dw_j(0)| is below lam, so the first prox steps
@@ -657,14 +695,33 @@ def phase_wide(card: str, kernel_ms: float):
                                           device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    feat_gb = data.features.nbytes / 1e9
-    log(f"[wide] d={d}: lam={lam:.6e}, set-up {setup_s:.1f} s, L={L:.6e}, features "
-        f"{feat_gb:.2f} GB on the card")
     eta_g = 15.0
     eta_tilde = 0.5 / L
     eta = eta_tilde / (eta_g * tau)
     alg = simulator.DProxAlgorithm(reg, DProxConfig(tau=tau, eta=eta,
                                                     eta_g=eta_g))
+    return {"data": data, "reg": reg, "grad_fn": grad_fn, "full_g": full_g,
+            "params0": params0, "L_ref": L_ref, "L": L, "lam": lam,
+            "supplier": supplier, "alg": alg, "eta_g": eta_g,
+            "eta_tilde": eta_tilde, "setup_s": setup_s}
+
+
+def phase_wide(card: str, kernel_ms: float):
+    import torch
+
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import simulator
+
+    d, tau, rounds, every = WIDE_D, WIDE_TAU, 20, 5
+    w = _wide_problem()
+    data, reg, grad_fn, full_g = w["data"], w["reg"], w["grad_fn"], w["full_g"]
+    params0, L_ref, L, lam = w["params0"], w["L_ref"], w["L"], w["lam"]
+    supplier, alg, eta_g = w["supplier"], w["alg"], w["eta_g"]
+    eta_tilde, setup_s = w["eta_tilde"], w["setup_s"]
+    feat_gb = data.features.nbytes / 1e9
+    log(f"[wide] d={d}: lam={lam:.6e}, set-up {setup_s:.1f} s, L={L:.6e}, features "
+        f"{feat_gb:.2f} GB on the card")
 
     reset_counts()
     h = simulator.run(alg, params0, grad_fn, supplier, 30, rounds, reg=reg,
@@ -704,7 +761,8 @@ def phase_wide(card: str, kernel_ms: float):
     s_per_round, round_ms, by_name = _time_and_profile(eng, params0,
                                                        supplier)
     busy_ms = sum(by_name.values())
-    ours_ms = sum(v for k, v in by_name.items() if "fused_prox_kernel" in k)
+    ours_ms = sum(v for k, v in by_name.items()
+                  if any(f in k for f in _ROUND_PARTS["fused_local_update"]))
     if busy_ms > 0:
         share = ours_ms / busy_ms
         source = "torch.profiler"
@@ -712,10 +770,16 @@ def phase_wide(card: str, kernel_ms: float):
         share = tau * kernel_ms / round_ms
         source = "CUDA events (phase-2 kernel time x tau / round time)"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the local step reads its leaves in place: no cat launched per step
+    cats = {k[:60]: (_time_and_profile.counts[k], v)
+            for k, v in by_name.items() if "cat" in k.lower()}
+    check(all(n < tau for n, _ in cats.values()),
+          f"wide: a cat kernel launched tau or more times a round: {cats}")
     log(f"[wide] {s_per_round:.4f} s/round after the first chunk; one round "
         f"{round_ms:.3f} ms on the card, device busy {busy_ms:.3f} ms "
         f"(idle share {1 - busy_ms / round_ms:.3f}); kernel share "
-        f"{share:.4f} ({source})  [{card}]")
+        f"{share:.4f} ({source}); cat kernels in the round (launches, ms): "
+        f"{cats or 'none'}  [{card}]")
     for name, ms in top:
         log(f"[wide]   {ms:9.3f} ms  {name[:110]}")
     ctx = {"alg": alg, "reg": reg, "grad_fn": grad_fn, "full_g": full_g,
@@ -728,7 +792,7 @@ def phase_wide(card: str, kernel_ms: float):
             "s_per_round": s_per_round, "round_ms": round_ms,
             "device_busy_ms": busy_ms, "kernel_ms_per_round": ours_ms,
             "kernel_share": share, "share_source": source,
-            "top_kernels_ms": top}, ctx
+            "cat_kernels": cats, "top_kernels_ms": top}, ctx
 
 
 def _time_and_profile(eng, params0, supplier):
@@ -754,10 +818,13 @@ def _time_and_profile(eng, params0, supplier):
         end.record()
         torch.cuda.synchronize()
     by_name: dict = {}
+    counts: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
+            counts[e.name] = counts.get(e.name, 0) + 1
+    _time_and_profile.counts = counts
     return s_per_round, start.elapsed_time(end), by_name
 
 
@@ -765,11 +832,13 @@ def _time_and_profile(eng, params0, supplier):
 
 # kernel-name fragments of each part of a compressed round, for the shares
 _ROUND_PARTS = {
-    "fused_local_update": ("fused_prox_kernel",),
+    # (the older kernels' names too, for a run of an earlier tree)
+    "fused_local_update": ("fused_leaves_kernel", "fused_prox_kernel"),
     "threshold_select": ("threshold_select_kernel",),
     "quantize": ("quantize_kernel",),
     "torch.topk": ("topk", "TopK", "sort", "Sort"),
-    "weighted_commit": ("weighted_commit_kernel",),
+    "weighted_commit": ("commit_bulk_kernel", "commit_scalar_kernel",
+                        "weighted_commit_kernel"),
 }
 
 
@@ -843,19 +912,28 @@ def phase_wide_compressed(card: str, ctx: dict):
 
 # -- phase 2: the weighted commit ---------------------------------------------
 
-def _commit_case(shape, dtype, card: str, seed: int):
+def _commit_case(shape, dtype, card: str, seed: int, w_dtype=None,
+                 offset: bool = False):
     """The commit kernel against its plain version at one shape, timed
     beside ``torch.mv(buf.t(), w)`` (the same function in one library
-    call)."""
+    call) and beside the plain-load kernel (``loads=True``, where the
+    package has it; bitwise checked as well).  ``w_dtype``: the weights'
+    dtype (float64 by default); ``offset``: the plane is a contiguous view
+    8 bytes off a 16-byte boundary (the scalar kernel)."""
+    import inspect
+
     import torch
 
     from repro_torch.kernels import plane_ops as po
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     work = torch.float64 if dtype == torch.float64 else torch.float32
-    x = torch.randn(shape, generator=gen, device="cuda", dtype=work).to(dtype)
-    w = torch.rand((shape[0],), generator=gen, device="cuda",
-                   dtype=torch.float64) + 0.5
+    n = shape[0] * shape[1]
+    flat = torch.randn((n + 1,), generator=gen, device="cuda",
+                       dtype=work).to(dtype)
+    x = (flat[1:] if offset else flat[:n]).view(shape)
+    w = (torch.rand((shape[0],), generator=gen, device="cuda",
+                    dtype=torch.float64) + 0.5).to(w_dtype or torch.float64)
     w[::4] = 0.0  # undelivered clients
     k = min(len(SPECIALS), shape[1])
     x[1, :k] = torch.tensor(SPECIALS[:k], dtype=dtype)
@@ -865,55 +943,263 @@ def _commit_case(shape, dtype, card: str, seed: int):
     torch.cuda.synchronize()
     diff = _bit_diff(got, exp)
     check(diff == 0, f"weighted_commit kernel != plain bitwise at {shape} "
-          f"{dtype}: {diff} elements differ")
+          f"{dtype} (weights {w.dtype}): {diff} elements differ")
     check(bool(torch.isnan(got[0])), "a NaN under a nonzero weight vanished")
     err = _finite_err(got, exp)
+    loads = None
+    if "loads" in inspect.signature(po.weighted_commit_2d).parameters:
+        loads = lambda: po.weighted_commit_2d(x, w, loads=True)
+        diff = _bit_diff(loads(), exp)
+        check(diff == 0, f"weighted_commit plain-load kernel != plain bitwise "
+              f"at {shape} {dtype} (weights {w.dtype}): {diff} differ")
     del got, exp
     xt, wl = x.t(), w.to(dtype)
     library = lambda: torch.mv(xt, wl)
-    n = x.numel()
     batch = 1 if n > 1e8 else 10
     ms = _time_ms(kern, 15, batch)
     plain_ms = _time_ms(plain, 5, 1)
     library_ms = _time_ms(library, 15, batch)
     device_ms = _device_ms(kern)
+    kernels_per_call = sum(_profile_kernels.records.values()) / 20
     plain_device_ms = _device_ms(plain, 5)
     library_device_ms = _device_ms(library)
+    loads_ms = _time_ms(loads, 15, batch) if loads else None
+    loads_device_ms = _device_ms(loads) if loads else None
     item = x.element_size()
-    nbytes = n * item + shape[1] * item + shape[0] * (8 if work ==
-                                                      torch.float64 else 4)
+    nbytes = n * item + shape[1] * item + shape[0] * w.element_size()
     wname = str(dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = COMMIT_OPS * n / PEAK_OPS[wname]
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    tag = str(w.dtype).replace("torch.", "") + (", offset 8 B" if offset
+                                                 else "")
     row = {"kernel": "weighted_commit", "shape": list(shape), "dtype": wname,
-           "bitwise_equal": True, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "device_ms": device_ms,
+           "weights": tag, "bitwise_equal": True, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+           "kernels_per_call": kernels_per_call,
            "plain_device_ms": plain_device_ms, "library_ms": library_ms,
-           "library_device_ms": library_device_ms, "bound_ms": bound_ms,
+           "library_device_ms": library_device_ms,
+           "loads_ms": loads_ms, "loads_device_ms": loads_device_ms,
+           "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes,
            "GB_per_s": nbytes / (ms * 1e-3) / 1e9}
-    log(f"[kernels] weighted_commit {tuple(shape)} {wname}: bitwise equal; "
-        f"kernel {ms:.4f} ms (device {device_ms:.4f} ms, "
-        f"{nbytes / (device_ms * 1e-3) / 1e9:.0f} GB/s), bound {bound_ms:.4f} "
-        f"ms ({bound_by}, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms "
-        f"(device {plain_device_ms:.4f}), torch.mv {library_ms:.4f} ms "
-        f"(device {library_device_ms:.4f})  [{card}]")
-    del x, xt, wl
+    log(f"[kernels] weighted_commit {tuple(shape)} {wname} (weights {tag}): "
+        f"bitwise equal; kernel {ms:.4f} ms (device {device_ms:.4f} ms, "
+        f"{kernels_per_call:g} kernels a call, "
+        f"{nbytes / (max(device_ms, 1e-9) * 1e-3) / 1e9:.0f} GB/s), bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), plain "
+        f"{plain_ms:.4f} ms (device {plain_device_ms:.4f}), torch.mv "
+        f"{library_ms:.4f} ms (device {library_device_ms:.4f})"
+        + (f", plain loads {loads_ms:.4f} ms (device {loads_device_ms:.4f})"
+           if loads else "") + f"  [{card}]")
+    del x, xt, wl, flat
     torch.cuda.empty_cache()
     return row
 
 
-def phase_commit_kernel(card: str):
+# the commit kernel's cases: the five shapes of the record (float64
+# weights), the main path's float32 weights on the two float64 planes, a
+# view 8 bytes off 16 (the scalar kernel) and 300 rows (the ring walked)
+COMMIT_CASES = [((30, 128), "float64", None, False),
+                ((30, 112_512), "float64", None, False),
+                ((30, 4_194_304), "float32", None, False),
+                ((30, 4_194_304), "bfloat16", None, False),
+                ((30, 4_194_304), "float64", None, False),
+                ((30, 128), "float64", "float32", False),
+                ((30, 112_512), "float64", "float32", False),
+                ((30, 1024), "float64", "float32", True),
+                ((300, 16_384), "float64", "float32", False)]
+
+
+def phase_commit_kernel(card: str, cases=COMMIT_CASES):
     import torch
 
-    cases = [((30, 128), torch.float64), ((30, 112_512), torch.float64),
-             ((30, 4_194_304), torch.float32),
-             ((30, 4_194_304), torch.bfloat16),
-             ((30, 4_194_304), torch.float64)]
-    return [_commit_case(shape, dt, card, 200 + i)
-            for i, (shape, dt) in enumerate(cases)]
+    dt = lambda name: getattr(torch, name) if name else None
+    return [_commit_case(shape, dt(d), card, 200 + i, dt(wd), off)
+            for i, (shape, d, wd, off) in enumerate(cases)]
+
+
+# the fused local update on the trees of the main paths: the paper's
+# {w: (30, 20), b: (30,)} and the wide {w: (30, 112,394), b: (30,)}
+TREES = {"paper": 20, "wide": 112_394}
+
+
+def _tree_case(name: str, card: str, seed: int):
+    """``ops.fused_local_update`` on a float64 tree, fed twice: contiguous
+    leaves, then z_hat as views of the first call's output plane (as the
+    tau loop feeds it).  Bitwise against the plain version on the
+    flattened planes; per call the events ms, the device ms of every
+    kernel the call launches and their number (profiler)."""
+    import torch
+
+    from repro_torch.core import plane as pln
+    from repro_torch.kernels import fused_prox as fp
+    from repro_torch.kernels import ops
+
+    d = TREES[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda: {"w": torch.randn((30, d), generator=gen, device="cuda",
+                                   dtype=torch.float64),
+                  "b": torch.randn((30,), generator=gen, device="cuda",
+                                   dtype=torch.float64)}
+    zh, g, c = mk(), mk(), mk()
+    zh["w"][0, :7] = torch.tensor([float("nan"), -0.0, float("inf"),
+                                   -float("inf"), THRESH, -THRESH, 0.0],
+                                  dtype=torch.float64)
+
+    def plain(zh_):
+        spec = pln.SegmentSpec.from_tree(zh_, batch_dims=1, tile=1)
+        planes = [pln.flatten(spec, t) for t in (zh_, g, c)]
+        a, b = fp.fused_local_update_plain(*planes, ETA, THRESH)
+        return pln.unflatten(spec, a), pln.unflatten(spec, b)
+
+    rows = []
+    views = None
+    for feed in ("contiguous", "views"):
+        z_in = zh if feed == "contiguous" else views
+        kern = lambda: ops.fused_local_update(z_in, g, c, ETA, THRESH,
+                                              batch_dims=1)
+        before = read_counts()
+        got = kern()
+        after = read_counts()
+        exp = plain(z_in)
+        torch.cuda.synchronize()
+        for a, b in zip(got, exp):
+            for k in b:
+                diff = _bit_diff(a[k], b[k])
+                check(diff == 0, f"fused tree {name} ({feed}) != plain "
+                      f"bitwise: {diff} elements of {k} differ")
+        launches = (after["fused_local_update"]
+                    - before["fused_local_update"])
+        copies = after["copies"] - before["copies"]
+        check(copies == 0, f"fused tree {name} ({feed}): {copies} copies")
+        err = max(_finite_err(a[k], b[k]) for a, b in zip(got, exp)
+                  for k in b)
+        if views is None:
+            views = got[0]
+        ms = _time_ms(kern, 15, 10)
+        plain_ms = _time_ms(lambda: plain(z_in), 15, 10)
+        calls = 20
+        device_ms = _device_ms(kern, calls)
+        records = dict(_profile_kernels.records)
+        kernels_per_call = sum(records.values()) / calls
+        n = 30 * (d + 1)
+        nbytes = 5 * n * 8
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = OPS_PER_ELEMENT * n / PEAK_OPS["float64"]
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        row = {"tree": name, "feed": feed, "shape": [30, d + 1],
+               "dtype": "float64", "bitwise_equal": True,
+               "max_abs_err": err, "launches_per_call": launches,
+               "kernels_per_call": kernels_per_call,
+               "kernels": {k[:60]: v / calls for k, v in records.items()},
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"[kernels] fused_local_update tree {name} {{w: (30, {d}), b: "
+            f"(30,)}} f64, {feed}: bitwise equal; {ms:.4f} ms a call "
+            f"(device {device_ms:.4f} ms in {kernels_per_call:g} kernels: "
+            + ", ".join(f"{k[:40]} x{v / calls:g}" for k, v in
+                        records.items())
+            + f"), bound {bound_ms:.6f} ms, plain {plain_ms:.4f} ms  "
+            f"[{card}]")
+        rows.append(row)
+    return rows
+
+
+def phase_tree_kernel(card: str):
+    """Kernel 1 on the main paths' trees: one launch a call, and the
+    profiler sees the fused kernel and nothing else (at most one kernel a
+    call: a profiler session now and then drops a record, see
+    ``_profile_kernels``)."""
+    rows = [r for i, name in enumerate(TREES)
+            for r in _tree_case(name, card, 300 + i)]
+    for r in rows:
+        check(r["launches_per_call"] == 1 and 0 < r["kernels_per_call"] <= 1
+              and all("fused_leaves_kernel" in k for k in r["kernels"]),
+              f"fused tree {r['tree']} ({r['feed']}): "
+              f"{r['launches_per_call']} launches, kernels a call "
+              f"{r['kernels']}, expected the fused kernel once")
+    return rows
+
+
+def _per_call_us(fn, calls: int = 10_000) -> float:
+    """Host microseconds per ``fn()`` over ``calls`` back-to-back calls
+    (synchronised every 1,000, outside the clock's sum)."""
+    import torch
+
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // 1000):
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e6 * total / calls
+
+
+def phase_host_parts(card: str):
+    """The host cost of a wrapper call by parts, at the paper's shapes:
+    each piece alone over 10,000 calls.  The old launch path's pieces (a
+    device context, a Stream object, the weights' cast launch) beside the
+    new one's (the raw stream handle of the current card)."""
+    import torch
+
+    from repro_torch.core import plane as pln
+    from repro_torch.kernels import _build, fused_prox as fp, ops
+    from repro_torch.kernels import plane_ops as po
+    from repro_torch.utils import tree as tu
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.randn(30, 128, dtype=torch.float64, device=dev)
+    w = torch.rand(30, dtype=torch.float32, device=dev)
+    out = torch.empty(128, dtype=torch.float64, device=dev)
+    lib = _build.load_library()
+    stream = _build.stream_handle(dev.index)
+    tree = {"w": torch.randn(30, 20, dtype=torch.float64, device=dev),
+            "b": torch.randn(30, dtype=torch.float64, device=dev)}
+    spec = pln.SegmentSpec.from_tree(tree, batch_dims=1, tile=1)
+    plane = pln.flatten(spec, tree)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "checks (commit)": lambda: (po._check_plane("weighted_commit", x, w),
+                                    po._check_rows("weighted_commit", x, w)),
+        "torch.empty": lambda: torch.empty((128,), dtype=torch.float64,
+                                           device=dev),
+        "old: w.to(float64).contiguous() (a cast launch)":
+            lambda: w.to(torch.float64).contiguous(),
+        "old: with torch.cuda.device(dev)": context,
+        "old: torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "new: current_device() + raw stream handle":
+            lambda: (torch.cuda.current_device(),
+                     _build.stream_handle(dev.index)),
+        "ctypes call (the commit's launch)":
+            lambda: lib.repro_weighted_commit(
+                1, 0, x.data_ptr(), w.data_ptr(), out.data_ptr(), 30, 128,
+                128, stream),
+        "new: weighted_commit_2d, whole": lambda: po.weighted_commit_2d(x, w),
+        "tree: tu.tree_flatten (one tree)": lambda: tu.tree_flatten(tree),
+        "tree: pln.flatten (one tree, a cat launch; the old path made 3)":
+            lambda: pln.flatten(spec, tree),
+        "tree: pln.unflatten (one plane)": lambda: pln.unflatten(spec, plane),
+        "new: ops.fused_local_update paper tree, whole":
+            lambda: ops.fused_local_update(tree, tree, tree, ETA, THRESH,
+                                           batch_dims=1),
+    }
+    us = {}
+    for name, fn in parts.items():
+        us[name] = _per_call_us(fn)
+        log(f"[host] {name}: {us[name]:.2f} us a call  [{card}]")
+    return us
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -1697,17 +1983,120 @@ def phase_gemma_full(card: str):
             "serve_tokens": {r.id: r.tokens.tolist() for r in served}}
 
 
-def main() -> None:
+# -- A/B against an earlier tree -------------------------------------------------
+
+AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
+
+
+def ab_part(card: str) -> dict:
+    """The measurements of one tree for an A/B (the package on
+    ``sys.path`` is that tree's, its kernels built from its sources):
+    kernel 1 on phase 2's planes and on the two trees, kernel 4 at its
+    record's shapes, phase 3's
+    500-round paths, phase 4's wide round (s/round, busy, cat kernels) and
+    phase 7b's commits."""
+    import torch
+
+    build = phase_build()
+    planes = phase_kernels(card)
+    trees = [r for i, name in enumerate(TREES)
+             for r in _tree_case(name, card, 300 + i)]
+    commits = phase_commit_kernel(card, AB_COMMIT_CASES)
+    paper = {}
+    for tau in (10, 1):
+        t0 = time.perf_counter()
+        h = _fig2_run(tau, "cuda", 500, 25)
+        torch.cuda.synchronize()
+        paper[f"tau{tau}_s_per_round"] = (time.perf_counter() - t0) / 500
+        paper[f"tau{tau}_final_optimality"] = h.optimality[-1]
+    from repro_torch.exec import EngineConfig, RoundEngine
+
+    w = _wide_problem()
+    eng = RoundEngine(w["alg"], w["grad_fn"], 30, EngineConfig(
+        chunk_rounds=4), device="cuda")
+    s_round, round_ms, by_name = _time_and_profile(eng, w["params0"],
+                                                   w["supplier"])
+    wide = {"s_per_round": s_round, "round_ms": round_ms,
+            "device_busy_ms": sum(by_name.values()),
+            "fused_ms": sum(v for k, v in by_name.items() if any(
+                f in k for f in _ROUND_PARTS["fused_local_update"])),
+            "cat_kernels": {k[:60]: (_time_and_profile.counts[k], v)
+                            for k, v in by_name.items()
+                            if "cat" in k.lower()}}
+    del w, eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _async_paper_run("cuda", True, 200, 25)
+    torch.cuda.synchronize()
+    asyn = {"b_s_per_commit": (time.perf_counter() - t0) / 200}
+    out = {"build_s": build["seconds"], "planes": planes, "trees": trees,
+           "commits": commits,
+           "paper": paper, "wide": wide, "async": asyn}
+    log(f"[ab] paper {paper}; wide {wide}; async (b) {asyn}  [{card}]")
+    return out
+
+
+def run_ab(parent: Path) -> None:
+    """Parent, this tree, this tree, parent: each in its own process with
+    its own package and kernels; the results side by side in
+    ``chiprun_out/ab.json``."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    runs = []
+    for i, (label, root) in enumerate((("parent", parent), ("tree", ROOT),
+                                       ("tree", ROOT), ("parent", parent))):
+        dest = out_dir / f"ab_{i}_{label}.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--ab-part", str(root), str(dest)],
+                              timeout=900)
+        check(proc.returncode == 0, f"A/B run {i} ({label}) failed")
+        runs.append({"label": label, **json.loads(dest.read_text())})
+    (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
+    for r in runs:
+        planes = ", ".join(
+            f"{tuple(p['shape'])} {p['dtype']} {p['ms']:.4f} ms (device "
+            f"{p['device_ms']:.4f})" for p in r["planes"])
+        log(f"[ab] {r['label']}: fused planes {planes}")
+        trees = ", ".join(
+            f"{t['tree']}/{t['feed']} {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}, {t['kernels_per_call']:g} kernels)"
+            for t in r["trees"])
+        commits = ", ".join(
+            f"{tuple(c['shape'])} {c['dtype']} w {c['weights']}: "
+            f"{c['ms']:.4f} ms (device {c['device_ms']:.4f}, "
+            f"{c['kernels_per_call']:g} kernels; mv {c['library_ms']:.4f} / "
+            f"{c['library_device_ms']:.4f}"
+            + (f"; loads {c['loads_ms']:.4f} / {c['loads_device_ms']:.4f}"
+               if c.get("loads_ms") is not None else "") + ")"
+            for c in r["commits"])
+        log(f"[ab] {r['label']}: fused {trees}")
+        log(f"[ab] {r['label']}: commit {commits}")
+        log(f"[ab] {r['label']}: paper {r['paper']}; wide "
+            f"{ {k: v for k, v in r['wide'].items()} }; {r['async']}")
+
+
+def main(argv) -> None:
+    """``chip_smoke.py``: every phase.  ``chip_smoke.py --ab PARENT``: the
+    A/B of this tree against the checkout at PARENT (see :func:`run_ab`);
+    ``--ab-part TREE OUT``: one side of it."""
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
              "CUDA card")
-    src = ROOT / "src"
+    tree = Path(argv[1]) if argv[:1] == ["--ab-part"] else ROOT
+    src = tree / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
-        fail(f"no src/repro_torch next to {Path(__file__).name}: run it "
+        fail(f"no src/repro_torch in {tree}: run {Path(__file__).name} "
              "from a checkout of the repository")
     sys.path.insert(0, str(src))
+    if argv[:1] == ["--ab"]:
+        run_ab(Path(argv[1]).resolve())
+        return
+    if argv[:1] == ["--ab-part"]:
+        card = phase_device()
+        Path(argv[2]).write_text(json.dumps(ab_part(card), indent=1))
+        return
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     # and compiles in this process: no pool of compile workers to outlive it
     cache = ROOT / "build"
@@ -1721,6 +2110,8 @@ def main() -> None:
     rows = phase_kernels(card)
     plane_rows, topk = phase_plane_kernels(card)
     commit_rows = phase_commit_kernel(card)
+    tree_rows = phase_tree_kernel(card)
+    host = phase_host_parts(card)
     main = phase_main_path(card)
     wide_row = next(r for r in rows if r["shape"] == [30, 112_395])
     wide, ctx = phase_wide(card, wide_row["ms"])
@@ -1748,17 +2139,21 @@ def main() -> None:
                 "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms")}
 
-    def plane_row(kernel):  # the wide compressed path's plane
+    def plane_row(kernel, weights="float64"):  # the wide paths' plane
         return next(r for r in plane_rows + commit_rows
-                    if r["kernel"] == kernel and r["shape"] == [30, 112_512])
+                    if r["kernel"] == kernel and r["shape"] == [30, 112_512]
+                    and r.get("weights", "float64") == weights)
 
+    # kernel 1 at the wide tree as the tau loop feeds it
+    wide_tree = next(r for r in tree_rows
+                     if r["tree"] == "wide" and r["feed"] == "views")
     plane_src = "src/repro_torch/kernels/csrc/plane_ops.cu"
     summary = {
         "card": card,
         "kernels": [
             entry("fused_local_update",
                   "src/repro_torch/kernels/csrc/fused_prox.cu",
-                  "src/repro/kernels/fused_prox.py:29", wide_row),
+                  "src/repro/kernels/fused_prox.py:29", wide_tree),
             entry("threshold_select", plane_src,
                   "src/repro/kernels/plane_ops.py:41",
                   plane_row("threshold_select")),
@@ -1766,7 +2161,7 @@ def main() -> None:
                   plane_row("quantize")),
             entry("weighted_commit", plane_src,
                   "src/repro/kernels/plane_ops.py:100",
-                  plane_row("weighted_commit")),
+                  plane_row("weighted_commit", "float32")),
             entry("flash_attention",
                   "src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:30", flash_rows[0]),
@@ -1775,6 +2170,8 @@ def main() -> None:
         "kernel_cases": rows,
         "plane_kernel_cases": plane_rows,
         "commit_kernel_cases": commit_rows,
+        "tree_kernel_cases": tree_rows,
+        "host_us_per_call": host,
         "torch_topk": topk,
         "main_path": main,
         "wide": wide,
@@ -1800,4 +2197,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -6,9 +6,14 @@ objects are linked into one shared library with a plain C interface, loaded
 with ``ctypes``.  No PyTorch headers are involved, so the build takes
 seconds.  It runs at first use, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-under a name keyed by a hash of the sources and every source's flags, so
-an edited source or flag is rebuilt and a stale library is never loaded.
-Nothing is built when this module is imported.
+under a name keyed by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and every source's flags, so an edited source, header or
+flag is rebuilt and a stale library is never loaded.  Nothing is built when
+this module is imported.
+
+:func:`launch` is the one launch path of the plane kernels: it calls a
+library entry on the current stream of the tensor's card and raises on a
+refused launch.
 
 The plane kernels are bitwise equal to their plain versions only without
 FMA contraction (``-fmad=false``); the flash-attention kernel is held to a
@@ -76,6 +81,9 @@ def _digest(sources) -> str:
         h.update(src.name.encode())
         h.update(" ".join(source_flags(src)).encode())
         h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -176,9 +184,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
     fn = lib.repro_fused_local_update
-    fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_int64,
-                   ctypes.c_double, ctypes.c_double, vp]
+    fn.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int64, vp]
     fn.restype = ctypes.c_int
+    lib.repro_fused_table_bytes.argtypes = []
+    lib.repro_fused_table_bytes.restype = ctypes.c_int
     fn = lib.repro_threshold_select
     fn.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int64, ctypes.c_int64,
                    vp]
@@ -187,10 +196,10 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int, vp]
     fn.restype = ctypes.c_int
-    fn = lib.repro_weighted_commit
-    fn.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int64, ctypes.c_int64,
-                   vp]
-    fn.restype = ctypes.c_int
+    for fn in (lib.repro_weighted_commit, lib.repro_weighted_commit_loads):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, vp, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, vp]
+        fn.restype = ctypes.c_int
     fn = lib.repro_flash_attention
     fn.argtypes = ([ctypes.c_int, vp, vp, vp, vp] + [ctypes.c_int64] * 12
                    + [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [vp])
@@ -199,3 +208,37 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int] * 4 + [vp] * 3
     fn.restype = ctypes.c_int
     return lib
+
+
+def on_card(name: str, t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {t.device}")
+    return True
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle of the current CUDA stream on card ``index``."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(name: str, entry, device, *args) -> None:
+    """Call the library function ``entry`` with ``args`` and the current
+    stream of ``device``, entering that card's context only when it is not
+    the current one; raises if the entry returns a nonzero (refused)
+    launch code.  No device work besides the launch."""
+    import torch
+
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = entry(*args, stream_handle(index))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, stream_handle(index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -85,6 +85,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 struct Args {
@@ -151,41 +153,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 constexpr int kThreads = 128;  // the SIMT kernel's block
 
-// -- Hopper primitives --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed (no trap
-// on a long wait: a trap in the kernel keeps ptxas from honouring
-// setmaxnreg, and the consumers spill)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
+// -- Hopper primitives (the mbarriers: hopper.cuh) ------------------------------
 
 // one box of a 4-d tensor map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -503,7 +471,7 @@ __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
       mbar_init(k_empty(s), 2 * 128);
       mbar_init(v_empty(s), 2 * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

@@ -1,37 +1,25 @@
 """Pytree, plane and attention entry points of the port's kernels.
 
 The counterpart of :mod:`repro.kernels.ops` for the fused local update,
-the flat-plane compression kernels and flash attention.  For the fused local update the
-whole tree is flattened onto ONE contiguous plane (:mod:`repro_torch.core.plane`,
-no lane padding: the CUDA kernel masks its own ragged tail) and updated by
-one kernel call.  With ``batch_dims=1`` a client-stacked tree becomes the
-``(n_clients, d_pad)`` plane, so one launch covers every client -- the
-reference's ``vmap`` over clients (``repro/core/algorithm.py:185-188``) is
-not needed.  Mixed-dtype trees cannot share a plane and raise.
+the flat-plane compression kernels and flash attention.  The fused local
+update reads the whole tree's leaves in place in one kernel launch
+(:func:`repro_torch.kernels.fused_prox.fused_local_update`: no flatten
+before it) and writes two planes whose leaves are views.  With
+``batch_dims=1`` the client axis is the planes' rows, so one launch covers
+every client -- the reference's ``vmap`` over clients
+(``repro/core/algorithm.py:185-188``) is not needed.  Mixed-dtype trees
+cannot share a plane and raise.
 """
 from __future__ import annotations
 
-from repro_torch.core import plane as pln
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_prox, plane_ops
-from repro_torch.utils import tree as tu
 
 
-def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
-                       batch_dims: int = 0):
-    """Fused Algorithm-1 local update + L1 prox over a whole pytree.
-
-    Returns ``(z_hat_next, z_next)`` with the structure, shapes and dtype of
-    ``z_hat``; ``grads`` and ``c`` are cast to that dtype first.  Each
-    output leaf is a view of one output plane.
-    """
-    spec = pln.SegmentSpec.from_tree(z_hat, batch_dims=batch_dims, tile=1)
-    dt = spec.dtype
-    zf = pln.flatten(spec, z_hat).contiguous()
-    gf = pln.flatten(spec, tu.tree_map(lambda g: g.to(dt), grads)).contiguous()
-    cf = pln.flatten(spec, tu.tree_map(lambda x: x.to(dt), c)).contiguous()
-    zh2, z2 = fused_prox.fused_local_update_2d(zf, gf, cf, eta, thresh)
-    return pln.unflatten(spec, zh2), pln.unflatten(spec, z2)
+# Fused Algorithm-1 local update + L1 prox over a whole pytree: returns
+# ``(z_hat_next, z_next)`` with ``z_hat``'s structure, shapes and dtype, each
+# leaf a view of one output plane (one kernel launch on the card).
+fused_local_update = fused_prox.fused_local_update
 
 
 def fused_local_update_step(reg, eta: float, t: int, z_hat, grads, c, *,

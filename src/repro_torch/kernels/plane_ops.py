@@ -4,7 +4,8 @@ versions.
 The port of the Pallas TPU kernels of ``repro/kernels/plane_ops.py``
 (``_threshold_kernel`` / ``threshold_select_3d``, ``_quantize_kernel`` /
 ``quantize_3d`` and ``_commit_kernel`` / ``weighted_commit_3d``).  All run
-over a contiguous ``(n_rows, d_pad)`` plane -- one row per client, or one
+over an ``(n_rows, d_pad)`` plane (contiguous for the select and the
+quantizer; the commit reads strided rows) -- one row per client, or one
 row for a broadcast -- with a per-row scalar:
 
   * :func:`threshold_select_2d` -- ``out = |x| >= thresh[row] ? x : 0``, the
@@ -16,9 +17,14 @@ row for a broadcast -- with a per-row scalar:
     in row order: the client-axis reduction of the buffered commit's server
     half (``repro.sched.aggregator``).
 
-The kernels (``csrc/plane_ops.cu``) make one grid-stride launch each over
-the whole plane.  float32 computes in float32, float64 in float64, bfloat16
-and float16 in float32 with one rounding at the store.  The plain versions
+The kernels are in ``csrc/plane_ops.cu``.  The select and the quantizer
+make one grid-stride launch each over the whole plane.  The commit
+stages each block's column segment of every row through shared memory with
+bulk asynchronous copies and adds the rows in order; it reads the weights
+in the caller's dtype (float32 or float64) and converts them in the kernel
+as ``Tensor.to`` does, so the wrapper launches nothing else.  float32
+computes in float32, float64 in float64, bfloat16 and float16 in float32
+with one rounding at the store.  The plain versions
 spell out the ``repro/kernels/ref.py`` expressions in that compute type, and
 the kernels equal them bitwise on the card.  The thresholds take ``x``'s
 dtype, as ``ref.plane_threshold_select`` casts them (the Pallas kernel
@@ -30,7 +36,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_prox import _DTYPE_CODES
+
+# the commit kernel's weight dtypes (csrc/plane_ops.cu: w_dtype)
+_WEIGHT_CODES = {torch.float32: 0, torch.float64: 1}
 
 
 def _work_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -97,29 +107,6 @@ def _check_rows(name: str, x, per_row):
                          f"expected, got {tuple(per_row.shape)}")
 
 
-def _launch(name: str, entry: str, x, *args):
-    """Launch ``entry`` of the kernel library on ``x``'s device and stream;
-    raises on a refused launch."""
-    from repro_torch.kernels import _build
-
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
-def _kernel_device(name: str, x) -> bool:
-    """True for a CUDA plane (launch the kernel), False for a CPU plane (run
-    the plain version); any other device raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {x.device}")
-    return True
-
-
 def threshold_select_2d(x, thresh):
     """Keep ``x[i, j]`` where ``|x[i, j]| >= thresh[i]``, else 0, over an
     ``(n_rows, d_pad)`` plane; ``thresh`` is ``(n_rows,)`` of any float
@@ -131,15 +118,16 @@ def threshold_select_2d(x, thresh):
     """
     _check_plane("threshold_select", x, thresh)
     _check_rows("threshold_select", x, thresh)
-    if not _kernel_device("threshold_select", x):
+    if not _build.on_card("threshold_select", x):
         return threshold_select_plain(x, thresh)
     if not x.is_contiguous():
         raise ValueError("threshold_select_2d needs a contiguous plane")
     t = thresh.to(x.dtype).contiguous()
     out = torch.empty_like(x)
-    _launch("threshold_select", "repro_threshold_select",
-            x, _DTYPE_CODES[x.dtype], x.data_ptr(), t.data_ptr(),
-            out.data_ptr(), x.shape[0], x.shape[1])
+    _build.launch("threshold_select",
+                  _build.load_library().repro_threshold_select, x.device,
+                  _DTYPE_CODES[x.dtype], x.data_ptr(), t.data_ptr(),
+                  out.data_ptr(), x.shape[0], x.shape[1])
     threshold_select_2d.launches += 1
     return out
 
@@ -166,15 +154,16 @@ def quantize_2d(x, u, scale, levels: int):
     levels = int(levels)
     if levels < 1:
         raise ValueError(f"quantize: levels must be >= 1, got {levels}")
-    if not _kernel_device("quantize", x):
+    if not _build.on_card("quantize", x):
         return quantize_plain(x, u, scale, levels)
     if not (x.is_contiguous() and u.is_contiguous()):
         raise ValueError("quantize_2d needs a contiguous plane and draws")
     s = scale.to(_work_dtype(x.dtype)).contiguous()
     out = torch.empty_like(x)
-    _launch("quantize", "repro_quantize",
-            x, _DTYPE_CODES[x.dtype], x.data_ptr(), u.data_ptr(),
-            s.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], levels)
+    _build.launch("quantize", _build.load_library().repro_quantize, x.device,
+                  _DTYPE_CODES[x.dtype], x.data_ptr(), u.data_ptr(),
+                  s.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+                  levels)
     quantize_2d.launches += 1
     return out
 
@@ -182,29 +171,41 @@ def quantize_2d(x, u, scale, levels: int):
 quantize_2d.launches = 0
 
 
-def weighted_commit_2d(x, w):
+def weighted_commit_2d(x, w, *, loads: bool = False):
     """The weighted row sum ``sum_i w[i] * x[i]`` of an ``(n_rows, d_pad)``
-    plane, rows added in order; ``w`` is ``(n_rows,)`` of any float dtype
-    (cast to the compute type first).  Returns ``(d_pad,)`` in ``x``'s
-    dtype.
+    plane, rows added in order; ``w`` is ``(n_rows,)`` of any float dtype,
+    converted to the compute type as ``Tensor.to`` converts it.  Returns
+    ``(d_pad,)`` in ``x``'s dtype.  The plane's rows may be strided; its
+    columns must be contiguous.
 
     CPU tensors take :func:`weighted_commit_plain`.  CUDA tensors launch
     the kernel (counted in ``weighted_commit_2d.launches``) or raise;
-    nothing falls back.
+    nothing falls back.  float32 and float64 weights go to the kernel as
+    they are; other weight dtypes are widened to float32 first (exact).
+    ``loads=True`` reads an aligned plane with plain loads instead of the
+    bulk-copy ring (``repro_weighted_commit_loads``): the same bits, a
+    measured alternative that no path of the port takes.
     """
     _check_plane("weighted_commit", x, w)
     _check_rows("weighted_commit", x, w)
     if x.shape[0] < 1:
         raise ValueError("weighted_commit needs at least one row")
-    if not _kernel_device("weighted_commit", x):
+    if not _build.on_card("weighted_commit", x):
         return weighted_commit_plain(x, w)
-    if not x.is_contiguous():
-        raise ValueError("weighted_commit_2d needs a contiguous plane")
-    wt = w.to(_work_dtype(x.dtype)).contiguous()
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError("weighted_commit_2d needs rows with contiguous "
+                         "columns")
+    if w.dtype not in _WEIGHT_CODES:
+        w = w.to(torch.float32)
+    if not w.is_contiguous():
+        w = w.contiguous()
     out = torch.empty((x.shape[1],), dtype=x.dtype, device=x.device)
-    _launch("weighted_commit", "repro_weighted_commit",
-            x, _DTYPE_CODES[x.dtype], x.data_ptr(), wt.data_ptr(),
-            out.data_ptr(), x.shape[0], x.shape[1])
+    lib = _build.load_library()
+    entry = (lib.repro_weighted_commit_loads if loads
+             else lib.repro_weighted_commit)
+    _build.launch("weighted_commit", entry, x.device, _DTYPE_CODES[x.dtype],
+                  _WEIGHT_CODES[w.dtype], x.data_ptr(), w.data_ptr(),
+                  out.data_ptr(), x.shape[0], x.shape[1], x.stride(0))
     weighted_commit_2d.launches += 1
     return out
 

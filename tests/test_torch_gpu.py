@@ -250,6 +250,128 @@ def test_plane_async_commit_launches_the_commit_kernel(cuda):
                           out["cpu"][0].x_bar["w"], rtol=1e-9, atol=1e-12)
 
 
+# -- the redesigned commit (kernel 4) and leaf-table update (kernel 1) --------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(30, 128), (30, 112_512), (7, 1001),
+                                   (1, 4096), (300, 2048), (33, 16)])
+@pytest.mark.parametrize("loads", [False, True], ids=["ring", "loads"])
+def test_commit_weight_dtypes_and_ring_on_card(cuda, w_dtype, dtype, shape,
+                                               loads):
+    """The commit kernel in the caller's weight dtype, bitwise equal to the
+    plain version (which casts first): the paper and wide planes, an odd
+    width (scalar kernel), one row, 300 rows (the ring walked ten times, or
+    ten passes of plain loads), 33 rows (a slot of one row); one launch,
+    nothing else."""
+    x, _ = _plane(cuda, shape, dtype, seed=shape[0] + shape[1])
+    k = min(len(_SPECIALS), shape[1])
+    x[shape[0] // 2, :k] = torch.tensor(_SPECIALS[:k], dtype=dtype)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = (torch.rand(shape[0], generator=gen, device=cuda,
+                    dtype=torch.float64) / 3 + 0.5).to(w_dtype)
+    w[::4] = 0.0
+    before = plane_ops.weighted_commit_2d.launches
+    got = plane_ops.weighted_commit_2d(x, w, loads=loads)
+    torch.cuda.synchronize()
+    assert plane_ops.weighted_commit_2d.launches == before + 1
+    assert _bits_equal(got, plane_ops.weighted_commit_plain(x, w))
+
+
+@pytest.mark.gpu
+def test_commit_reads_strided_and_offset_rows_on_card(cuda):
+    base, _ = _plane(cuda, (30, 1040), torch.float64, seed=5)
+    w = torch.rand(30, device=cuda, dtype=torch.float32)
+    for x in (base[:, :1024], base[:, 16:1040], base[:, 1:1025],
+              base[::3, :512]):
+        assert _bits_equal(plane_ops.weighted_commit_2d(x, w[:x.shape[0]]),
+                           plane_ops.weighted_commit_plain(x, w[:x.shape[0]]))
+    with pytest.raises(ValueError, match="contiguous"):
+        plane_ops.weighted_commit_2d(base[:, :64].t(), torch.ones(64,
+                                                                 device=cuda))
+    with pytest.raises(ValueError, match="per-row"):
+        plane_ops.weighted_commit_2d(base, w[:3])
+    with pytest.raises(ValueError, match="dtype"):
+        plane_ops.weighted_commit_2d(base.int(), w)
+
+
+def _leaf_tree(cuda, widths, n, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    t = {f"l{i:03d}": torch.randn((n, w), generator=gen, device=cuda,
+                                  dtype=torch.float64).to(dtype)
+         for i, w in enumerate(widths)}
+    first = t["l000"]
+    k = min(first.shape[1], 4)
+    first[0, :k] = torch.tensor([float("nan"), -0.0, float("inf"), THRESH][:k])
+    return t
+
+
+def _tree_plain(zh, g, c):
+    spec = pln.SegmentSpec.from_tree(zh, batch_dims=1, tile=1)
+    planes = [pln.flatten(spec, t).contiguous() for t in (zh, g, c)]
+    a, b = fused_prox.fused_local_update_plain(*planes, ETA, THRESH)
+    return pln.unflatten(spec, a), pln.unflatten(spec, b)
+
+
+def _one_launch_equals_plain(zh, g, c):
+    before = (fused_prox.fused_local_update_2d.launches,
+              fused_prox.fused_local_update_2d.copies)
+    got = ops.fused_local_update(zh, g, c, ETA, THRESH, batch_dims=1)
+    exp = _tree_plain(zh, g, c)
+    torch.cuda.synchronize()
+    assert (fused_prox.fused_local_update_2d.launches,
+            fused_prox.fused_local_update_2d.copies) == (before[0] + 1,
+                                                         before[1])
+    for a, b in zip(got, exp):
+        for k in b:
+            assert _bits_equal(a[k], b[k]), k
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=str)
+@pytest.mark.parametrize("widths", [(20, 1), (112_394, 1), (3, 7, 1, 4099),
+                                    tuple((i * 7) % 13 + 1
+                                          for i in range(200))],
+                         ids=["paper", "wide", "ragged", "200 leaves"])
+def test_leaf_table_update_is_one_launch_on_card(cuda, dtype, widths):
+    """Contiguous leaves, then views of the previous output planes with c
+    broadcast from one row (the tau loop): one launch, no copy, bitwise."""
+    zh, g, c = (_leaf_tree(cuda, widths, 30, dtype, s) for s in range(3))
+    zh2, _ = _one_launch_equals_plain(zh, g, c)
+    c_row = {k: v[5] for k, v in c.items()}
+    cb = {k: v[None].expand(30, *v.shape) for k, v in c_row.items()}
+    _one_launch_equals_plain(zh2, g, cb)
+
+
+@pytest.mark.gpu
+def test_leaf_table_unaligned_segments_on_card(cuda):
+    """Leaves starting 8 bytes off 16 and rows of an odd stride take the
+    scalar path; still one launch and bitwise."""
+    base = torch.randn(30, 1027, device=cuda, dtype=torch.float64)
+    zh = {"a": base[:, 1:1001], "b": base[:, 1001:1004],
+          "c": base[:, 1004:1027]}
+    g = {k: torch.randn_like(v) for k, v in zh.items()}
+    c = {k: torch.randn_like(v) for k, v in zh.items()}
+    _one_launch_equals_plain(zh, g, c)
+
+
+@pytest.mark.gpu
+def test_leaf_table_refuses_what_it_does_not_take(cuda):
+    a = {"w": torch.zeros(3, 4, device=cuda)}
+    with pytest.raises(ValueError, match="different devices"):
+        ops.fused_local_update(a, {"w": torch.zeros(3, 4)}, a, ETA, THRESH)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.fused_local_update({"w": a["w"].int()}, a, a, ETA, THRESH)
+    with pytest.raises(ValueError, match="does not match"):
+        ops.fused_local_update(a, {"w": torch.zeros(3, 5, device=cuda)}, a,
+                               ETA, THRESH, batch_dims=1)
+
+
 # -- flash attention ----------------------------------------------------------
 
 _FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
