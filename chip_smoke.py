@@ -25,6 +25,12 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   tau = 10 and tau = 1, 500 rounds: the kernel runs exactly
                   rounds * tau times, and the optimality sequence matches the
                   same run on the CPU (plain step) at rtol 1e-6 above 1e-9;
+                  then Fig. 2's baselines FedDA, FedMid and FastFedDA at tau
+                  10 and 1 with Fig. 2's step sizes, 200 rounds each on the
+                  card and on the CPU, optimality equal the same way and no
+                  kernel launched; and DProx at tau = 1 (kernel 1) == FedDA
+                  (plain ops) on the card, x_bar at atol 1e-12 after 10
+                  rounds;
   4. wide      -- the same model and generator at d = 112,394 (the federated
                   state width of the paper's Fig. 4 CNN), features cached on
                   the card, tau = 10 for 20 rounds: launches == rounds * tau,
@@ -103,6 +109,23 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   ms per token, and for one profiled decode step and
                   prefills of 4,608 and 1,024 tokens the device busy time,
                   the idle share and the kernel's share of busy time;
+ 13. Fig. 4    -- run after phase 9, before phase 10 (no torch.compile before
+                  it): the paper's CNN (d = 112,394, float32) on the
+                  procedural MNIST split over 10 clients, minibatches of 10,
+                  L1 1e-4, eta 0.005, params0 from seed 0 on the CPU. (a)
+                  DProx and FedDA, tau 5, eta_g 1.5, 2 rounds on the card and
+                  on the CPU port: x_bar within 1e-4 of max |x_bar|, TF32 off
+                  inside the model (asserted; the logits with TF32 allowed
+                  are printed beside); (b) the reference test's gate
+                  (tests/test_paper_experiments.py:43-65): 3,000 / 800
+                  images, tau 5, 40 rounds, DProx accuracy > 0.7 and >=
+                  FedDA's - 0.02; (c) Fig. 4 in full (fig4_cnn.py):
+                  12,000 / 2,500 images, 150 rounds, tau 5 and 10, DProx and
+                  FedDA at eta_g 1.0, 11 evals: final and best test accuracy
+                  and s/round; kernel 1 launched rounds * tau times in every
+                  DProx run, never in a FedDA run, no copy; (d) one profiled
+                  DProx round at tau 10: busy time, idle share, top kernels
+                  and kernel 1's share;
  12. flex      -- the library yardstick of phase 10's softcap cases, which
                   SDPA cannot compute: torch.compile'd flex_attention (the
                   softcap as score_mod, the causal window as the block mask)
@@ -127,7 +150,8 @@ with NaN, +-0 and +-inf injected and zero weights for undelivered clients,
 and times ``torch.mv(buf.t(), w)`` and the plain-load commit kernel
 (``weighted_commit_2d(..., loads=True)``, bitwise checked too) beside it.  It runs the fused update's
 tree entry (``ops.fused_local_update``) on the paper tree {w: (30, 20),
-b: (30,)} and the wide tree {w: (30, 112,394), b: (30,)} float64, from
+b: (30,)} and the wide tree {w: (30, 112,394), b: (30,)} float64, and on
+the Fig. 4 CNN's 10-leaf tree (2-D to 5-D leaves, 10 clients, float32), from
 contiguous leaves and from views of a previous output plane: bitwise
 equal to the plain version, one launch and one kernel a call (profiler),
 no copy.  Then the host cost of a wrapper call by parts (10,000 calls of
@@ -140,7 +164,7 @@ paths, phase 4's wide round and phase 7b's commits; the results go to
 ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9 and 11 and read just after; no path may
+before each path of phases 3-9, 11 and 13 and read just after; no path may
 copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -531,11 +555,29 @@ def phase_plane_kernels(card: str):
 
 # -- phase 3 ------------------------------------------------------------------
 
-def _fig2_run(tau: int, device: str, rounds: int, eval_every: int,
-              transport=None, draws=None):
-    """The Fig. 2 run; with ``transport`` its uplink goes through it on the
-    flat plane (``draws``: the engine's draw source)."""
+# Fig. 2's baselines (benchmarks/fig2_fullgrad.py:37-42)
+FIG2_BASELINES = ("fedda", "fedmid", "fast_fedda")
+
+
+def _fig2_alg(name: str, reg, tau: int, eta: float, eta_g: float):
+    """DProx or one of Fig. 2's baselines at Fig. 2's step sizes."""
+    from repro_torch.core import baselines
     from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.fed import simulator
+
+    if name == "dprox":
+        return simulator.DProxAlgorithm(reg, DProxConfig(tau=tau, eta=eta,
+                                                         eta_g=eta_g))
+    return {"fedda": lambda: baselines.FedDA(reg, tau, eta, eta_g),
+            "fedmid": lambda: baselines.FedMid(reg, tau, eta * eta_g, 1.0),
+            "fast_fedda": lambda: baselines.FastFedDA(
+                reg, tau, eta0=eta * eta_g, eta_g=eta_g)}[name]()
+
+
+def _fig2_run(tau: int, device: str, rounds: int, eval_every: int,
+              transport=None, draws=None, alg: str = "dprox"):
+    """The Fig. 2 run of ``alg``; with ``transport`` its uplink goes through
+    it on the flat plane (``draws``: the engine's draw source)."""
     from repro_torch.data.synthetic import make_round_batches
     from repro_torch.exec import EngineConfig, RoundEngine
     from repro_torch.fed import problems, simulator
@@ -545,8 +587,7 @@ def _fig2_run(tau: int, device: str, rounds: int, eval_every: int,
     eta_g = 15.0
     eta_tilde = 0.5 / L
     eta = eta_tilde / (eta_g * tau)
-    alg = simulator.DProxAlgorithm(reg, DProxConfig(tau=tau, eta=eta,
-                                                    eta_g=eta_g))
+    alg = _fig2_alg(alg, reg, tau, eta, eta_g)
     engine = None
     if transport is not None:
         engine = RoundEngine(alg, grad_fn, 30, EngineConfig(
@@ -617,7 +658,77 @@ def phase_main_path(card: str):
                             "seconds": secs, "final_optimality": opt[-1],
                             "final_optimality_cpu": ref[-1],
                             "max_rel_diff": max_rel}
+    out["baselines"] = _fig2_baselines(card)
+    out["tau1_dprox_vs_fedda"] = _tau1_dprox_is_fedda(card)
     return out
+
+
+def _fig2_baselines(card: str) -> dict:
+    """Fig. 2's baselines on the card and on the CPU, 200 rounds at tau 10
+    and 1: optimality equal at rtol 1e-6 above 1e-9; no kernel launched
+    (their prox runs through ``reg.prox``)."""
+    import torch
+
+    rounds, every = 200, 25
+    out = {}
+    for tau in (10, 1):
+        for name in FIG2_BASELINES:
+            reset_counts()
+            t0 = time.perf_counter()
+            h = _fig2_run(tau, "cuda", rounds, every, alg=name)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            check(counts == _expect(), f"{name} tau={tau}: launches {counts}"
+                  ", expected none")
+            h_cpu = _cpu_run(lambda: _fig2_run(tau, "cpu", rounds, every,
+                                               alg=name))
+            opt, ref = h.optimality, h_cpu.optimality
+            max_rel = _check_opt_match(f"{name} tau={tau}", opt, ref,
+                                       rounds // every + 1)
+            log(f"[main] fig2 {name} tau={tau}: {rounds} rounds in "
+                f"{secs:.2f} s, no kernel launched, final optimality "
+                f"{opt[-1]:.6e} (cpu {ref[-1]:.6e}, max rel diff "
+                f"{max_rel:.2e})  [{card}]")
+            out[f"{name}_tau{tau}"] = {
+                "rounds": rounds, "launches": counts, "seconds": secs,
+                "optimality": opt, "optimality_cpu": ref,
+                "max_rel_diff": max_rel}
+    return out
+
+
+def _tau1_dprox_is_fedda(card: str) -> dict:
+    """On the card, DProx at tau = 1 (kernel 1) and FedDA (plain ops) give
+    the same x_bar after 10 rounds, atol 1e-12 (the reference's
+    tests/test_algorithm.py:86)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_round_batches
+    from repro_torch.fed import problems
+
+    data, reg, grad_fn, _, params0, L = problems.logreg_problem(
+        device="cuda")
+    eta_g = 15.0
+    eta = 0.5 / L / eta_g
+    dprox, fedda = (_fig2_alg(n, reg, 1, eta, eta_g)
+                    for n in ("dprox", "fedda"))
+    rf, rf_da = dprox.make_round_fn(grad_fn), fedda.make_round_fn(grad_fn)
+    s, s_da = dprox.init(params0, 30), fedda.init(params0, 30)
+    rng = np.random.default_rng(0)
+    reset_counts()
+    for _ in range(10):
+        b = make_round_batches(data, 1, None, rng)
+        s, _ = rf(s, b)
+        s_da, _ = rf_da(s_da, b)
+    counts = read_counts()
+    check(counts == _expect(fused_local_update=10),
+          f"tau=1 dprox vs fedda: launches {counts}")
+    gap = max(float((s.x_bar[k] - s_da.x_bar[k]).abs().max())
+              for k in s.x_bar)
+    check(gap <= 1e-12, f"tau=1: dprox x_bar != fedda x_bar ({gap:.3e})")
+    log(f"[main] fig2 tau=1, 10 rounds on the card: dprox (kernel 1, 10 "
+        f"launches) == fedda (plain ops), max |dx_bar| {gap:.3e}  [{card}]")
+    return {"rounds": 10, "launches": counts, "max_abs_diff": gap}
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -1020,13 +1131,22 @@ def phase_commit_kernel(card: str, cases=COMMIT_CASES):
             for i, (shape, d, wd, off) in enumerate(cases)]
 
 
-# the fused local update on the trees of the main paths: the paper's
-# {w: (30, 20), b: (30,)} and the wide {w: (30, 112,394), b: (30,)}
-TREES = {"paper": 20, "wide": 112_394}
+# the Fig. 4 CNN's leaves (repro_torch.models.cnn, d = 112,394), in the
+# sorted-key order the kernel's table takes them
+CNN_LEAVES = {"conv1_b": (32,), "conv1_w": (3, 3, 1, 32), "conv2_b": (32,),
+              "conv2_w": (3, 3, 32, 32), "fc1_b": (64,),
+              "fc1_w": (7 * 7 * 32, 64), "fc2_b": (32,), "fc2_w": (64, 32),
+              "fc3_b": (10,), "fc3_w": (32, 10)}
+# the fused local update on the trees of the main paths, (clients, leaves,
+# dtype): the paper's {w: (30, 20), b: (30,)}, the wide {w: (30, 112,394),
+# b: (30,)} and the Fig. 4 CNN's 10 leaves over 10 clients
+TREES = {"paper": (30, {"w": (20,), "b": ()}, "float64"),
+         "wide": (30, {"w": (112_394,), "b": ()}, "float64"),
+         "cnn": (10, CNN_LEAVES, "float32")}
 
 
 def _tree_case(name: str, card: str, seed: int):
-    """``ops.fused_local_update`` on a float64 tree, fed twice: contiguous
+    """``ops.fused_local_update`` on one of ``TREES``, fed twice: contiguous
     leaves, then z_hat as views of the first call's output plane (as the
     tau loop feeds it).  Bitwise against the plain version on the
     flattened planes; per call the events ms, the device ms of every
@@ -1037,16 +1157,18 @@ def _tree_case(name: str, card: str, seed: int):
     from repro_torch.kernels import fused_prox as fp
     from repro_torch.kernels import ops
 
-    d = TREES[name]
+    n_rows, leaves, dt = TREES[name]
+    dtype = getattr(torch, dt)
+    d = sum(math.prod(s) for s in leaves.values())
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda: {"w": torch.randn((30, d), generator=gen, device="cuda",
-                                   dtype=torch.float64),
-                  "b": torch.randn((30,), generator=gen, device="cuda",
-                                   dtype=torch.float64)}
+    mk = lambda: {k: torch.randn((n_rows,) + s, generator=gen, device="cuda",
+                                 dtype=torch.float64).to(dtype)
+                  for k, s in leaves.items()}
     zh, g, c = mk(), mk(), mk()
-    zh["w"][0, :7] = torch.tensor([float("nan"), -0.0, float("inf"),
-                                   -float("inf"), THRESH, -THRESH, 0.0],
-                                  dtype=torch.float64)
+    first = next(iter(leaves))
+    zh[first].view(n_rows, -1)[0, :7] = torch.tensor(
+        [float("nan"), -0.0, float("inf"), -float("inf"), THRESH, -THRESH,
+         0.0], dtype=dtype)
 
     def plain(zh_):
         spec = pln.SegmentSpec.from_tree(zh_, batch_dims=1, tile=1)
@@ -1084,25 +1206,35 @@ def _tree_case(name: str, card: str, seed: int):
         device_ms = _device_ms(kern, calls)
         records = dict(_profile_kernels.records)
         kernels_per_call = sum(records.values()) / calls
-        n = 30 * (d + 1)
-        nbytes = 5 * n * 8
+        # the same with the 50 MB L2 flushed before each call (a 128 MB
+        # write): the tree's inputs are read from HBM
+        flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+        cold = _profile_kernels(lambda: (flush.zero_(), kern()), calls)
+        cold_ms = sum(v for k, v in cold.items()
+                      if "fused_leaves_kernel" in k) / calls
+        del flush
+        n = n_rows * d
+        nbytes = 5 * n * zh[first].element_size()
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = OPS_PER_ELEMENT * n / PEAK_OPS["float64"]
+        t_ops = OPS_PER_ELEMENT * n / PEAK_OPS[dt]
         bound_ms = 1e3 * max(t_bytes, t_ops)
-        row = {"tree": name, "feed": feed, "shape": [30, d + 1],
-               "dtype": "float64", "bitwise_equal": True,
+        row = {"tree": name, "feed": feed, "shape": [n_rows, d],
+               "leaves": len(leaves), "dtype": dt, "bitwise_equal": True,
                "max_abs_err": err, "launches_per_call": launches,
                "kernels_per_call": kernels_per_call,
                "kernels": {k[:60]: v / calls for k, v in records.items()},
-               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+               "ms": ms, "device_ms": device_ms,
+               "device_ms_l2_flushed": cold_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"[kernels] fused_local_update tree {name} {{w: (30, {d}), b: "
-            f"(30,)}} f64, {feed}: bitwise equal; {ms:.4f} ms a call "
+        log(f"[kernels] fused_local_update tree {name} ({n_rows} clients x "
+            f"{d}, {len(leaves)} leaves, {dt}), {feed}: bitwise equal; "
+            f"{ms:.4f} ms a call "
             f"(device {device_ms:.4f} ms in {kernels_per_call:g} kernels: "
             + ", ".join(f"{k[:40]} x{v / calls:g}" for k, v in
                         records.items())
-            + f"), bound {bound_ms:.6f} ms, plain {plain_ms:.4f} ms  "
+            + f"; {cold_ms:.4f} ms with the L2 flushed), bound "
+            f"{bound_ms:.6f} ms, plain {plain_ms:.4f} ms  "
             f"[{card}]")
         rows.append(row)
     return rows
@@ -1430,6 +1562,227 @@ def phase_cohort(card: str):
     return {"rounds": rounds, "launches": counts, "seconds": secs,
             "final_loss": loss[-1], "final_loss_cpu": loss_cpu[-1],
             "touched": touched, "store_bytes": nbytes}
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+# Fig. 4 (benchmarks/fig4_cnn.py, tests/test_paper_experiments.py:43-65):
+# L1 lam 1e-4, eta 0.005, minibatches of 10, 10 clients
+FIG4_LAM, FIG4_ETA, FIG4_B, FIG4_CLIENTS = 1e-4, 0.005, 10, 10
+# card vs CPU: max |dx_bar| / max |x_bar| after 2 rounds; measured on an
+# H100 80GB HBM3 (700 W): 7.4e-8 (DProx) and 3.7e-8 (FedDA)
+FIG4_GAP = 1e-6
+# (b) the reference test's (n_train, n_test, rounds); (c) fig4_cnn.py's
+# non-QUICK (n_train, n_test, rounds, eval every)
+FIG4_GATE = (3000, 800, 40)
+FIG4_FULL = (12_000, 2_500, 150, 15)
+
+
+def _fig4_data(n_train: int, n_test: int):
+    from repro_torch.data import mnist_like
+
+    tx, ty, sx, sy = mnist_like.generate(n_train=n_train, n_test=n_test,
+                                         seed=0)
+    return mnist_like.heterogeneous_split(tx, ty, sx, sy,
+                                          n_clients=FIG4_CLIENTS)
+
+
+def _fig4_engine(name: str, data, tau: int, eta_g: float, device: str,
+                 chunk_rounds: int = 1):
+    """DProx or FedDA on the CNN at Fig. 4's settings: (engine, params0 on
+    ``device`` -- built on the CPU from seed 0 and copied --, supplier)."""
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.core.baselines import FedDA
+    from repro_torch.core.prox import L1
+    from repro_torch.data import mnist_like
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import simulator
+    from repro_torch.models import cnn
+
+    reg = L1(lam=FIG4_LAM)
+    alg = (simulator.DProxAlgorithm(reg, DProxConfig(tau=tau, eta=FIG4_ETA,
+                                                     eta_g=eta_g))
+           if name == "dprox" else FedDA(reg, tau, FIG4_ETA, eta_g))
+    params0 = {k: v.to(device) for k, v in
+               cnn.init_params(0, device="cpu").items()}
+    eng = RoundEngine(alg, cnn.make_grad_fn(), FIG4_CLIENTS,
+                      EngineConfig(chunk_rounds=chunk_rounds), device=device)
+    supplier = (lambda r, rng: mnist_like.sample_round_batches(
+        data, tau, FIG4_B, rng))
+    return eng, params0, supplier
+
+
+def _fig4_run(name: str, data, tau: int, eta_g: float, rounds: int,
+              every: int):
+    """Fig. 4 through ``simulator.run`` on the card with the test accuracy
+    as ``eval_fn``: (history, seconds, launch counts)."""
+    import torch
+
+    from repro_torch.fed import simulator
+    from repro_torch.models import cnn
+
+    eng, params0, supplier = _fig4_engine(name, data, tau, eta_g, "cuda")
+    test_x = torch.as_tensor(data.test_x, device="cuda")
+    test_y = torch.as_tensor(data.test_y, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    h = simulator.run(eng.algorithm, params0, eng.grad_fn, supplier,
+                      FIG4_CLIENTS, rounds, eval_every=every, engine=eng,
+                      eval_fn=lambda p: {"test_acc": cnn.accuracy(
+                          p, test_x, test_y)})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    launches = rounds * tau if name == "dprox" else 0
+    check(counts == _expect(fused_local_update=launches),
+          f"fig4 {name} tau={tau}: launches {counts}, expected {launches} "
+          "of kernel 1 and no copy")
+    acc = h.extra["test_acc"]
+    check(len(acc) == rounds // every + 1
+          and all(math.isfinite(a) for a in acc + h.loss),
+          f"fig4 {name} tau={tau}: accuracies {acc}")
+    return h, secs, counts
+
+
+def _fig4_card_vs_cpu(card: str, data) -> dict:
+    """(a) DProx and FedDA, tau 5, eta_g 1.5, 2 rounds on the card and on
+    the CPU port: x_bar within FIG4_GAP; the convolutions run without TF32
+    (asserted, with the TF32 logits' gap beside for the record)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import cnn
+
+    with cnn.full_fp32():
+        check(not torch.backends.cudnn.allow_tf32
+              and torch.get_float32_matmul_precision() == "highest",
+              "fig4: TF32 is on inside cnn.full_fp32")
+    check(torch.backends.cudnn.allow_tf32,
+          "fig4: cnn.full_fp32 did not restore cuDNN's TF32 setting")
+    out = {"runs": {}}
+    for name in ("dprox", "fedda"):
+        states = {}
+        for device in ("cuda", "cpu"):
+            def run(device=device):
+                eng, params0, supplier = _fig4_engine(name, data, 5, 1.5,
+                                                      device)
+                return eng.run(eng.init(params0), supplier, 2, seed=0)[0]
+
+            reset_counts()
+            states[device] = (run() if device == "cuda" else _cpu_run(run))
+            if device == "cuda":
+                launches = 10 if name == "dprox" else 0
+                counts = read_counts()
+                check(counts == _expect(fused_local_update=launches),
+                      f"fig4 (a) {name}: launches {counts}")
+        xb, xb_cpu = states["cuda"].x_bar, states["cpu"].x_bar
+        gap = (max(float((xb[k].cpu() - xb_cpu[k]).abs().max()) for k in xb)
+               / max(float(xb_cpu[k].abs().max()) for k in xb))
+        check(gap <= FIG4_GAP, f"fig4 (a) {name}: card vs cpu x_bar gap "
+              f"{gap:.3e} > {FIG4_GAP}")
+        out["runs"][name] = {"rel_gap": gap, "launches": counts}
+        log(f"[fig4] (a) {name} tau=5, 2 rounds: card vs cpu max |dx_bar| / "
+            f"max |x_bar| = {gap:.3e} (limit {FIG4_GAP})  [{card}]")
+    # the record: the first-layer logits with TF32 allowed, against the CPU
+    params = cnn.init_params(0, device="cpu")
+    x = torch.as_tensor(data.test_x[:500])
+    exp = cnn.forward(params, x)
+    card_params = {k: v.cuda() for k, v in params.items()}
+    got = cnn.forward(card_params, x.cuda()).cpu()
+    real = cnn.full_fp32
+    cnn.full_fp32 = contextlib.nullcontext  # TF32 as PyTorch leaves it
+    try:
+        got_tf32 = cnn.forward(card_params, x.cuda()).cpu()
+    finally:
+        cnn.full_fp32 = real
+    scale = float(exp.abs().max())
+    out["logits_gap"] = float((got - exp).abs().max()) / scale
+    out["logits_gap_tf32"] = float((got_tf32 - exp).abs().max()) / scale
+    check(out["logits_gap"] <= 1e-5, f"fig4: card logits off the cpu's by "
+          f"{out['logits_gap']:.3e} of max |logit|")
+    log(f"[fig4] (a) logits of 500 test images, card vs cpu: "
+        f"{out['logits_gap']:.3e} of max |logit| without TF32, "
+        f"{out['logits_gap_tf32']:.3e} with PyTorch's default TF32  [{card}]")
+    return out
+
+
+def phase_fig4(card: str) -> dict:
+    """Phase 13: Fig. 4 on the card (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n_train, n_test, gate_rounds = FIG4_GATE
+    t0 = time.perf_counter()
+    small = _fig4_data(n_train, n_test)
+    log(f"[fig4] mnist-like {n_train} / {n_test} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {"card_vs_cpu": _fig4_card_vs_cpu(card, small)}
+
+    # (b) the reference test's gate (tests/test_paper_experiments.py:43-65)
+    acc = {}
+    out["gate"] = {}
+    for name in ("dprox", "fedda"):
+        h, secs, counts = _fig4_run(name, small, 5, 1.5, gate_rounds,
+                                    gate_rounds)
+        acc[name] = h.extra["test_acc"][-1]
+        out["gate"][name] = {"test_acc": h.extra["test_acc"],
+                             "seconds": secs, "launches": counts}
+        log(f"[fig4] (b) {name} tau=5, {gate_rounds} rounds: test accuracy "
+            f"{acc[name]:.4f}, {secs / gate_rounds:.4f} s/round, launches "
+            f"{counts['fused_local_update']}  [{card}]")
+    check(acc["dprox"] > 0.7, f"fig4 (b): the CNN failed to learn "
+          f"(acc {acc['dprox']})")
+    check(acc["dprox"] >= acc["fedda"] - 0.02,
+          f"fig4 (b): dprox {acc['dprox']} < fedda {acc['fedda']} - 0.02")
+
+    # (c) Fig. 4 in full (benchmarks/fig4_cnn.py, non-QUICK)
+    n_train, n_test, rounds, every = FIG4_FULL
+    eta_g = 1.0
+    t0 = time.perf_counter()
+    full = _fig4_data(n_train, n_test)
+    log(f"[fig4] mnist-like {n_train} / {n_test} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out["full"] = {}
+    for tau in (5, 10):
+        for name in ("dprox", "fedda"):
+            h, secs, counts = _fig4_run(name, full, tau, eta_g, rounds, every)
+            accs = h.extra["test_acc"]
+            out["full"][f"{name}_tau{tau}"] = {
+                "test_acc": accs, "rounds": h.rounds, "final": accs[-1],
+                "best": max(accs), "s_per_round": secs / rounds,
+                "launches": counts}
+            log(f"[fig4] (c) {name} tau={tau}: {rounds} rounds, final test "
+                f"accuracy {accs[-1]:.4f}, best {max(accs):.4f}, "
+                f"{secs / rounds:.4f} s/round ({len(accs)} evals included), "
+                f"kernel 1 "
+                f"x{counts['fused_local_update']}  [{card}]")
+
+    # (d) one profiled DProx round (tau 10)
+    eng, params0, supplier = _fig4_engine("dprox", full, 10, eta_g, "cuda",
+                                          chunk_rounds=4)
+    s_round, round_ms, by_name = _time_and_profile(eng, params0, supplier)
+    busy = sum(by_name.values())
+    ours = sum(v for k, v in by_name.items()
+               if any(f in k for f in _ROUND_PARTS["fused_local_update"]))
+    n_ours = sum(n for k, n in _time_and_profile.counts.items()
+                 if any(f in k for f in _ROUND_PARTS["fused_local_update"]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["profile"] = {"tau": 10, "s_per_round": s_round,
+                      "round_ms": round_ms, "device_busy_ms": busy,
+                      "idle_share": (1 - busy / round_ms) if busy else None,
+                      "kernel_ms": ours,
+                      "kernel_share": ours / busy if busy else None,
+                      "kernel_launches": n_ours, "top_kernels_ms": top}
+    log(f"[fig4] (d) dprox tau=10: {s_round:.4f} s/round after a warm "
+        f"chunk; one round {round_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle share {1 - busy / round_ms:.3f}), kernel 1 {ours:.4f} ms in "
+        f"{n_ours} launches (share of busy "
+        f"{ours / busy if busy else float('nan'):.4f})  [{card}]")
+    for name, ms in top:
+        log(f"[fig4]   {ms:9.3f} ms x{_time_and_profile.counts[name]:4d}  "
+            f"{name[:100]}")
+    return out
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -2120,15 +2473,19 @@ def main(argv) -> None:
     asyn = phase_async_paper(card)
     wide_async = phase_wide_async(card, ctx)
     cohort = phase_cohort(card)
+    fig4 = phase_fig4(card)
     flash_rows = phase_flash_kernel(card)
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
     phase_flex_yardstick(card, flash_rows)
 
     # launches on the main paths: every path's counts, read just after it
-    paths = [main["tau10"], main["tau1"], wide, comp["topk"],
+    paths = [main["tau10"], main["tau1"], *main["baselines"].values(),
+             main["tau1_dprox_vs_fedda"], wide, comp["topk"],
              comp["quantize"], wide_comp["topk"], wide_comp["quantize"],
-             asyn["a"], asyn["b"], wide_async, cohort, gemma_a, gemma_b]
+             asyn["a"], asyn["b"], wide_async, cohort,
+             *fig4["card_vs_cpu"]["runs"].values(), *fig4["gate"].values(),
+             *fig4["full"].values(), gemma_a, gemma_b]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -2180,6 +2537,7 @@ def main(argv) -> None:
         "async_paper": asyn,
         "wide_async": wide_async,
         "cohort": cohort,
+        "fig4": fig4,
         "flash_kernel_cases": flash_rows,
         "gemma_card_vs_cpu": gemma_a,
         "gemma_full": gemma_b,

@@ -15,7 +15,11 @@ the stochastic quantizer as CUDA kernels (``kernels/csrc/plane_ops.cu``);
 and simulated asynchrony and cohort-resident client state
 (``repro_torch.sched`` through the engine's Asynchrony and Cohort stages),
 with the buffered commit's client-axis sum on the flat plane as a CUDA
-kernel (``weighted_commit`` in ``kernels/csrc/plane_ops.cu``).
+kernel (``weighted_commit`` in ``kernels/csrc/plane_ops.cu``); the paper's
+experiments in full: the six baselines (``repro_torch.core.baselines``),
+the Fig. 4 CNN (``repro_torch.models.cnn``) on the procedural MNIST split
+(``repro_torch.data.mnist_like``), the literal protocol form of Algorithm 1
+and every regularizer of the reference.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present they raise instead of carrying on quietly on the CPU.

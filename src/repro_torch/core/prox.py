@@ -8,7 +8,10 @@ The counterpart of :mod:`repro.core.prox`.  Every regularizer exposes
 
 Proximal operators are applied leaf-wise over parameter pytrees; an optional
 ``mask`` pytree of booleans restricts regularization to selected leaves.
-Ported so far: ``Zero`` and ``L1``, the regularizers of the Fig. 2 path.
+All six of the reference's regularizers are here: ``Zero``, ``L1``,
+``ElasticNet``, ``GroupL2``, ``LinfBall`` and ``Nuclear`` (its SVD in
+float32, as the reference's), and :func:`make_regularizer` builds one by
+name.  Only an unmasked ``L1`` takes the fused local-update kernel.
 """
 from __future__ import annotations
 
@@ -104,3 +107,159 @@ class L1(Regularizer):
 
     def subgrad_bound(self, tree) -> float:
         return self.lam * math.sqrt(tu.tree_size(tree))
+
+
+@dataclass
+class ElasticNet(Regularizer):
+    """g(x) = lam1 * ||x||_1 + lam2/2 * ||x||^2.
+
+    prox_eta(x) = soft_threshold(x, eta*lam1) / (1 + eta*lam2).
+    ``subgrad_bound`` covers only the l1 part (the l2 part's subgradient is
+    unbounded).
+    """
+
+    lam1: float
+    lam2: float
+    mask = None
+
+    def value(self, tree):
+        return _masked_sum(
+            lambda x: self.lam1 * torch.sum(torch.abs(x.float()))
+            + 0.5 * self.lam2 * torch.sum(x.float() ** 2),
+            tree, self.mask)
+
+    def prox(self, tree, eta):
+        t = eta * self.lam1
+        s = 1.0 / (1.0 + eta * self.lam2)
+        return _masked_map(lambda x: (soft_threshold(x, t) * s).to(x.dtype),
+                           tree, self.mask)
+
+    def subgrad_bound(self, tree) -> float:
+        return self.lam1 * math.sqrt(tu.tree_size(tree))
+
+
+def _group_rows(x):
+    """A leaf as the rows its groups are: the last-axis fibers (a vector is
+    one group)."""
+    return x.reshape(-1, x.shape[-1])
+
+
+@dataclass
+class GroupL2(Regularizer):
+    """Group lasso: g(x) = lam * sum_groups ||x_group||_2, one group per
+    last-axis fiber of each leaf (a vector or scalar leaf is one group).
+    Computed in float32, as the reference."""
+
+    lam: float
+    mask = None
+
+    def value(self, tree):
+        def leaf(x):
+            x = x.float()
+            if x.ndim < 2:
+                return torch.linalg.vector_norm(x)
+            return torch.sum(torch.linalg.vector_norm(_group_rows(x),
+                                                      dim=-1))
+
+        return self.lam * _masked_sum(leaf, tree, self.mask)
+
+    def prox(self, tree, eta):
+        t = eta * self.lam
+
+        def leaf(x):
+            xf = x.float()
+            if xf.ndim < 2:
+                nrm = torch.linalg.vector_norm(xf)
+                scale = torch.clamp_min(
+                    1.0 - t / torch.clamp_min(nrm, 1e-12), 0.0)
+                return (xf * scale).to(x.dtype)
+            flat = _group_rows(xf)
+            nrm = torch.linalg.vector_norm(flat, dim=-1, keepdim=True)
+            scale = torch.clamp_min(1.0 - t / torch.clamp_min(nrm, 1e-12),
+                                    0.0)
+            return (flat * scale).reshape(xf.shape).to(x.dtype)
+
+        return _masked_map(leaf, tree, self.mask)
+
+    def subgrad_bound(self, tree) -> float:
+        # ||subgrad||^2 = lam^2 * n_groups
+        return self.lam * math.sqrt(sum(
+            1 if x.ndim < 2 else x.numel() // x.shape[-1]
+            for x in tu.tree_leaves(tree)))
+
+
+@dataclass
+class LinfBall(Regularizer):
+    """Indicator of the box ||x||_inf <= radius; prox = clipping.  B_g = 0
+    (see the reference)."""
+
+    radius: float
+    mask = None
+
+    def value(self, tree):
+        viol = _masked_sum(
+            lambda x: torch.sum(torch.clamp_min(torch.abs(x) - self.radius,
+                                                0.0)),
+            tree, self.mask)
+        return torch.where(viol > 0, torch.inf, 0.0)
+
+    def prox(self, tree, eta):
+        r = self.radius
+        return _masked_map(lambda x: torch.clamp(x, -r, r), tree, self.mask)
+
+    def subgrad_bound(self, tree) -> float:
+        return 0.0
+
+
+@dataclass
+class Nuclear(Regularizer):
+    """g(X) = lam * ||X||_* on matrix leaves (ndim 2, both sides > 1), L1 on
+    the others; prox = singular-value soft-thresholding, the SVD in float32
+    as in the reference."""
+
+    lam: float
+    mask = None
+
+    @staticmethod
+    def _is_mat(x):
+        return x.ndim == 2 and min(x.shape) > 1
+
+    def value(self, tree):
+        def leaf(x):
+            xf = x.float()
+            if self._is_mat(xf):
+                return torch.sum(torch.linalg.svdvals(xf))
+            return torch.sum(torch.abs(xf))
+
+        return self.lam * _masked_sum(leaf, tree, self.mask)
+
+    def prox(self, tree, eta):
+        t = eta * self.lam
+
+        def leaf(x):
+            if not self._is_mat(x):
+                return soft_threshold(x, t).to(x.dtype)
+            u, s, vt = torch.linalg.svd(x.float(), full_matrices=False)
+            s = torch.clamp_min(s - t, 0.0)
+            return ((u * s[None, :]) @ vt).to(x.dtype)
+
+        return _masked_map(leaf, tree, self.mask)
+
+    def subgrad_bound(self, tree) -> float:
+        return self.lam * math.sqrt(sum(
+            min(x.shape) if self._is_mat(x) else x.numel()
+            for x in tu.tree_leaves(tree)))
+
+
+REGISTRY = {
+    "zero": Zero,
+    "l1": L1,
+    "elastic_net": ElasticNet,
+    "group_l2": GroupL2,
+    "linf_ball": LinfBall,
+    "nuclear": Nuclear,
+}
+
+
+def make_regularizer(kind: str, **kwargs) -> Regularizer:
+    return REGISTRY[kind](**kwargs)

@@ -4,7 +4,8 @@ The counterpart of :mod:`repro.exec` without placement: chunked rounds with
 one host sync per chunk, partial participation, compressed uplinks and
 downlinks (optionally on the flat plane), simulated asynchrony (buffered
 staleness-weighted commits), cohort-resident client state, chunk-aware
-suppliers.
+suppliers (with prefetch), and the literal per-client protocol form
+(``EngineConfig(protocol=True)``).
 
     from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
 

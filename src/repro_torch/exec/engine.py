@@ -40,6 +40,10 @@ With the Cohort stage (``population=``, ``cohort=``) the per-client state is
 cohort-wide on the device and swapped against a host
 :class:`repro_torch.sched.PopulationStore` at chunk boundaries.
 
+``protocol=True`` runs the algorithm's literal per-client message-passing
+round (``make_protocol_round_fn``; DProx has one) and composes with no
+stage, no participation and no plane.
+
 The stages' state (``comm``: error feedback, ``dl``: the shadow, ``sched``:
 the report buffer) lives on the engine and persists across ``run``/``step``
 calls.  It is built before the first round from the message's shapes, which
@@ -128,6 +132,10 @@ class EngineConfig:
                      engine, bitwise).
     cohort_seed    : seed of the per-chunk cohort id draws.
 
+    protocol       : the literal per-client message-passing form of
+                     Algorithm 1 (equivalence testing); composes with no
+                     stages.
+
     The reference's placement field ``mesh`` must stay ``None``: setting it
     raises and names the slice that ports it.
     """
@@ -148,6 +156,7 @@ class EngineConfig:
     population: Optional[int] = None
     cohort: Optional[int] = None
     cohort_seed: int = 0
+    protocol: bool = False
 
     def resolve(self) -> StageStack:
         """Validate and map this config onto its :class:`StageStack`."""
@@ -169,6 +178,11 @@ class EngineConfig:
         downlink_on = self.downlink is not None
         uplink_on = self.transport is not None or async_on or downlink_on
         if cohort_on:
+            if self.protocol:
+                raise ValueError(
+                    "cohort-resident state does not apply to the protocol "
+                    "mode (literal per-client message passing has no "
+                    "fixed-width working set)")
             if self.participation is not None:
                 raise ValueError(
                     "cohort-resident state subsumes participation: the "
@@ -188,6 +202,20 @@ class EngineConfig:
                     "subset of the population")
         if self.edges is not None and self.edges < 1:
             raise ValueError(f"edges must be >= 1, got {self.edges}")
+        if self.protocol:
+            if self.participation is not None:
+                raise ValueError("the protocol mode does not support "
+                                 "partial participation")
+            if self.plane:
+                raise ValueError("plane mode does not apply to the protocol "
+                                 "mode (literal per-client message passing)")
+            if uplink_on:
+                raise ValueError(
+                    "the protocol mode (literal per-client message passing) "
+                    "composes with no stages; drop the "
+                    "transport/downlink/clock options or run them on the "
+                    "staged engine")
+            return StageStack(protocol=True)
         if self.transport is not None and not hasattr(self.transport,
                                                       "compress"):
             raise ValueError(
@@ -328,7 +356,14 @@ class RoundEngine:
         # once the stages' state is built
         self.uplink_bytes_per_client_round: Optional[int] = None
         self.downlink_bytes_per_client_round: Optional[int] = None
-        if stack.split:
+        if stack.protocol:
+            if not hasattr(algorithm, "make_protocol_round_fn"):
+                raise ValueError(
+                    f"algorithm {algorithm.name!r} has no protocol form "
+                    "(make_protocol_round_fn); use the staged engine")
+            self._round_fn = algorithm.make_protocol_round_fn(grad_fn)
+            self._accepts_active = False
+        elif stack.split:
             try:
                 self._local_fn = algorithm.make_local_fn(grad_fn)
                 self._server_fn = algorithm.make_server_fn()
@@ -678,7 +713,8 @@ class RoundEngine:
         if rng is None:
             rng = np.random.default_rng(seed)
         supplier = as_supplier(batch_supplier)
-        use_chunk = has_chunk_path(supplier) and not self._use_active
+        use_chunk = (has_chunk_path(supplier) and not self._use_active
+                     and not self.stack.protocol)
         metrics: dict[str, list] = {}
         done = 0
         while done < rounds:

@@ -134,12 +134,18 @@ class Cohort:
 
 @dataclass(frozen=True)
 class StageStack:
-    """The resolved, validated stage combination one engine runs."""
+    """The resolved, validated stage combination one engine runs.
+
+    ``protocol=True`` is the one non-composable mode: the literal
+    per-client message-passing form of Algorithm 1, kept for equivalence
+    testing.
+    """
 
     uplink: Optional[UplinkComm] = None
     downlink: Optional[DownlinkComm] = None
     asynchrony: Optional[Asynchrony] = None
     cohort: Optional[Cohort] = None
+    protocol: bool = False
 
     @property
     def split(self) -> bool:
@@ -149,6 +155,8 @@ class StageStack:
                 or self.asynchrony is not None)
 
     def names(self) -> Tuple[str, ...]:
+        if self.protocol:
+            return ("protocol",)
         return tuple(s.name for s in (self.uplink, self.downlink,
                                       self.asynchrony, self.cohort)
                      if s is not None)

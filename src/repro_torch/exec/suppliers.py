@@ -1,7 +1,6 @@
 """Chunk-aware batch suppliers for the round engine.
 
-The counterpart of :mod:`repro.exec.suppliers` (without prefetch, which is
-not ported yet):
+The counterpart of :mod:`repro.exec.suppliers`:
 
   * :class:`BatchSupplier` -- ``sample_round(r, rng)`` plus
     ``sample_chunk(start, n_rounds, rng)`` returning the whole chunk with a
@@ -10,10 +9,18 @@ not ported yet):
   * :class:`ArraySupplier` -- vectorized i.i.d. minibatch sampling from
     per-client example arrays.  With ``device_cache=True`` the arrays live on
     the device and the gather happens there; full-batch rounds are served
-    as ``expand`` views of the cache, never copied.
+    as ``expand`` views of the cache, never copied.  With ``prefetch=True``
+    the minibatch chunk path is double-buffered: after serving chunk
+    ``[start, start+n)`` a staging thread prepares ``[start+n, start+2n)``
+    while the engine runs the current one.  On the card the host gather
+    lands in pinned memory and is copied on a side stream (with
+    ``device_cache`` the gather itself runs there); the chunk is handed
+    over with the current stream made to wait on the copy's event.
 
 rng contract: :class:`ArraySupplier` derives a fresh generator per round from
-``(seed, round_idx)``, so trajectories do not depend on ``chunk_rounds``.
+``(seed, round_idx)``, so trajectories do not depend on ``chunk_rounds``, and
+prefetching, which draws the same per-round generators ahead of time, cannot
+change them.
 
 ``client_ids`` (an int64 array of global client ids, passed by the engine's
 cohort-resident mode) restricts a draw to those clients' data.  A supplier
@@ -22,6 +29,7 @@ checks :func:`supports_client_ids` before a strict sub-cohort passes it.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -123,11 +131,18 @@ class ArraySupplier(BatchSupplier):
 
     ``device_cache=True`` copies the arrays to ``device`` (``cuda`` unless
     given) once, and every batch is gathered or viewed there.
+
+    ``prefetch=True`` stages the next minibatch chunk ahead (see the module
+    docstring) for ``device`` (``cuda`` unless given; ``"cpu"`` stages the
+    host gather only).  A chunk is served from the stage when it is the one
+    staged, else gathered at once; either way the numbers are the same.
+    :meth:`close` ends the staging thread.
     """
 
     def __init__(self, arrays: Mapping[str, np.ndarray], tau: int,
                  batch_size: Optional[int], *, seed: int = 0,
-                 device_cache: bool = False, device=None):
+                 device_cache: bool = False, prefetch: bool = False,
+                 device=None):
         arrays = dict(arrays)
         if not arrays:
             raise ValueError("ArraySupplier needs at least one array")
@@ -140,20 +155,37 @@ class ArraySupplier(BatchSupplier):
         self.batch_size = batch_size
         self.seed = seed
         self.device_cache = device_cache
+        self.prefetch = prefetch
+        self._stage_device = None  # the cache's and the staged chunks' device
+        if device_cache or prefetch:
+            self._stage_device = resolve_device(device)
         if device_cache:
-            dev = resolve_device(device)
-            self._arrays = {k: torch.as_tensor(v, device=dev)
+            self._arrays = {k: torch.as_tensor(v, device=self._stage_device)
                             for k, v in arrays.items()}
         else:
             self._arrays = arrays
+        self._executor = None  # the staging thread, made at the 1st prefetch
+        self._side = None      # its CUDA stream
+        self._pending = None   # (start_round, n_rounds, future)
 
     @classmethod
     def from_dataset(cls, data, tau: int, batch_size: Optional[int], *,
-                     seed: int = 0, device_cache: bool = False, device=None):
+                     seed: int = 0, device_cache: bool = False,
+                     prefetch: bool = False, device=None):
         """Supplier over a :class:`repro_torch.data.synthetic.FederatedDataset`
         producing the engine's standard ``{"a": ..., "y": ...}`` batches."""
         return cls({"a": data.features, "y": data.labels}, tau, batch_size,
-                   seed=seed, device_cache=device_cache, device=device)
+                   seed=seed, device_cache=device_cache, prefetch=prefetch,
+                   device=device)
+
+    def close(self) -> None:
+        """End the staging thread (a pending chunk is waited for and
+        dropped); the supplier keeps serving chunks without prefetch."""
+        if self._executor is not None:
+            if self._pending is not None:
+                self._pending[2].result()
+            self._executor.shutdown(wait=True)
+        self._executor, self._pending, self.prefetch = None, None, False
 
     def _round_idx(self, r: int, client_ids=None) -> np.ndarray:
         # the draw is always the full (n_clients, ...) stream, subset AFTER:
@@ -197,10 +229,63 @@ class ArraySupplier(BatchSupplier):
         return self._gather(self._round_idx(round_idx, client_ids),
                             client_ids)
 
+    def _chunk(self, start_round, n_rounds, client_ids=None):
+        idx = np.stack([self._round_idx(start_round + i, client_ids)
+                        for i in range(n_rounds)])
+        return self._gather(idx, client_ids)
+
+    def _stage(self, start_round, n_rounds):
+        """The staging thread's work: one chunk, and on the card the event
+        that marks its copy (or device gather) done on the side stream."""
+        dev = self._stage_device
+        if dev.type != "cuda":
+            return self._chunk(start_round, n_rounds), None
+        with torch.cuda.device(dev), torch.cuda.stream(self._side):
+            if self.device_cache:
+                chunk = self._chunk(start_round, n_rounds)
+            else:
+                chunk = {k: torch.from_numpy(np.ascontiguousarray(v))
+                         .pin_memory().to(dev, non_blocking=True)
+                         for k, v in self._chunk(start_round,
+                                                 n_rounds).items()}
+            done = torch.cuda.Event()
+            done.record(self._side)
+        return chunk, done
+
+    def _take(self, staged):
+        """Hand a staged chunk to the caller's stream: it waits on the
+        chunk's event, and the allocator learns the chunk is used there."""
+        chunk, done = staged
+        if done is not None:
+            current = torch.cuda.current_stream(self._stage_device)
+            current.wait_event(done)
+            for t in chunk.values():
+                t.record_stream(current)
+        return chunk
+
     def sample_chunk(self, start_round, n_rounds, rng=None, *,
                      client_ids=None):
         if self.batch_size is None:
             return self._full_batch((n_rounds,), client_ids)
-        idx = np.stack([self._round_idx(start_round + i, client_ids)
-                        for i in range(n_rounds)])
-        return self._gather(idx, client_ids)
+        if client_ids is not None or not self.prefetch:
+            # per-id draws bypass the double buffer: the next chunk's
+            # cohort ids are not known yet
+            return self._chunk(start_round, n_rounds, client_ids)
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="supplier-prefetch")
+            if self._stage_device.type == "cuda":
+                self._side = torch.cuda.Stream(self._stage_device)
+        if (self._pending is not None
+                and self._pending[:2] == (start_round, n_rounds)):
+            chunk = self._take(self._pending[2].result())
+        else:
+            # cold start, or the caller jumped (a remainder chunk): stage
+            # this one now and re-prime
+            if self._pending is not None:
+                self._pending[2].result()
+            chunk = self._take(self._stage(start_round, n_rounds))
+        nxt = start_round + n_rounds
+        self._pending = (nxt, n_rounds,
+                         self._executor.submit(self._stage, nxt, n_rounds))
+        return chunk

@@ -2,8 +2,12 @@
 
 The counterpart of :mod:`repro.fed.simulator`: runs an algorithm for R rounds
 through a bare :class:`repro_torch.exec.RoundEngine` and records the metrics
-the paper plots (relative prox-gradient optimality, loss).  Between eval
-points the engine runs up to ``chunk_rounds`` rounds with one host sync.
+the paper plots (relative prox-gradient optimality, loss, and whatever an
+``eval_fn`` reports -- Fig. 4's test accuracy -- in ``History.extra``).
+Between eval points the engine runs up to ``chunk_rounds`` rounds with one
+host sync.  Any :class:`repro_torch.core.baselines.FedAlgorithm` runs
+through it: DProx (wrapped by :class:`DProxAlgorithm`) and the six
+baselines.
 """
 from __future__ import annotations
 
@@ -45,6 +49,17 @@ class DProxAlgorithm(FedAlgorithm):
 
     def state_roles(self):
         return {"x_bar": "server", "c": "client", "round": "scalar"}
+
+    def make_protocol_round_fn(self, grad_fn):
+        """The literal per-client message-passing round (the engine's
+        ``protocol=True`` mode); equal to the compact form up to the
+        order of the client sums (App. A.1)."""
+
+        def round_fn(state, batches):
+            return alg_mod.run_per_client_round(
+                self.cfg, self.reg, grad_fn, state, batches), {}
+
+        return round_fn
 
     def global_params(self, state):
         return alg_mod.global_params(self.reg, self.cfg, state)

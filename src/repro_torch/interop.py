@@ -1,9 +1,10 @@
 """Weights and states carried across from the JAX reference.
 
-The reference's params, ``DProxState`` and async states arrive as numpy
-arrays (anything ``np.asarray`` accepts, JAX arrays included) and leave as
-numpy arrays; this module imports neither ``jax`` nor ``repro``.  Tests feed
-both packages the same numbers through it.
+The reference's params, ``DProxState``, the baselines' states and the
+async states arrive as numpy arrays (anything ``np.asarray`` accepts, JAX
+arrays included) and leave as numpy arrays; this module imports neither
+``jax`` nor ``repro``.  Tests feed both packages the same numbers through
+it.
 
 The reference's async states carry a ``clock_key`` (a ``jax.random`` key);
 the port's carry none.  The key's draws reach the port as the clock's draw
@@ -16,8 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import baselines
 from repro_torch.core.algorithm import DProxState
 from repro_torch.utils import tree as tu
+
+# the baselines' state types by name (the reference's names are the same)
+_BASELINE_STATES = {k.__name__: k for k in (
+    baselines._XState, baselines._DualState, baselines._FastDAState,
+    baselines._ScaffoldState)}
 
 
 def _array_to_tensor(x) -> torch.Tensor:
@@ -77,6 +84,27 @@ def state_to_numpy(state: DProxState) -> DProxState:
     return DProxState(x_bar=params_to_numpy(state.x_bar),
                       c=params_to_numpy(state.c),
                       round=state.round.detach().cpu().numpy())
+
+
+def baseline_state_to_torch(state, device, dtype=None):
+    """A reference baseline state (``_XState``, ``_DualState``,
+    ``_FastDAState`` or ``_ScaffoldState``, found by its type's name) of
+    arrays -> the port's state of the same kind on ``device``: params-shaped
+    fields through :func:`params_to_torch`, ``round`` as an int32 scalar."""
+    kind = _BASELINE_STATES[type(state).__name__]
+    dev = torch.device(device)
+    return kind(**{
+        f: (torch.tensor(int(np.asarray(state.round)), dtype=torch.int32,
+                         device=dev) if f == "round"
+            else params_to_torch(getattr(state, f), dev, dtype))
+        for f in kind._fields})
+
+
+def baseline_state_to_numpy(state):
+    """The port's baseline state -> the same ``NamedTuple`` of numpy
+    arrays."""
+    return type(state)(**{f: params_to_numpy(getattr(state, f))
+                          for f in state._fields})
 
 
 def async_state_to_torch(sched, device):

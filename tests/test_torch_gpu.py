@@ -632,3 +632,96 @@ def test_serving_on_card_launches_the_kernel_per_layer(cuda):
     for r in eng.serve(reqs, slots=2, segment=4):
         seq = eng.generate(reqs[r.id].prompt[None], max_new_tokens=6)
         np.testing.assert_array_equal(r.tokens, seq.tokens[0])
+
+
+# ---------------------------------------------------------------------------
+# the Fig. 4 CNN
+# ---------------------------------------------------------------------------
+
+
+def _cnn_tree(cuda, n, seed):
+    """The CNN's 10 leaves (2-D to 5-D, 10 to 100,352 floats a client) with a
+    leading client axis of ``n``, float32, NaN / -0 / inf / THRESH
+    injected."""
+    from repro_torch.models import cnn
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    t = {k: torch.randn((n,) + tuple(v.shape), generator=gen, device=cuda)
+         for k, v in cnn.init_params(0, device="cpu").items()}
+    t["conv1_b"][0, :4] = torch.tensor([float("nan"), -0.0, float("inf"),
+                                        THRESH])
+    t["fc3_b"][1, :2] = torch.tensor([-float("inf"), 0.0])
+    return t
+
+
+@pytest.mark.gpu
+def test_fused_update_on_the_cnn_tree_is_one_launch_on_card(cuda):
+    """Kernel 1 on Fig. 4's tree (10 clients, d = 112,394, float32): from
+    contiguous leaves, then from views of the previous output planes with c
+    broadcast from one row: one launch, no copy, bitwise."""
+    zh, g, c = (_cnn_tree(cuda, 10, s) for s in range(3))
+    assert sum(v[0].numel() for v in zh.values()) == 112_394
+    zh2, _ = _one_launch_equals_plain(zh, g, c)
+    cb = {k: v[3][None].expand_as(v) for k, v in c.items()}
+    _one_launch_equals_plain(zh2, g, cb)
+
+
+@pytest.mark.gpu
+def test_cnn_on_card_runs_without_tf32_and_matches_the_cpu(cuda):
+    """The CNN's forward and gradient on the card equal the CPU's within
+    float32 summation order: its convolutions run with TF32 off (cuDNN
+    allows TF32 by default), and the global setting comes back after."""
+    import numpy as np
+
+    from repro_torch.data import mnist_like
+    from repro_torch.models import cnn
+
+    assert torch.backends.cudnn.allow_tf32  # PyTorch's default
+    with cnn.full_fp32():
+        assert not torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cudnn.allow_tf32
+    tx, ty, _, _ = mnist_like.generate(n_train=100, n_test=10, seed=0)
+    p_cpu = cnn.init_params(0, device="cpu")
+    p = {k: v.to(cuda) for k, v in p_cpu.items()}
+    batch = {"x": torch.from_numpy(tx[:64]), "y": torch.from_numpy(ty[:64])}
+    got = cnn.forward(p, batch["x"].to(cuda)).cpu()
+    exp = cnn.forward(p_cpu, batch["x"])
+    assert float((got - exp).abs().max()) <= 1e-5 * float(exp.abs().max())
+    loss, grads = cnn.make_grad_fn()(p, {k: v.to(cuda)
+                                         for k, v in batch.items()})
+    e_loss, e_grads = cnn.make_grad_fn()(p_cpu, batch)
+    assert abs(float(loss) - float(e_loss)) <= 1e-5 * abs(float(e_loss))
+    for k in grads:
+        scale = float(e_grads[k].abs().max())
+        assert float((grads[k].cpu() - e_grads[k]).abs().max()) <= \
+            1e-4 * scale, k
+    assert cnn.accuracy(p, tx, ty) == cnn.accuracy(p_cpu, tx, ty)
+    assert np.isfinite(float(loss))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_cache", [False, True],
+                         ids=["pinned", "device_cache"])
+def test_prefetched_chunks_on_card_equal_unprefetched(cuda, device_cache):
+    """Chunks staged on the side stream (pinned host gather + copy, or the
+    device gather) equal the unprefetched supplier's, bitwise."""
+    import numpy as np
+
+    from repro_torch.exec import ArraySupplier
+
+    rng = np.random.default_rng(0)
+    arrays = {"a": rng.normal(size=(30, 100, 20)),
+              "y": rng.normal(size=(30, 100))}
+    plain = ArraySupplier(arrays, 10, 16, seed=2, device_cache=device_cache,
+                          device=cuda)
+    pre = ArraySupplier(arrays, 10, 16, seed=2, device_cache=device_cache,
+                        prefetch=True, device=cuda)
+    try:
+        for start, n in ((0, 8), (8, 8), (16, 8), (24, 5), (29, 8)):
+            a, b = plain.sample_chunk(start, n), pre.sample_chunk(start, n)
+            for k in a:
+                assert b[k].is_cuda
+                assert torch.equal(torch.as_tensor(a[k], device=cuda), b[k])
+    finally:
+        pre.close()

@@ -46,6 +46,8 @@ def test_package_imports_with_jax_blocked():
             "import repro_torch.serving, repro_torch.models.transformer\n"
             "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
             "import repro_torch.configs.registry, repro_torch.obs\n"
+            "import repro_torch.core.baselines, repro_torch.models.cnn\n"
+            "import repro_torch.data.mnist_like, repro_torch.core.prox\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -82,6 +84,12 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
     arrays = {"a": np.zeros((2, 3, 2)), "y": np.zeros((2, 3))}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ArraySupplier(arrays, 1, None, device_cache=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ArraySupplier(arrays, 1, 2, prefetch=True)
+    from repro_torch.models import cnn
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cnn.init_params(0)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
