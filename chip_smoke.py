@@ -126,11 +126,30 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   DProx run, never in a FedDA run, no copy; (d) one profiled
                   DProx round at tau 10: busy time, idle share, top kernels
                   and kernel 1's share;
+ 14. runtime   -- run after phase 13, before phase 10: the multi-process
+                  runtime (repro_torch.fed.runtime) at phase 4's width (n 30,
+                  m 100, d = 112,394, float64, tau 10, 20 rounds, chunks of
+                  4), each run through run_pair (a server subprocess, rank 0
+                  in this process, on the card): (a) dense blocking and
+                  overlapped (both traced), plane top-k 0.1, quantize 8 bits:
+                  the server's fields bitwise run_local on the card, replay
+                  drift <= 1e-12, rank 0's launches (kernel 1 rounds * tau,
+                  kernel 2 or 3 once per compressed leaf a round), wall,
+                  send_wait, sender_busy and bytes; (b) two workers and a
+                  replica at d = 4,096: finite loss, 5 commits of each worker
+                  in the server's JSONL log, and the replica subprocess exits
+                  0 only on a BITWISE reconstruction; (c) the traced runs'
+                  merged Chrome traces pass validate_chrome, and obs.report's
+                  hidden fraction is printed; (d) the wide DProxState saved
+                  (checkpoint.ckpt) and restored to the card through a meta
+                  template, bitwise;
  12. flex      -- the library yardstick of phase 10's softcap cases, which
                   SDPA cannot compute: torch.compile'd flex_attention (the
                   softcap as score_mod, the causal window as the block mask)
-                  on the same inputs, its compile seconds and ms, held to the
-                  kernel at the bf16 tolerance (fatal).  Only a failure to
+                  on the same inputs, its compile seconds, ms (CUDA events)
+                  and device ms (a CUDA-graph replay of the compiled call,
+                  whose output must equal the eager call's bitwise), held
+                  to the kernel at the bf16 tolerance (fatal).  Only a failure to
                   import, compile or first call it is logged and carries on,
                   as "not measured": the port never calls it.  It runs last
                   so that no torch.compile precedes the serving phase's
@@ -164,8 +183,8 @@ paths, phase 4's wide round and phase 7b's commits; the results go to
 ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11 and 13 and read just after; no path may
-copy.  The line before the last is the kernels' JSON summary;
+before each path of phases 3-9, 11, 13 and 14 and read just after; no path
+may copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
 """
@@ -1785,6 +1804,199 @@ def phase_fig4(card: str) -> dict:
     return out
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+RT_D = 112_394
+
+
+def _rt_args(**kw):
+    """Phase 14's runtime set-up: the Fig. 2 model and generator at phase 4's
+    width (n 30, m 100, d = 112,394, float64), tau 10, 20 rounds in chunks of
+    4, phase 4's lam; the runtime's own eta 0.05 and eta_g 2."""
+    from repro_torch.fed.runtime import RuntimeArgs
+
+    base = dict(clients=30, m=100, dim=RT_D, tau=10, rounds=20, chunk=4,
+                lam=0.003 * math.sqrt(20 / RT_D), workers=1, timeout=120.0,
+                device="cuda")
+    base.update(kw)
+    return RuntimeArgs(**base)
+
+
+def _rt_expect(a) -> dict:
+    """Rank 0's launches: kernel 1 once a local step, and per round the
+    transport's kernel once per message leaf it compresses (w is (n, d), b
+    is (n,); top-k keeps a width-1 leaf whole without a launch)."""
+    from repro_torch.comm.transport import _k_of
+
+    widths = (a.dim, 1)
+    exp = {"fused_local_update": a.rounds * a.tau}
+    if a.transport == "topk":
+        exp["threshold_select"] = a.rounds * sum(_k_of(a.ratio, w) < w
+                                                 for w in widths)
+    elif a.transport == "quantize":
+        exp["quantize"] = a.rounds * len(widths)
+    return _expect(**exp)
+
+
+def _rt_run(tag: str, a, card: str, parity: bool = True) -> dict:
+    """One ``run_pair`` (server subprocess, rank 0 here): counts read just
+    after it, the server's fields against ``run_local`` on the card, the
+    trace (if any) validated and attributed."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.fed import runtime as rt
+    from repro_torch.obs import report, trace
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = rt.run_pair(a)
+    pair_s = time.perf_counter() - t0
+    counts = read_counts()
+    res = rep["server_result"]
+    loss = rep["metrics"]["train_loss"]
+    check(all(math.isfinite(v) for v in loss), f"runtime {tag}: loss {loss}")
+    check(all(np.all(np.isfinite(np.asarray(v)))
+              for v in res["fields"]["x_bar"].values()),
+          f"runtime {tag}: non-finite server fields")
+    out = {"args": {k: v for k, v in dataclasses.asdict(a).items()
+                    if k not in ("host", "port")},
+           "launches": counts, "pair_s": pair_s, "wall_s": rep["wall_s"],
+           "send_wait_s": rep["send_wait_s"],
+           "sender_busy_s": rep["sender_busy_s"],
+           "bytes_sent": rep["bytes_sent"], "chunks": rep["chunks"],
+           "encoding": rep["encoding"],
+           "max_replay_drift": res["max_replay_drift"],
+           "version": res["version"], "ledger": res["ledger"],
+           "final_loss": loss[-1]}
+    if parity:
+        check(counts == _rt_expect(a),
+              f"runtime {tag}: rank 0 launches {counts}, expected "
+              f"{_rt_expect(a)}")
+        local = rt.run_local(dataclasses.replace(a, port=0, trace=None))
+        out["bitwise_vs_local"] = rt._fields_bitwise(local["fields"],
+                                                     res["fields"])
+        out["local_wall_s"] = local["wall_s"]
+        check(out["bitwise_vs_local"],
+              f"runtime {tag}: server fields differ from run_local on the "
+              "card")
+        check(res["max_replay_drift"] <= 1e-12,
+              f"runtime {tag}: replay drift {res['max_replay_drift']}")
+    hidden = "not traced"
+    if a.trace:
+        doc = json.loads(Path(a.trace).read_text())
+        errs = trace.validate_chrome(doc)
+        check(errs == [], f"runtime {tag}: invalid merged trace {errs[:3]}")
+        steady = report.overlap_report(doc)["steady"]
+        out["trace_events"] = len(doc["traceEvents"])
+        out["steady"] = steady
+        out["hidden_fraction"] = report.hidden_fraction(doc)
+        hidden = (f"hidden fraction {out['hidden_fraction']:.3f} (steady: "
+                  f"compute {steady['compute_s']:.3f} s, wire "
+                  f"{steady['wire_s']:.3f} s, wall {steady['wall_s']:.3f} s)")
+    log(f"[runtime] {tag}: {a.rounds} rounds, wall {rep['wall_s']:.3f} s "
+        f"(pair incl. server start {pair_s:.1f} s), {rep['bytes_sent']} B in "
+        f"{rep['chunks']} chunks ({rep['encoding']}), send_wait "
+        f"{rep['send_wait_s']:.3f} s, sender_busy {rep['sender_busy_s']:.3f} "
+        f"s, drift {res['max_replay_drift']:.3e}, "
+        + (f"bitwise == run_local (wall {out['local_wall_s']:.3f} s), "
+           if parity else "")
+        + f"launches {counts}; {hidden}  [{card}]")
+    return out
+
+
+def _rt_checkpoint(card: str) -> dict:
+    """(d): a device state after 4 rounds, saved and restored to the card
+    through a meta template, every leaf bitwise."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.fed import runtime as rt
+    from repro_torch.utils import tree as tu
+
+    a = _rt_args(rounds=4)
+    reset_counts()
+    eng, alg, _, data, params0 = rt._engine(a, a.clients)
+    state, _ = eng.run(eng.init(params0), rt._supplier(a, data, 0, a.clients),
+                       a.rounds)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == _expect(fused_local_update=a.rounds * a.tau),
+          f"runtime ckpt: launches {counts}")
+    path = ROOT / "build" / "runtime_state.npz"
+    t0 = time.perf_counter()
+    ckpt.save(state, path, metadata={"round": a.rounds})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore(path, tu.tree_map(lambda t: t.to("meta"), state),
+                        device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    path.unlink()
+    leaves, got = tu.tree_leaves(state), tu.tree_leaves(back)
+    check(type(back) is type(state) and len(leaves) == len(got)
+          and all(g.device.type == "cuda" and g.dtype == x.dtype
+                  and g.shape == x.shape and _bit_diff(g, x) == 0
+                  for g, x in zip(got, leaves)),
+          "runtime ckpt: the restored state differs from the saved one")
+    log(f"[runtime] checkpoint: DProxState at d={a.dim} ({nbytes / 1e6:.1f} "
+        f"MB npz) saved in {save_s:.2f} s, restored to the card in "
+        f"{restore_s:.2f} s, bitwise  [{card}]")
+    return {"launches": counts, "npz_bytes": nbytes, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def phase_runtime(card: str) -> dict:
+    """Phase 14: the multi-process runtime on the card (see the module
+    docstring)."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("blocking", "overlapped"):
+        runs[f"dense_{mode}"] = _rt_run(
+            f"dense {mode}", _rt_args(
+                mode=mode, trace=str(out_dir / f"runtime_{mode}.json")),
+            card)
+    runs["topk_plane"] = _rt_run(
+        "plane top-k 0.1", _rt_args(plane=True, transport="topk",
+                                    ratio=0.1), card)
+    runs["quantize"] = _rt_run(
+        "quantize 8 bits", _rt_args(transport="quantize", bits=8), card)
+    # (b) the replica subprocess exits non-zero unless its reconstruction
+    # is bitwise the server's final fields (run_pair raises then); the
+    # server's commit log counts both workers' chunks
+    two_d = 4096
+    jsonl = out_dir / "runtime_two_workers.jsonl"
+    jsonl.unlink(missing_ok=True)
+    two_a = _rt_args(dim=two_d, lam=0.003 * math.sqrt(20 / two_d),
+                     workers=2, replicas=1, mode="overlapped",
+                     metrics_jsonl=str(jsonl))
+    two = _rt_run(f"two workers + a replica (d={two_d})", two_a, card,
+                  parity=False)
+    commits = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    commits = [c for c in commits if c["event"] == "commit"]
+    per_worker = {w: sum(c["worker"] == w for c in commits) for w in (0, 1)}
+    chunks = -(-two_a.rounds // two_a.chunk)
+    check(per_worker == {0: chunks, 1: chunks}, f"runtime two workers: "
+          f"server commits per worker {per_worker}, expected {chunks} each")
+    check(two["launches"] == _expect(
+        fused_local_update=two_a.rounds * two_a.tau),
+          f"runtime two workers: rank 0 launches {two['launches']}")
+    two["server_commits_per_worker"] = per_worker
+    runs["two_workers"] = two
+    ckpt_rec = _rt_checkpoint(card)
+    secs = time.perf_counter() - t0
+    b, o = runs["dense_blocking"], runs["dense_overlapped"]
+    log(f"[runtime] dense, wall blocking {b['wall_s']:.3f} s / overlapped "
+        f"{o['wall_s']:.3f} s; send_wait {b['send_wait_s']:.3f} / "
+        f"{o['send_wait_s']:.3f} s; hidden {b['hidden_fraction']:.3f} / "
+        f"{o['hidden_fraction']:.3f}; phase {secs:.1f} s  [{card}]")
+    return {"runs": runs, "checkpoint": ckpt_rec, "seconds": secs}
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 PEAK_BF16 = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
@@ -1984,7 +2196,8 @@ def _flex_yardstick(q, k, v, got, causal, window, softcap, tol,
     import torch
 
     b, s, h, d = q.shape
-    out = {"ms": None, "compile_s": None, "err": None, "error": None}
+    out = {"ms": None, "device_ms": None, "compile_s": None, "err": None,
+           "error": None}
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -2020,13 +2233,53 @@ def _flex_yardstick(q, k, v, got, causal, window, softcap, tol,
     check(out["err"] <= tol, f"flex_attention disagrees with the kernel at "
           f"{where} by {out['err']:.3e} > {tol}")
     out["ms"] = _time_ms(call, 5, 3)
+    out["device_ms"] = _graph_replay_ms(call, res)
+    dev = ("not measured" if out["device_ms"] is None
+           else f"{out['device_ms']:.4f} ms")
     log(f"[flex] {where}: flex_attention (softcap as score_mod, window as "
         f"block mask) compiled in {out['compile_s']:.1f} s, max abs diff "
         f"from the kernel {out['err']:.3e} (tol {tol}), {out['ms']:.4f} ms "
-        f"(CUDA events)")
+        f"(CUDA events), device {dev} (CUDA-graph replay)")
     del qt, kt, vt, res
     torch.cuda.empty_cache()
     return out
+
+
+def _graph_replay_ms(call, expect, replays: int = 20):
+    """Device time of one ``call()`` without the host's launch gaps: the
+    call captured once in a CUDA graph (after warm-up calls on a side
+    stream), then timed over ``replays`` replays between CUDA events; the
+    replay's output must equal ``expect`` bitwise.  (``torch.profiler``
+    recorded no kernel of the compiled flex_attention once earlier phases
+    had profiled in the same process, though it does in a fresh one.)
+    None, logged, when the capture fails."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"[flex] CUDA-graph capture failed: {str(e)[:200]}")
+        return None
+    check(_bit_diff(out, expect) == 0,
+          "flex_attention: the graph replay differs from the eager call")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / replays
 
 
 def phase_flash_kernel(card: str):
@@ -2084,7 +2337,9 @@ def phase_flex_yardstick(card: str, rows: list) -> None:
         if row["library_ms"] is not None:
             log(f"[flex] kernel {row['ms']:.4f} ms (device "
                 f"{row['device_ms'] or float('nan'):.4f} ms) vs "
-                f"flex_attention {row['library_ms']:.4f} ms  [{card}]")
+                f"flex_attention {row['library_ms']:.4f} ms (device "
+                f"{row['flex']['device_ms'] or float('nan'):.4f} ms)  "
+                f"[{card}]")
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -2474,6 +2729,7 @@ def main(argv) -> None:
     wide_async = phase_wide_async(card, ctx)
     cohort = phase_cohort(card)
     fig4 = phase_fig4(card)
+    runtime = phase_runtime(card)
     flash_rows = phase_flash_kernel(card)
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
@@ -2485,7 +2741,8 @@ def main(argv) -> None:
              comp["quantize"], wide_comp["topk"], wide_comp["quantize"],
              asyn["a"], asyn["b"], wide_async, cohort,
              *fig4["card_vs_cpu"]["runs"].values(), *fig4["gate"].values(),
-             *fig4["full"].values(), gemma_a, gemma_b]
+             *fig4["full"].values(), *runtime["runs"].values(),
+             runtime["checkpoint"], gemma_a, gemma_b]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -2538,6 +2795,7 @@ def main(argv) -> None:
         "wide_async": wide_async,
         "cohort": cohort,
         "fig4": fig4,
+        "runtime": runtime,
         "flash_kernel_cases": flash_rows,
         "gemma_card_vs_cpu": gemma_a,
         "gemma_full": gemma_b,

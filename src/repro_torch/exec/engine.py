@@ -44,6 +44,14 @@ cohort-wide on the device and swapped against a host
 round (``make_protocol_round_fn``; DProx has one) and composes with no
 stage, no participation and no plane.
 
+Two per-chunk sinks hand the engine's output on without a host sync of
+their own (:meth:`RoundEngine.set_uplink_sink`, the multi-process
+runtime's uplink; :meth:`RoundEngine.set_snapshot_sink`, serving
+snapshots): both fire after a chunk's rounds are enqueued and before the
+chunk's one host sync.  A chunk runs inside an ``exec/chunk`` span and its
+host sync inside ``exec/host_sync`` (:mod:`repro_torch.obs.trace`; free
+while no tracer is installed).
+
 The stages' state (``comm``: error feedback, ``dl``: the shadow, ``sched``:
 the report buffer) lives on the engine and persists across ``run``/``step``
 calls.  It is built before the first round from the message's shapes, which
@@ -69,9 +77,10 @@ import torch
 from repro_torch.core import plane as pln
 from repro_torch.device import eval_shape, resolve_device, to_device
 from repro_torch.exec.stages import (Asynchrony, Cohort, DownlinkComm,
-                                     StageStack, UplinkComm)
+                                     StageStack, UplinkComm, sink_blockers)
 from repro_torch.exec.suppliers import (as_supplier, has_chunk_path,
                                         supports_client_ids)
+from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree as tu
 
 # the reference's placement field, which the port does not run yet, and
@@ -398,6 +407,9 @@ class RoundEngine:
         self._plane = bool(config.plane) and stack.split
         self._plane_spec = None  # SegmentSpec of the uplink message plane
         self._extras = None  # the stages' state, built before the 1st round
+        self._uplink_sink = None    # per-chunk uplink hand-off (runtime)
+        self._uplink_tap = None     # the running chunk's msgs, round by round
+        self._snapshot_sink = None  # per-chunk committed-state publication
         self.draws = draws
         if draws is None and stack.split:
             from repro_torch.comm import GeneratorDraws
@@ -562,6 +574,8 @@ class RoundEngine:
         msg, aux = self._local_eff(state, batches)
         cs = ex["comm"]
         msg_hat, cs_new = self._transport_eff.compress(cs, msg, self.draws)
+        if self._uplink_tap is not None:
+            self._uplink_tap.append(msg_hat)
         if active is not None:
             # inactive clients transmit nothing, so their error-feedback
             # residuals must not advance (the telescoping identity)
@@ -587,6 +601,92 @@ class RoundEngine:
         if dl is not None:
             ex["dl"] = dl
         return state, info
+
+    # -- per-chunk sinks -----------------------------------------------------
+
+    def set_uplink_sink(self, sink) -> None:
+        """Register a per-chunk uplink hand-off: after each chunk,
+        ``sink(start_round, msgs, state)`` receives the chunk's compressed
+        uplink messages (``msgs`` stacked ``(chunk, n_clients, ...)`` per
+        leaf -- one ``(chunk, n_clients, d_pad)`` buffer in plane mode) and
+        the committed post-chunk state, all still on the engine's device.
+
+        This is the engine half of the overlap pipeline in
+        :mod:`repro_torch.fed.runtime`: the sink fires once the chunk's
+        rounds are enqueued and before the chunk's host sync, so a
+        background sender can fetch and serialize chunk k's bytes while
+        chunk k+1 computes.  The sink must not mutate its arguments, and
+        the engine never writes into them afterwards (the stacked messages
+        are a fresh buffer; every round builds a new state).
+
+        The tap rides the split path's straight line only: stages that
+        re-route the uplink off it (asynchrony's report buffers, cohort
+        residency, partial participation) raise, as in the reference
+        (:func:`repro_torch.exec.stages.sink_blockers`).  Pass ``None`` to
+        remove the sink.
+        """
+        if sink is not None:
+            if not self.stack.split:
+                raise ValueError(
+                    "uplink sink needs the split (local/server) engine "
+                    "path; a fused or protocol round_fn never materializes "
+                    "the uplink message")
+            # The port has no jit flag.  Its counterpart of the reference's
+            # eager path is the per-round loop that run()'s use_chunk
+            # excludes; the engine takes it under participation (a blocker
+            # of its own), for the protocol form (no split halves, refused
+            # above) and for a supplier without a chunk path -- where the
+            # tap runs as on the chunk path (_split_round collects every
+            # round), as the reference's compiled per-round path does.  So
+            # the eager blocker never fires from here.
+            blockers = sink_blockers(self.stack,
+                                     participation=self._use_active,
+                                     jit=True, kind="uplink")
+            if blockers:
+                raise ValueError(
+                    "uplink sink is unsupported with stage(s): "
+                    f"{', '.join(blockers)}; the per-chunk hand-off taps "
+                    "the plain split round")
+        self._uplink_sink = sink
+        self._uplink_tap = None
+
+    def _fire_uplink_sink(self, start_round: int, state) -> None:
+        tap, self._uplink_tap = self._uplink_tap, None
+        if self._uplink_sink is None or not tap:
+            return
+        # one fresh (chunk, ...) buffer per leaf, stacked on the device
+        msgs = tu.tree_map(lambda *xs: torch.stack(xs), *tap)
+        self._uplink_sink(start_round, msgs, state)
+
+    def set_snapshot_sink(self, sink) -> None:
+        """Register a per-chunk serving-snapshot publication hook: after
+        each committed chunk, ``sink(end_round, state)`` receives the round
+        index just completed and the committed post-chunk state, still on
+        the engine's device, before the chunk's host sync.
+        :meth:`repro_torch.serving.SnapshotStore.engine_sink` builds the
+        standard sink.
+
+        It only reads state the engine holds at every chunk boundary, so it
+        composes with every stage combination except the protocol form.
+        The sink must not mutate ``state``.  Pass ``None`` to remove.
+        """
+        if sink is not None:
+            blockers = sink_blockers(self.stack,
+                                     participation=self._use_active,
+                                     jit=True, kind="snapshot")
+            if blockers:
+                raise ValueError(
+                    "snapshot sink is unsupported with stage(s): "
+                    f"{', '.join(blockers)}; the protocol form bypasses "
+                    "the engine's chunk structure")
+        self._snapshot_sink = sink
+
+    def _fire_snapshot_sink(self, end_round: int, state) -> None:
+        if self._snapshot_sink is None:
+            return
+        with _trace.span("exec/snapshot_publish", "exec",
+                         end_round=int(end_round)):
+            self._snapshot_sink(end_round, state)
 
     # -- cohort residency (stack.cohort; see repro_torch.sched.cohort) ------
 
@@ -721,34 +821,47 @@ class RoundEngine:
             c = min(self.config.chunk_rounds, rounds - done)
             r0 = start_round + done
             infos = []
-            if self._cohort is not None:
-                per_round = self._cohort_batches(supplier, r0, c, rng,
-                                                 use_chunk)
-                if self.stack.split and self._extras is None:
-                    # the stages' state must exist before the first swap
-                    # registers it (its init rows are the default rows)
-                    self._extras = self._init_extras(
-                        state, to_device(per_round[0], self.device))
-                state = self._cohort_swap(state, r0)
-                for b in per_round:
-                    state, info = self._round(state, b, None)
-                    infos.append(info)
-            elif use_chunk:
-                chunk = supplier.sample_chunk(r0, c, rng)
-                for i in range(c):
-                    state, info = self._round(
-                        state, tu.tree_map(lambda x: x[i], chunk), None)
-                    infos.append(info)
-            else:
-                for i in range(c):
-                    batches = supplier.sample_round(r0 + i, rng)
-                    active = (sample_active_masks(
-                        self.n_clients, 1, self.config.participation, rng)[0]
-                        if self._use_active else None)
-                    state, info = self._round(state, batches, active)
-                    infos.append(info)
-            # the chunk's ONE host sync: every round's metrics in one copy
-            for row in _host_metrics(infos):
+            with _trace.span("exec/chunk", "exec", start_round=r0, rounds=c):
+                if self._cohort is not None:
+                    per_round = self._cohort_batches(supplier, r0, c, rng,
+                                                     use_chunk)
+                    if self.stack.split and self._extras is None:
+                        # the stages' state must exist before the first
+                        # swap registers it (its init rows are the default
+                        # rows)
+                        self._extras = self._init_extras(
+                            state, to_device(per_round[0], self.device))
+                    state = self._cohort_swap(state, r0)
+                    for b in per_round:
+                        state, info = self._round(state, b, None)
+                        infos.append(info)
+                else:
+                    if self._uplink_sink is not None:
+                        self._uplink_tap = []
+                    if use_chunk:
+                        chunk = supplier.sample_chunk(r0, c, rng)
+                        for i in range(c):
+                            state, info = self._round(
+                                state, tu.tree_map(lambda x: x[i], chunk),
+                                None)
+                            infos.append(info)
+                    else:
+                        for i in range(c):
+                            batches = supplier.sample_round(r0 + i, rng)
+                            active = (sample_active_masks(
+                                self.n_clients, 1, self.config.participation,
+                                rng)[0] if self._use_active else None)
+                            state, info = self._round(state, batches, active)
+                            infos.append(info)
+                    # hand the chunk's uplink to the sink BEFORE the host
+                    # sync: an overlapping sender fetches chunk k's bytes
+                    # while this thread enqueues chunk k+1
+                    self._fire_uplink_sink(r0, state)
+                self._fire_snapshot_sink(r0 + c, state)
+                # the chunk's ONE host sync: every round's metrics in one copy
+                with _trace.span("exec/host_sync", "exec"):
+                    rows = _host_metrics(infos)
+            for row in rows:
                 for k, v in row.items():
                     metrics.setdefault(k, []).append(v)
             done += c

@@ -160,3 +160,37 @@ class StageStack:
         return tuple(s.name for s in (self.uplink, self.downlink,
                                       self.asynchrony, self.cohort)
                      if s is not None)
+
+
+def sink_blockers(stack: StageStack, *, participation: bool, jit: bool,
+                  kind: str) -> Tuple[str, ...]:
+    """Stage names that make a per-chunk engine sink of ``kind``
+    unsupported (empty tuple = the sink composes with this stack); the
+    reference's rule, stage for stage.
+
+    ``"uplink"`` taps the compressed uplink messages on the round's
+    straight line, so anything that re-routes the uplink off it blocks
+    it: asynchrony (report buffers), cohort residency, partial
+    participation, and the eager path (``jit=False``).  The port has no
+    placement stage, so the reference's ``"placement"`` blocker never
+    arises.
+
+    ``"snapshot"`` only reads the committed post-chunk state the engine
+    already holds at every chunk boundary, so it composes with every
+    stage except the protocol form, which bypasses the engine's chunk
+    structure entirely.
+    """
+    if kind == "snapshot":
+        return ("protocol",) if stack.protocol else ()
+    if kind != "uplink":
+        raise ValueError(f"unknown sink kind {kind!r}")
+    blockers = []
+    if stack.asynchrony is not None:
+        blockers.append("asynchrony")
+    if stack.cohort is not None:
+        blockers.append("cohort")
+    if participation:
+        blockers.append("participation")
+    if not jit:
+        blockers.append("jit=False")
+    return tuple(blockers)

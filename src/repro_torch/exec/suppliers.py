@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree as tu
 
 Batch = Any
@@ -230,9 +231,12 @@ class ArraySupplier(BatchSupplier):
                             client_ids)
 
     def _chunk(self, start_round, n_rounds, client_ids=None):
-        idx = np.stack([self._round_idx(start_round + i, client_ids)
-                        for i in range(n_rounds)])
-        return self._gather(idx, client_ids)
+        with _trace.span("supplier/stage", "supplier",
+                         start_round=int(start_round),
+                         rounds=int(n_rounds)):
+            idx = np.stack([self._round_idx(start_round + i, client_ids)
+                            for i in range(n_rounds)])
+            return self._gather(idx, client_ids)
 
     def _stage(self, start_round, n_rounds):
         """The staging thread's work: one chunk, and on the card the event
@@ -278,7 +282,9 @@ class ArraySupplier(BatchSupplier):
                 self._side = torch.cuda.Stream(self._stage_device)
         if (self._pending is not None
                 and self._pending[:2] == (start_round, n_rounds)):
-            chunk = self._take(self._pending[2].result())
+            with _trace.span("supplier/wait", "supplier",
+                             start_round=int(start_round)):
+                chunk = self._take(self._pending[2].result())
         else:
             # cold start, or the caller jumped (a remainder chunk): stage
             # this one now and re-prime

@@ -1,1 +1,2 @@
-"""The federated simulator and the paper's problem set-ups."""
+"""The federated simulator, the paper's problem set-ups and the
+multi-process runtime (:mod:`repro_torch.fed.runtime`)."""

@@ -1,30 +1,45 @@
-"""Counters and histograms behind one snapshot schema.
+"""Unified metrics: counters / gauges / histograms behind ONE schema.
 
-A numpy-only copy of the part of the reference's :mod:`repro.obs.metrics`
-registry that the serving engine uses, so the port never imports
-``repro``; the reference's gauges, ``Histogram.merge_counts`` and JSONL
-sink are not ported yet.  Two instrument kinds:
+The numpy-only counterpart of :mod:`repro.obs.metrics` (a copy, so the port
+never imports ``repro``): the uplink sender's ``send_wait_s`` /
+``sender_busy_s``, the runtime server's commit path and the serving
+engine's counters land in one registry with a single JSON-serializable
+snapshot shape and a JSONL sink whose lines are the reference's for the
+same events.
 
-  * :class:`Counter` -- monotone accumulator (``add``); floats allowed;
+Three instrument kinds, deliberately small:
+
+  * :class:`Counter` -- monotone accumulator (``add``); floats allowed, so
+    second-counters like ``uplink/send_wait_s`` are counters too;
+  * :class:`Gauge` -- last-write-wins (``set``);
   * :class:`Histogram` -- either *integer buckets* (value v lands in bucket
-    ``min(int(v), n-1)``, last bucket = overflow, the staleness ledger's
-    idiom) or explicit float *edges* (``np.searchsorted``).
+    ``min(int(v), n-1)``, last bucket = overflow -- the staleness ledger's
+    ``AGE_HIST_BUCKETS`` idiom, so ``ArrivalLedger.age_histogram`` merges
+    in unchanged), or explicit float *edges* (``np.searchsorted``).
 
-Thread safety is per instrument.  Snapshot schema (one dict, stable
-keys)::
+Thread safety is per instrument (the server's commit path updates from
+several connection threads).
+
+Snapshot schema (one dict, stable keys -- what the JSONL sink writes)::
 
     {"counters":   {name: float},
+     "gauges":     {name: float},
      "histograms": {name: {"counts": [int...], "n": int, "sum": float,
                            "buckets": int | None, "edges": [...] | None}}}
 """
 from __future__ import annotations
 
+import json
 import threading
+import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "AGE_BUCKETS"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "JsonlSink",
+           "AGE_BUCKETS"]
+
+SCHEMA = "repro.obs.metrics/v1"
 
 #: default integer-bucket count, the staleness ledger's AGE_HIST_BUCKETS
 AGE_BUCKETS = 8
@@ -45,6 +60,23 @@ class Counter:
             raise ValueError(f"counter {self.name}: negative add {v}")
         with self._lock:
             self._v += v
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+
+class Gauge:
+    """Last-write-wins value."""
+
+    __slots__ = ("name", "_v")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._v = 0.0
+
+    def set(self, v: float) -> None:
+        self._v = float(v)
 
     @property
     def value(self) -> float:
@@ -98,6 +130,20 @@ class Histogram:
             np.add.at(self.counts, ix, int(n))
             self.n += arr.size * int(n)
             self.sum += float(arr.sum()) * int(n)
+
+    def merge_counts(self, counts) -> None:
+        """Fold an externally built bucket array (e.g.
+        ``ArrivalLedger.age_histogram()``) into this histogram.  Bucket
+        geometry must match; ``sum`` is approximated by bucket index."""
+        c = np.asarray(counts, np.int64)
+        if c.shape != self.counts.shape:
+            raise ValueError(
+                f"histogram {self.name}: cannot merge {c.shape} into "
+                f"{self.counts.shape}")
+        with self._lock:
+            self.counts += c
+            self.n += int(c.sum())
+            self.sum += float((c * np.arange(len(c))).sum())
 
     @property
     def mean(self) -> float:
@@ -156,6 +202,9 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str, buckets: Optional[int] = None,
                   edges: Optional[Sequence[float]] = None) -> Histogram:
         if buckets is None and edges is None:
@@ -167,10 +216,51 @@ class MetricsRegistry:
         docstring for the schema)."""
         with self._lock:
             items = list(self._by_name.items())
-        out = {"counters": {}, "histograms": {}}
+        out = {"counters": {}, "gauges": {}, "histograms": {}}
         for name, inst in items:
             if isinstance(inst, Counter):
                 out["counters"][name] = float(inst.value)
+            elif isinstance(inst, Gauge):
+                out["gauges"][name] = float(inst.value)
             else:
                 out["histograms"][name] = inst.snapshot()
         return out
+
+
+class JsonlSink:
+    """Append-only JSONL: one self-describing line per record.
+
+    Every line carries the schema tag and a monotonic timestamp
+    (``time.perf_counter`` -- the tracer clock), so merged logs from one
+    process sort correctly even when wall clocks step.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = open(path, "a")
+        self._lock = threading.Lock()
+
+    def write(self, event: str, **fields) -> None:
+        rec = {"schema": SCHEMA, "event": event,
+               "t_mono": time.perf_counter(), "t_unix": time.time()}
+        rec.update(fields)
+        line = json.dumps(rec, separators=(",", ":"))
+        with self._lock:
+            self._f.write(line + "\n")
+
+    def write_snapshot(self, registry: MetricsRegistry, **fields) -> None:
+        self.write("snapshot", metrics=registry.snapshot(), **fields)
+
+    def close(self) -> None:
+        with self._lock:
+            try:
+                self._f.flush()
+            finally:
+                self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

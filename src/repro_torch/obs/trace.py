@@ -1,28 +1,60 @@
-"""Low-overhead span tracing (the part of :mod:`repro.obs.trace` the serving
-engine and the snapshot store use).
+"""Low-overhead span tracing: one cross-process timeline, Perfetto-loadable.
 
-A copy of the reference's numpy-only tracer, so the port never imports
-``repro``: the default tracer is :data:`NULL_TRACER`, whose ``span()``
-returns one shared no-op context manager (no clock read, no allocation);
-:func:`install` enables a :class:`Tracer` that records spans into a
-preallocated numpy ring buffer on the monotonic clock :func:`now`.  The
-wire export, the Chrome/Perfetto merge and ``uninstall`` are not ported
-yet: until then an installed tracer's spans have no reader beyond its
-``n_spans`` and ``dropped`` counts.
+The counterpart of :mod:`repro.obs.trace` (a numpy-only copy, so the port
+never imports ``repro``; its wire bundles and Chrome documents are the
+reference's, so either package merges the other's).  Every process gets ONE
+tracer whose spans assemble into a single Chrome trace-event JSON (open in
+Perfetto or chrome://tracing) where worker compute, frame bytes on the wire
+and server commits share a common timebase.
+
+Design constraints, in order:
+
+  * **disabled is free** -- the default tracer is :data:`NULL_TRACER`, whose
+    ``span()`` returns one shared no-op context manager: no clock read, no
+    allocation, no lock, so instrumentation sites stay in hot paths;
+  * **low overhead when on** -- spans land in a preallocated numpy ring
+    buffer (two float64 clock columns + three int32 index columns); names
+    and categories are interned once; the only per-span lock is around the
+    ring index.  When the ring wraps, the oldest spans are dropped and
+    counted (``dropped``), never reallocated;
+  * **monotonic clock** -- :func:`now` is ``time.perf_counter``.
+    Cross-process alignment is explicit: each worker estimates its offset
+    to the server's clock from the HELLO/ACK handshake
+    (:func:`clock_offset`) and the merge applies it;
+  * **process/thread tagged** -- every span carries (pid, thread); Chrome
+    trace metadata rows name both, so the sender thread, the supplier
+    staging thread and the compute thread render as separate tracks.
+
+Usage::
+
+    from repro_torch.obs import trace
+    tracer = trace.install("worker0")          # enable (idempotent)
+    with trace.span("exec/chunk", "exec", start_round=0, rounds=4):
+        ...
+    doc = trace.to_chrome([tracer.export_wire()])
+    trace.write_chrome(doc, "out.json")        # -> load in Perfetto
+
+``python -m repro_torch.obs.trace validate out.json`` checks the exported
+schema; ``summary`` adds the time per span name.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
-__all__ = ["now", "Tracer", "NullTracer", "NULL_TRACER", "install", "span",
-           "instant"]
+__all__ = ["now", "Tracer", "NullTracer", "NULL_TRACER", "install",
+           "uninstall", "get", "span", "instant", "timed", "clock_offset",
+           "to_chrome", "write_chrome", "merge_wire", "validate_chrome"]
 
 #: THE tracer clock: monotonic, high-resolution, per-process epoch.
 now = time.perf_counter
+
+SCHEMA = "repro.obs.trace/v1"
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +91,9 @@ class NullTracer:
 
     def instant(self, name: str, cat: str = "", **args) -> None:
         pass
+
+    def export_wire(self) -> None:
+        return None
 
 
 NULL_TRACER = NullTracer()
@@ -111,7 +146,11 @@ class Tracer:
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.process = process
+        self.pid = os.getpid()
         self.capacity = capacity
+        #: seconds ADDED to every timestamp at export: the estimated offset
+        #: of this clock to the merge-reference (server) clock.
+        self.offset = 0.0
         self._t0 = np.zeros(capacity, np.float64)
         self._t1 = np.zeros(capacity, np.float64)
         self._name_ix = np.zeros(capacity, np.int32)
@@ -128,8 +167,8 @@ class Tracer:
     # -- recording --------------------------------------------------------
 
     def span(self, name: str, cat: str = "", **args):
-        """Context manager timing one span; ``**args`` are recorded with
-        it."""
+        """Context manager timing one span; ``**args`` become the Chrome
+        event's ``args`` payload (JSON-serializable values only)."""
         return _Span(self, name, cat, args or None)
 
     def instant(self, name: str, cat: str = "", **args) -> None:
@@ -170,6 +209,38 @@ class Tracer:
     def dropped(self) -> int:
         return max(0, self._n - self.capacity)
 
+    # -- export -----------------------------------------------------------
+
+    def export_wire(self) -> dict:
+        """This tracer's spans as a wire-able bundle (numpy arrays + string
+        tables): what a worker ships in its BYE frame.  Timestamps stay in
+        the local clock; ``offset`` travels alongside so the merge maps
+        them onto the reference timebase."""
+        with self._lock:
+            k = self.n_spans
+            if self._n > self.capacity:
+                h = self._n % self.capacity  # oldest-first ring order
+                order = np.concatenate([np.arange(h, self.capacity),
+                                        np.arange(h)])
+            else:
+                order = np.arange(k)
+            args = [self._args[i] for i in order]
+            return {
+                "schema": SCHEMA,
+                "process": self.process,
+                "pid": int(self.pid),
+                "offset": float(self.offset),
+                "dropped": int(self.dropped),
+                "names": list(self._names),
+                "tids": list(self._tids),
+                "t0": self._t0[order].copy(),
+                "t1": self._t1[order].copy(),
+                "name_ix": self._name_ix[order].copy(),
+                "cat_ix": self._cat_ix[order].copy(),
+                "tid_ix": self._tid_ix[order].copy(),
+                "args_json": json.dumps(args),
+            }
+
 
 # ---------------------------------------------------------------------------
 # module-level current tracer
@@ -182,8 +253,10 @@ _INSTALL_LOCK = threading.Lock()
 def install(process: str, capacity: int = 1 << 16) -> Tracer:
     """Enable tracing for this process; returns the installed tracer.
 
-    Idempotent: if a tracer is already installed, the existing one is
-    returned and keeps its name.
+    Idempotent: if a tracer is already installed (e.g. the in-process
+    threaded runtime, where server and worker share one process), the
+    existing one is returned and keeps its name -- the merge dedupes
+    bundles by pid, so shared-process spans are never double-counted.
     """
     global _TRACER
     with _INSTALL_LOCK:
@@ -193,11 +266,239 @@ def install(process: str, capacity: int = 1 << 16) -> Tracer:
         return _TRACER
 
 
+def uninstall() -> Optional[Tracer]:
+    """Disable tracing; returns the tracer that was installed (if any)."""
+    global _TRACER
+    with _INSTALL_LOCK:
+        old, _TRACER = _TRACER, NULL_TRACER
+        return old if isinstance(old, Tracer) else None
+
+
+def get():
+    """The current tracer (:data:`NULL_TRACER` when disabled)."""
+    return _TRACER
+
+
 def span(name: str, cat: str = "", **args):
-    """The current tracer's ``span(...)`` -- the one-liner instrumentation
-    sites use."""
+    """``get().span(...)`` -- the one-liner instrumentation sites use."""
     return _TRACER.span(name, cat, **args)
 
 
 def instant(name: str, cat: str = "", **args) -> None:
     _TRACER.instant(name, cat, **args)
+
+
+class timed:
+    """Measure elapsed seconds on the tracer clock, AND record a span when
+    tracing is enabled.  The measurement is unconditional -- this is the
+    drop-in replacement for the repo's ad-hoc ``time.time()`` timers::
+
+        with trace.timed("dryrun/compile", "launch") as tm:
+            compiled = lowered.compile()
+        report["t_compile"] = tm.seconds
+    """
+
+    def __init__(self, name: str, cat: str = "", **args):
+        self.name = name
+        self.cat = cat
+        self.args = args or None
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self.t0 = now()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = now()
+        self.seconds = t1 - self.t0
+        tr = _TRACER
+        if tr.enabled:
+            tr._record(self.name, self.cat, self.t0, t1, self.args)
+        return False
+
+
+def clock_offset(t_send: float, t_recv: float, peer_now: float) -> float:
+    """Estimated offset mapping THIS clock onto a peer's, from one
+    request/response exchange: the peer stamped ``peer_now`` between our
+    ``t_send`` and ``t_recv``, so (assuming symmetric latency) the peer's
+    clock read ``peer_now`` at our midpoint.  ``local_t + offset`` is then
+    the peer timebase.  The error bound is half the round-trip."""
+    return float(peer_now) - 0.5 * (float(t_send) + float(t_recv))
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event assembly (the merge)
+# ---------------------------------------------------------------------------
+
+
+def merge_wire(bundles: list) -> list:
+    """Dedupe + order wire bundles for :func:`to_chrome`: drops ``None``
+    entries and same-pid duplicates (the in-process threaded runtime ships
+    the one shared tracer from both ends)."""
+    out, seen = [], set()
+    for b in bundles:
+        if b is None:
+            continue
+        pid = int(b["pid"])
+        if pid in seen:
+            continue
+        seen.add(pid)
+        out.append(b)
+    return out
+
+
+def to_chrome(bundles: list) -> dict:
+    """Merge wire bundles into one Chrome trace-event document.
+
+    Every bundle's timestamps are shifted by its ``offset`` (seconds) onto
+    the shared reference timebase, then rebased so the earliest span starts
+    at ts=0.  Events are complete-events (``ph: "X"``, microseconds), plus
+    ``process_name`` / ``thread_name`` metadata rows -- the format Perfetto
+    and chrome://tracing load directly.
+    """
+    bundles = merge_wire(bundles)
+    base = None
+    for b in bundles:
+        if len(b["t0"]):
+            lo = float(np.min(np.asarray(b["t0"], np.float64))) + b["offset"]
+            base = lo if base is None else min(base, lo)
+    base = base or 0.0
+    events: list = []
+    for b in bundles:
+        pid = int(b["pid"])
+        events.append({"ph": "M", "name": "process_name", "pid": pid,
+                       "tid": 0, "args": {"name": str(b["process"])}})
+        for tid, label in enumerate(b["tids"]):
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": str(label)}})
+        t0 = np.asarray(b["t0"], np.float64) + (b["offset"] - base)
+        t1 = np.asarray(b["t1"], np.float64) + (b["offset"] - base)
+        names, name_ix = b["names"], np.asarray(b["name_ix"])
+        cat_ix = np.asarray(b["cat_ix"])
+        tid_ix = np.asarray(b["tid_ix"])
+        args = json.loads(b["args_json"]) if isinstance(
+            b.get("args_json"), (str, bytes)) else (b.get("args")
+                                                    or [None] * len(t0))
+        for i in range(len(t0)):
+            ev = {"name": names[int(name_ix[i])],
+                  "cat": names[int(cat_ix[i])] or "default",
+                  "ph": "X",
+                  "ts": round(t0[i] * 1e6, 3),
+                  "dur": round(max(t1[i] - t0[i], 0.0) * 1e6, 3),
+                  "pid": pid, "tid": int(tid_ix[i])}
+            if args[i]:
+                ev["args"] = args[i]
+            events.append(ev)
+    return {"schema": SCHEMA, "displayTimeUnit": "ms",
+            "traceEvents": events,
+            "metadata": {"dropped": {str(b["process"]): int(b["dropped"])
+                                     for b in bundles}}}
+
+
+def write_chrome(doc: dict, path: str) -> str:
+    with open(path, "w") as f:
+        json.dump(doc, f)
+        f.write("\n")
+    return path
+
+
+# ---------------------------------------------------------------------------
+# schema validation (tests + the CI smoke job)
+# ---------------------------------------------------------------------------
+
+
+def validate_chrome(doc) -> list:
+    """Problems with a Chrome trace-event document; empty list == valid.
+
+    Checks the event schema (required keys, numeric non-negative ts/dur)
+    and the structural invariant the merge promises: within one (pid, tid)
+    track, complete-events are properly nested -- any two spans are either
+    disjoint or one contains the other (Perfetto renders partial overlap
+    as garbage stacks).
+    """
+    errs: list = []
+    if not isinstance(doc, dict) or not isinstance(
+            doc.get("traceEvents"), list):
+        return ["not a trace document: expected {'traceEvents': [...]}"]
+    tracks: dict = {}
+    for i, ev in enumerate(doc["traceEvents"]):
+        if not isinstance(ev, dict):
+            errs.append(f"event {i}: not an object")
+            continue
+        ph = ev.get("ph")
+        if ph not in ("X", "M", "i"):
+            errs.append(f"event {i}: unsupported ph {ph!r}")
+            continue
+        for key in ("name", "pid", "tid"):
+            if key not in ev:
+                errs.append(f"event {i}: missing {key!r}")
+        if ph == "M":
+            if not isinstance(ev.get("args"), dict) or "name" not in ev["args"]:
+                errs.append(f"event {i}: metadata row without args.name")
+            continue
+        ts, dur = ev.get("ts"), ev.get("dur", 0)
+        if not isinstance(ts, (int, float)) or ts < 0:
+            errs.append(f"event {i}: bad ts {ts!r}")
+            continue
+        if not isinstance(dur, (int, float)) or dur < 0:
+            errs.append(f"event {i}: bad dur {dur!r}")
+            continue
+        if ph == "X":
+            tracks.setdefault((ev.get("pid"), ev.get("tid")), []).append(
+                (float(ts), float(ts) + float(dur), i))
+    for (pid, tid), spans in tracks.items():
+        # sort by start, longest first at ties, then check stack nesting
+        spans.sort(key=lambda s: (s[0], -s[1]))
+        stack: list = []
+        for t0, t1, i in spans:
+            while stack and stack[-1][1] <= t0 + 1e-9:
+                stack.pop()
+            if stack and t1 > stack[-1][1] + 1e-3:  # 1ns slack at µs scale
+                errs.append(
+                    f"track (pid={pid}, tid={tid}): event {i} "
+                    f"[{t0}, {t1}] partially overlaps enclosing span "
+                    f"[{stack[-1][0]}, {stack[-1][1]}]")
+            stack.append((t0, t1))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m repro_torch.obs.trace validate out.json
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="trace tooling (see module docstring)")
+    ap.add_argument("cmd", choices=["validate", "summary"])
+    ap.add_argument("path")
+    ns = ap.parse_args(argv)
+    with open(ns.path) as f:
+        doc = json.load(f)
+    errs = validate_chrome(doc)
+    if errs:
+        for e in errs:
+            print(f"INVALID: {e}")
+        return 1
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    procs = {e["pid"] for e in evs}
+    span_s = sum(e.get("dur", 0) for e in evs) / 1e6
+    print(f"valid: {len(evs)} spans across {len(procs)} process(es), "
+          f"{span_s:.3f}s total span time")
+    if ns.cmd == "summary":
+        by_name: dict = {}
+        for e in evs:
+            tot, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (tot + e.get("dur", 0) / 1e6, n + 1)
+        for name, (tot, n) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][0]):
+            print(f"  {name:<28s} {n:6d} spans  {tot:10.4f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -10,10 +10,9 @@ becomes memory sparsity:
     the identity, which makes the cohort mode the dense engine bitwise.
   * :class:`PopulationStore` -- the host-resident population state in numpy
     rows, materialized lazily on first touch (an untouched client costs one
-    int32 slot-map entry).  ``save``/``load`` write and read the reference's
-    npz layout (escaped tree paths, a JSON ``__manifest__`` of shapes and
-    dtypes, the metadata beside), so a store saved by one package loads in
-    the other.
+    int32 slot-map entry).  ``save``/``load`` go through
+    :mod:`repro_torch.checkpoint.ckpt`, the reference's npz layout, so a
+    store saved by one package loads in the other.
   * :class:`ResidentCohort` -- the engine-facing gather/scatter between the
     store and the fixed-width working set on the engine's device.
 
@@ -22,19 +21,14 @@ the bits).
 """
 from __future__ import annotations
 
-import json
-import os
-import pathlib
-import tempfile
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.utils import tree as tu
-
-MANIFEST_KEY = "__manifest__"
 
 
 @dataclass(frozen=True)
@@ -76,93 +70,8 @@ class CohortSpec:
         return np.sort(ids).astype(np.int64)
 
 
-# ---------------------------------------------------------------------------
-# npz checkpoint layout (the reference's repro.checkpoint.ckpt)
-# ---------------------------------------------------------------------------
-
-
-def _escape(component: str) -> str:
-    return component.replace("\\", "\\\\").replace("/", "\\/")
-
-
-def _flatten_with_paths(tree, prefix=()) -> Dict[str, Any]:
-    """Escaped ``"/"``-joined tree path -> leaf, in ``jax.tree_util`` order
-    (dict keys sorted, named-tuple fields by name, sequences by index)."""
-    if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        items = list(zip(tree._fields, tree))
-    elif isinstance(tree, (list, tuple)):
-        items = [(str(i), x) for i, x in enumerate(tree)]
-    else:
-        return {"/".join(_escape(c) for c in prefix): tree}
-    out: Dict[str, Any] = {}
-    for name, sub in items:
-        for key, leaf in _flatten_with_paths(sub, prefix + (name,)).items():
-            if key == MANIFEST_KEY or key in out:
-                raise ValueError(f"tree path {key!r} cannot be stored")
-            out[key] = leaf
-    return out
-
-
-def _storable(v: np.ndarray) -> np.ndarray:
-    if v.dtype.kind == "f" and v.dtype.itemsize < 4 and v.dtype != np.float16:
-        return v.astype(np.float32)
-    return v
-
-
-def save_tree(tree, path, metadata: Optional[dict] = None) -> None:
-    """Write a pytree of numpy arrays in the reference's npz layout (atomic:
-    a temporary file renamed into place)."""
-    path = pathlib.Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    leaves = {k: np.asarray(v) for k, v in _flatten_with_paths(tree).items()}
-    f = tempfile.NamedTemporaryFile(dir=path.parent, suffix=".tmp",
-                                    delete=False)
-    tmp = f.name
-    try:
-        with f:
-            manifest = {
-                "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                           for k, v in leaves.items()},
-                "metadata": metadata or {},
-            }
-            np.savez(f, **{MANIFEST_KEY: json.dumps(manifest)},
-                     **{k: _storable(v) for k, v in leaves.items()})
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-
-
-def read_metadata(path) -> dict:
-    with np.load(path, allow_pickle=False) as z:
-        return json.loads(str(z[MANIFEST_KEY]))["metadata"]
-
-
-def restore_tree(path, like: Dict[str, tuple]) -> Dict[str, np.ndarray]:
-    """Read the leaves named in ``like`` (path -> ``(shape, dtype)``),
-    checking the manifest's shape and dtype; no silent casts."""
-    out = {}
-    with np.load(path, allow_pickle=False) as z:
-        manifest = json.loads(str(z[MANIFEST_KEY]))["leaves"]
-        for k, (shape, dtype) in like.items():
-            if k not in z or k not in manifest:
-                raise KeyError(f"checkpoint missing leaf {k!r}")
-            dtype = np.dtype(dtype)
-            if manifest[k]["dtype"] != str(dtype):
-                raise ValueError(
-                    f"{k}: template dtype {dtype} != checkpointed dtype "
-                    f"{manifest[k]['dtype']}")
-            arr = z[k]
-            if tuple(arr.shape) != tuple(shape):
-                raise ValueError(f"{k}: checkpoint shape {tuple(arr.shape)} "
-                                 f"!= template {tuple(shape)}")
-            out[k] = arr.astype(dtype)
-    return out
+def _template(shape, dtype) -> np.ndarray:
+    return np.broadcast_to(np.zeros((), dtype), shape)
 
 
 # ---------------------------------------------------------------------------
@@ -298,33 +207,30 @@ class PopulationStore:
                                            [s[order] for s in e.storage])
         meta = {"population": self.population, "touched": int(ids.size)}
         meta.update(metadata or {})
-        save_tree(tree, path, metadata=meta)
+        ckpt.save(tree, path, metadata=meta)
 
     def load(self, path) -> dict:
         """Restore rows saved by :meth:`save` (by either package) into this
         store; entries must be registered with matching templates.  Returns
         the checkpoint metadata; existing rows are replaced."""
-        meta = read_metadata(path)
+        meta = ckpt.metadata(path)
         if meta.get("population") != self.population:
             raise ValueError(
                 f"population store checkpoint holds population="
                 f"{meta.get('population')}, this store has "
                 f"{self.population}")
         n = int(meta["touched"])
-        keys = {name: list(_flatten_with_paths({name: self.default_row(name)}))
-                for name in self._entries}
-        like = {"__ids__": ((n,), np.int64)}
+        # layout-only templates: zero-stride views, nothing allocated
+        like = {"__ids__": _template((n,), np.int64)}
         for name, e in self._entries.items():
-            # path order is the entry's leaf order (both sort dict keys)
-            like.update({k: ((n,) + d.shape, d.dtype)
-                         for k, d in zip(keys[name], e.defaults)})
-        arrays = restore_tree(path, like)
+            like[name] = tu.tree_unflatten(e.treedef, [
+                _template((n,) + d.shape, d.dtype) for d in e.defaults])
+        tree = ckpt.restore(path, like)
         self._slot[:] = -1
         self._n_used = 0
-        ids = arrays["__ids__"]
-        for name, e in self._entries.items():
-            self.scatter(name, ids, tu.tree_unflatten(
-                e.treedef, [arrays[k] for k in keys[name]]))
+        ids = tree["__ids__"]
+        for name in self._entries:
+            self.scatter(name, ids, tree[name])
         return meta
 
 

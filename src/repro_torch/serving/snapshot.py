@@ -133,8 +133,8 @@ class SnapshotStore:
     # -- engine glue ------------------------------------------------------
 
     def engine_sink(self, select: Optional[Callable[[Any], Any]] = None):
-        """A callable for a round engine's snapshot sink (the reference's
-        :meth:`repro.exec.RoundEngine.set_snapshot_sink`; not ported yet).
+        """A callable for a round engine's snapshot sink
+        (:meth:`repro_torch.exec.RoundEngine.set_snapshot_sink`).
 
         The engine fires ``sink(end_round, state)`` per committed chunk
         with the full (device-resident) algorithm state; ``select`` maps

@@ -33,6 +33,14 @@ def _canonical(tree):
     return tree
 
 
+def canonical(tree):
+    """``tree`` with its dicts in sorted-key order: the tree ``jax.tree_util``
+    (``tree_map``, ``eval_shape``) would give back for it.  Serializers that
+    keep a dict's insertion order (the wire codec) use it to write the
+    reference's bytes."""
+    return _canonical(tree)
+
+
 def tree_flatten(tree):
     """(leaves, treespec) with leaves in ``jax.tree_util`` order."""
     return pytree.tree_flatten(_canonical(tree))

@@ -725,3 +725,73 @@ def test_prefetched_chunks_on_card_equal_unprefetched(cuda, device_cache):
                 assert torch.equal(torch.as_tensor(a[k], device=cuda), b[k])
     finally:
         pre.close()
+
+
+@pytest.mark.gpu
+def test_overlapped_sender_fetches_a_chunk_while_the_next_runs(cuda):
+    """The runtime sender's stream hand-off: a chunk recorded on the
+    compute stream and fetched on the side stream, while the compute stream
+    already runs the next chunk's work, has the bytes the blocking fetch
+    reads after a full synchronise."""
+    from repro_torch.fed.runtime import _UplinkSender
+
+    sender = _UplinkSender(None, 0, None, None, "dense", "overlapped", 4,
+                           None, cuda)
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        a = torch.randn(2048, 2048, generator=gen, device=cuda,
+                        dtype=torch.float64)
+        msgs = torch.empty(4, 30, 4096, device=cuda, dtype=torch.float64)
+        # the chunk is written by long work just before the hand-off ...
+        for _ in range(4):
+            a = a @ a / a.norm()
+        msgs.copy_(a.reshape(-1)[:msgs.numel()].reshape(msgs.shape))
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(cuda))
+        # ... and the next chunk's work is queued behind it
+        nxt = a
+        for _ in range(8):
+            nxt = nxt @ nxt / nxt.norm()
+        host = sender._fetch({"m": msgs, "x": msgs[0, 0]}, ready)
+        torch.cuda.synchronize()
+        assert host["m"].tobytes() == msgs.cpu().numpy().tobytes()
+        assert host["x"].tobytes() == msgs[0, 0].cpu().numpy().tobytes()
+        assert bool(torch.isfinite(nxt).all())
+    finally:
+        sender.finish()
+
+
+@pytest.mark.gpu
+def test_runtime_overlapped_equals_blocking_on_card(cuda):
+    """Server (thread) and worker on the card at a small width: the
+    overlapped mode's server fields and bytes are the blocking mode's, and
+    both are the single-process run's, bitwise."""
+    import threading
+
+    from repro_torch.fed import runtime as rt
+
+    def pair(mode):
+        a = rt.RuntimeArgs(clients=8, m=16, dim=4096, tau=2, rounds=8,
+                           chunk=2, mode=mode, timeout=30.0, plane=True,
+                           transport="topk", ratio=0.1)
+        box, ready = {}, threading.Event()
+
+        def srv():
+            box["server"] = rt.run_server(
+                a, ready_cb=lambda p: (box.update(port=p), ready.set()))
+
+        t = threading.Thread(target=srv, daemon=True)
+        t.start()
+        assert ready.wait(30)
+        a.port = box["port"]
+        box["worker"] = rt.run_worker(a, rank=0)
+        t.join(30)
+        return a, box
+
+    a, b = pair("blocking")
+    _, o = pair("overlapped")
+    local = rt.run_local(a)
+    assert rt._fields_bitwise(b["server"]["fields"], o["server"]["fields"])
+    assert rt._fields_bitwise(local["fields"], o["server"]["fields"])
+    assert b["worker"]["bytes_sent"] == o["worker"]["bytes_sent"]
+    assert o["server"]["max_replay_drift"] <= 1e-12

@@ -48,6 +48,9 @@ def test_package_imports_with_jax_blocked():
             "import repro_torch.configs.registry, repro_torch.obs\n"
             "import repro_torch.core.baselines, repro_torch.models.cnn\n"
             "import repro_torch.data.mnist_like, repro_torch.core.prox\n"
+            "import repro_torch.comm.wire, repro_torch.checkpoint.ckpt\n"
+            "import repro_torch.obs.report, repro_torch.obs.trace\n"
+            "import repro_torch.serving.delta, repro_torch.fed.runtime\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -91,6 +94,23 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cnn.init_params(0)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_runtime_entry_points_raise_without_a_gpu(no_gpu):
+    """The runtime's roles default to the card: each raises before it
+    binds or connects a socket; ``device="cpu"`` is the explicit way out."""
+    from repro_torch.fed import runtime
+
+    a = runtime.RuntimeArgs(clients=2, m=3, dim=2, tau=1, rounds=1,
+                            chunk=1, timeout=1.0)
+    assert a.device == "cuda"
+    for role in (runtime.run_local, runtime.run_server,
+                 lambda a: runtime.run_worker(a, rank=0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            role(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.main(["--role", "local", "--clients", "2", "--m", "3",
+                      "--dim", "2", "--rounds", "1"])
 
 
 def test_serving_and_attention_need_a_gpu_or_the_cpu(no_gpu):
