@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # needs one CUDA card; exits non-zero without
     python3 chip_smoke.py --ab DIR # A/B: the checkout at DIR (an earlier
                                    # tree) and this one, alternated
+    python3 chip_smoke.py --lm     # phases 0, 1 and 15 alone (no result)
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
@@ -155,6 +156,36 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   so that no torch.compile precedes the serving phase's
                   host-clock timings.
 
+ 15. LM training -- run after phase 11, before 12: (a) the flash-attention
+                  backward kernel (5b) against its plain version computed
+                  in float64, each of dq, dk, dv within 1e-4 of its max
+                  |.| at logits of std 16, with controls (softcap dropped,
+                  window moved by 32 keys, causal flipped) that must move
+                  the plain gradients by 10x that: stablelm (16, 128,
+                  32/32, 64) and (2, 2048, 32/32, 64), mistral-nemo (2,
+                  512, 32/8, 128), gemma2-9b (1, 512, 16/8, 256) softcap
+                  50, global and window 256; kernel ms, plain ms, the bound
+                  (10 D operations an admitted pair at 67 TFLOP/s f32,
+                  against the bytes) and SDPA's backward (phase 12:
+                  flex_attention's for the softcap cases); (b) the smoke
+                  stablelm, mistral-nemo and gemma2 (head_dim 64) through
+                  the trainer's set-up (repro_torch.launch.train.build), 2
+                  clients, tau 2, 4 rounds, on the card and on the CPU port
+                  with params from one seed and PyTorch's TF32 allowed:
+                  train_loss at rtol 1e-5 and x_bar within 1e-4 x max
+                  |x_bar| every round, kernels 5 and 5b n_layers x tau x
+                  rounds times, kernel 1 tau x rounds; (c) stablelm-1.6b at
+                  full width (depth cut from 24 to 4 layers, 411 M float32
+                  params) through the trainer's build and train: 4 clients,
+                  batch 4, seq 128, tau 4, chunk 4, 8 rounds: finite loss,
+                  the same launch counts and no copy, s/round after the
+                  first chunk, peak memory, one profiled round (busy, idle
+                  share, top kernels, the shares of 5 and 5b); then global
+                  top-k 0.1 on the plane for 4 rounds, kernel 2 once a
+                  round; (d) ``python -m repro_torch.launch.train --scale
+                  100m --rounds 4 --tau 2 --clients 2`` in a subprocess
+                  exits 0.
+
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
 (30, 112,512), (30, 128) and (1, 112,512) float64 -- the compressed paths'
@@ -183,8 +214,8 @@ paths, phase 4's wide round and phase 7b's commits; the results go to
 ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11, 13 and 14 and read just after; no path
-may copy.  The line before the last is the kernels' JSON summary;
+before each path of phases 3-9, 11, 13, 14 and 15 and read just after; no
+path may copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
 """
@@ -231,11 +262,15 @@ def log(msg: str) -> None:
 def _counters():
     from repro_torch.kernels import flash_attention, fused_prox, plane_ops
 
-    return {"fused_local_update": fused_prox.fused_local_update_2d,
-            "threshold_select": plane_ops.threshold_select_2d,
-            "quantize": plane_ops.quantize_2d,
-            "weighted_commit": plane_ops.weighted_commit_2d,
-            "flash_attention": flash_attention.flash_attention_bshd}
+    out = {"fused_local_update": fused_prox.fused_local_update_2d,
+           "threshold_select": plane_ops.threshold_select_2d,
+           "quantize": plane_ops.quantize_2d,
+           "weighted_commit": plane_ops.weighted_commit_2d,
+           "flash_attention": flash_attention.flash_attention_bshd}
+    # an A/B side of an earlier tree has no backward kernel
+    if hasattr(flash_attention, "flash_attention_bwd"):
+        out["flash_attention_bwd"] = flash_attention.flash_attention_bwd
+    return out
 
 
 def _expect(**launches) -> dict:
@@ -2315,6 +2350,79 @@ def phase_flash_kernel(card: str):
     return [_flash_case(card, seed=200 + i, **c) for i, c in enumerate(cases)]
 
 
+def _flex_bwd_yardstick(card: str, row: dict) -> None:
+    """The library yardstick of a phase-15 kernel-5b row with a softcap:
+    the compiled ``flex_attention``'s backward (``torch.autograd.grad`` of
+    its output, the softcap as ``score_mod``, the window as the block mask)
+    on that row's inputs, in float32, held to the kernel at LIB_BWD_TOL
+    (fatal) and timed with CUDA events; fills ``library_ms``.  Only a
+    failure to import, compile or call it is logged and carries on."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kh, d = row["shape"]
+    causal, window, softcap = row["causal"], row["window"], row["softcap"]
+    gen = torch.Generator(device="cuda").manual_seed(row["seed"])
+    sd = LOGIT_STD ** 0.5
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda") * f
+               for n, f in ((h, sd), (kh, sd), (kh, 1.0)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    where = f"5b {(b, s, h, kh, d)} {kw}"
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def score_mod(score, b_, h_, qi, kv):
+            return softcap * torch.tanh(score / softcap)
+
+        def mask_mod(b_, h_, qi, kv):
+            ok = kv <= qi if causal else kv >= 0
+            if causal and window is not None:
+                ok = ok & (kv > qi - window)
+            return ok
+
+        t0 = time.perf_counter()
+        mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        # a compiled backward donates its saved buffers unless told not to,
+        # and then refuses the retain_graph the timing loop needs; the
+        # setting is read at every backward call, so it spans the timing
+        with torch._functorch.config.patch(donated_buffer=False):
+            lib_out = torch.compile(flex_attention)(
+                qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                enable_gqa=h != kh)
+
+            def lib():
+                return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            res = lib()
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            err = _bwd_grads_err([x.transpose(1, 2) for x in res], got)
+            check(err <= LIB_BWD_TOL, f"flex_attention's backward disagrees "
+                  f"with kernel 5b at {where} by {err:.3e} > {LIB_BWD_TOL}")
+            ms = _time_ms(lib, 5, 3)
+    except Exception as e:  # noqa: BLE001 -- the import, compile, calls
+        row["flex_bwd_error"] = f"{type(e).__name__}: {str(e)[:300]}"
+        log(f"[flex] {where}: flex_attention backward not measured: "
+            f"{row['flex_bwd_error']}")
+        return
+    row.update(library="flex_attention", library_err=err, library_ms=ms,
+               library_compile_s=compile_s)
+    log(f"[flex] {where}: flex_attention backward (compiled in "
+        f"{compile_s:.1f} s) {ms:.4f} ms (CUDA events), {err:.3e} of max "
+        f"|grad| from the kernel; kernel 5b {row['ms']:.4f} ms  [{card}]")
+    del q, k, v, qt, kt, vt, out, lse, do, dot, got, res, lib_out
+    torch.cuda.empty_cache()
+
+
 def phase_flex_yardstick(card: str, rows: list) -> None:
     """Phase 12: flex_attention beside the kernel at phase 10's softcap
     cases, on the same inputs; fills each row's ``library_ms``."""
@@ -2591,6 +2699,393 @@ def phase_gemma_full(card: str):
             "serve_tokens": {r.id: r.tokens.tolist() for r in served}}
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+# kernel 5b against its plain version computed in float64: each of dq, dk,
+# dv within BWD_TOL x its max |.|; q, k scaled to logits of std LOGIT_STD
+# (phase 10's sharp inputs: the softcap bends, the softmax is peaked).
+# Controls: the softcap dropped, the window moved by 32 keys either way and
+# the causal flag flipped must each move the plain gradients by CONTROL x
+# BWD_TOL.  Measured by this phase on an H100 80GB HBM3 (700 W): <= 1.22e-5
+# (the f32 kernel's summation order and its forward's log-sum-exp).
+BWD_TOL = 1e-4
+# the library's backward (SDPA or flex_attention) against the kernel: its
+# own summation order and kernels, so held at 10x the kernel's tolerance
+LIB_BWD_TOL = 1e-3
+# (b): card vs CPU port, per round: train_loss at rtol LM_LOSS_RTOL, x_bar
+# within LM_XBAR_TOL x max |x_bar|
+LM_LOSS_RTOL, LM_XBAR_TOL = 1e-5, 1e-4
+LM_ARCHS = ("stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b")
+# (c): stablelm-1.6b at full width, its 24 layers cut to LM_LAYERS so that
+# 4 clients' DProx state fits one 80 GB card
+LM_LAYERS = 4
+_BWD_PARTS = ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
+              "flash_bwd_dq_kernel")
+
+
+def _bwd_grads_err(got, exp) -> float:
+    """max over dq, dk, dv of max |got - exp| / max |exp|."""
+    return max(float((g.double() - e).abs().max() / e.abs().max())
+               for g, e in zip(got, exp))
+
+
+def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
+              softcap=None, seed=0):
+    """Kernel 5b at one shape: against the plain version in float64, its
+    controls, and its time beside the plain version's, the bound and SDPA's
+    backward (where it computes the same function)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = LOGIT_STD ** 0.5
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda") * f
+               for n, f in ((h, sd), (kh, sd), (kh, 1.0)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+
+    def kern():
+        return fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+
+    got = kern()
+    torch.cuda.synchronize()
+    where = (f"{(b, s, h, kh, d)} causal={causal} window={window} "
+             f"softcap={softcap}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"flash bwd {where}: non-finite gradient")
+    f64 = [t.double() for t in (q, k, v, out, do)]
+    exp = fa.flash_attention_backward_plain(*f64, **kw)
+    err = _bwd_grads_err(got, exp)
+    check(err <= BWD_TOL, f"flash bwd kernel != plain (f64) at {where}: "
+          f"{err:.3e} of max |grad| > {BWD_TOL}")
+    controls = {}
+    if softcap is not None:
+        controls["softcap dropped"] = dict(kw, softcap=None)
+    if causal and window is not None:
+        for w in (window - 32, window + 32):
+            controls[f"window {w}"] = dict(kw, window=w)
+    controls["causal flipped"] = dict(kw, causal=not causal)
+    ctl = {}
+    for name, ckw in controls.items():
+        ctl[name] = _bwd_grads_err(
+            fa.flash_attention_backward_plain(*f64, **ckw), exp)
+        check(ctl[name] >= CONTROL * BWD_TOL, f"flash bwd control at "
+              f"{where}: {name} moves the plain gradients by only "
+              f"{ctl[name]:.3e} < {CONTROL} x {BWD_TOL}")
+        torch.cuda.empty_cache()
+    del f64, exp
+    torch.cuda.empty_cache()
+    ms = _time_ms(kern, 5, 3)
+    plain_ms = _time_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, out, do, lse, **kw), 3, 1)
+    recs = {n: t for n, t in _profile_kernels(kern, 5).items()
+            if any(p in n for p in _BWD_PARTS)}
+    device_ms = sum(recs.values()) / 5 if recs else None
+    library_ms = lib_err = None
+    if softcap is None and (window is None or not causal):
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=h != kh)
+        dot = do.transpose(1, 2).contiguous()
+
+        def lib():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib_err = _bwd_grads_err([x.transpose(1, 2) for x in lib()], got)
+        check(lib_err <= LIB_BWD_TOL, f"SDPA's backward disagrees with the "
+              f"kernel at {where} by {lib_err:.3e}")
+        library_ms = _time_ms(lib, 5, 3)
+        del qt, kt, vt, lib_out, dot
+    pairs = _admitted_pairs(s, causal, window)
+    flops = 10 * d * h * b * pairs
+    nbytes = 4 * (4 * b * s * h * d + 4 * b * s * kh * d + b * h * s)
+    t_ops, t_bytes = flops / PEAK_OPS["float32"], nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    row = {"kernel": "flash_attention_bwd", "shape": [b, s, h, kh, d],
+           "dtype": "float32", "causal": causal, "window": window,
+           "softcap": softcap, "seed": seed, "max_abs_err": max(
+               float((g - e).abs().max()) for g, e in zip(got, fa.
+               flash_attention_backward_plain(q, k, v, out, do, lse, **kw))),
+           "max_rel_err_f64": err, "tol": BWD_TOL, "controls": ctl,
+           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "library": "sdpa" if library_ms is not None else None,
+           "library_ms": library_ms, "library_err": lib_err,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": flops / 1e9,
+           "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
+    log(f"[lm-a] 5b (B {b}, S {s}, H {h}/{kh}, D {d}) causal={causal} "
+        f"window={window} softcap={softcap}: vs plain f64 {err:.3e} of max "
+        f"|grad| (tol {BWD_TOL}), controls "
+        + ", ".join(f"{n} {c:.3e}" for n, c in ctl.items())
+        + f"; kernel {ms:.4f} ms (device "
+        f"{'%.4f ms' % device_ms if device_ms else 'not measured'}, "
+        f"{row['TFLOP_per_s']:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
+        f"({row['bound_by']}), plain {plain_ms:.4f} ms, SDPA backward "
+        f"{'%.4f ms' % library_ms if library_ms is not None else 'n/a'}"
+        f"  [{card}]")
+    del q, k, v, out, lse, do, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def _lm_args(*extra):
+    from repro_torch.launch import train as TR
+
+    return TR.parser().parse_args(list(extra))
+
+
+def _lm_smoke(card: str, arch: str) -> dict:
+    """(b) one smoke config through the trainer's set-up on the card and on
+    the CPU port, round by round: train_loss and x_bar compared."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree as tu
+
+    smoke = registry.get_smoke(arch)
+    # the smoke head dims (32, 40) are not kernel widths
+    cfg = smoke.with_overrides(param_dtype=torch.float32, attn=dataclasses
+                               .replace(smoke.attn, head_dim=64))
+    params = T.init_model(torch.Generator().manual_seed(0), cfg)
+    rounds, tau = 4, 2
+    traj = {}
+    for device in ("cuda", "cpu"):
+        def go(device=device):
+            args = _lm_args("--device", device, "--clients", "2", "--tau",
+                            str(tau), "--rounds", str(rounds))
+            run = TR.build(args, cfg=cfg, params=params)
+            rng = np.random.default_rng(args.seed)
+            state, losses, xbars = run.state, [], []
+            for r in range(rounds):
+                state, m = run.engine.run(state, run.supplier, 1, rng=rng,
+                                          start_round=r)
+                losses.append(m["train_loss"][0])
+                xbars.append(tu.tree_map(lambda x: x.detach().cpu(),
+                                         state.x_bar))
+            run.close()
+            return losses, xbars
+
+        reset_counts()
+        traj[device] = go() if device == "cuda" else _cpu_run(go)
+        if device == "cuda":
+            counts = read_counts()
+            n = cfg.n_layers * tau * rounds
+            check(counts == _expect(flash_attention=n, flash_attention_bwd=n,
+                                    fused_local_update=tau * rounds),
+                  f"lm (b) {arch}: launches {counts}")
+    (lg, xg), (lc, xc) = traj["cuda"], traj["cpu"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    xbar_gap = max(
+        max(float((a - b).abs().max()) for a, b in
+            zip(tu.tree_leaves(ga), tu.tree_leaves(ca)))
+        / max(float(b.abs().max()) for b in tu.tree_leaves(ca))
+        for ga, ca in zip(xg, xc))
+    check(loss_gap <= LM_LOSS_RTOL, f"lm (b) {arch}: card vs cpu train_loss "
+          f"rel gap {loss_gap:.3e} > {LM_LOSS_RTOL}")
+    check(xbar_gap <= LM_XBAR_TOL, f"lm (b) {arch}: card vs cpu x_bar gap "
+          f"{xbar_gap:.3e} of max |x_bar| > {LM_XBAR_TOL}")
+    log(f"[lm-b] {cfg.name} (head_dim 64), 2 clients, tau {tau}, {rounds} "
+        f"rounds: card vs cpu train_loss rel gap {loss_gap:.3e} (tol "
+        f"{LM_LOSS_RTOL}), x_bar gap {xbar_gap:.3e} of max |x_bar| (tol "
+        f"{LM_XBAR_TOL}); losses {[round(x, 6) for x in lg]}; launches "
+        f"{counts}  [{card}]")
+    return {"arch": arch, "loss_rel_gap": loss_gap, "xbar_rel_gap": xbar_gap,
+            "train_loss_card": lg, "train_loss_cpu": lc, "launches": counts}
+
+
+def _lm_full(card: str, extra=(), rounds: int = 8):
+    """(c) stablelm-1.6b at full width (depth cut to LM_LAYERS), through the
+    trainer's set-up and loop on the card: launches, finite loss, s/round
+    after the first chunk, peak memory and one profiled round."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TR
+
+    cfg = registry.get("stablelm_1_6b").with_overrides(
+        n_layers=LM_LAYERS, param_dtype=torch.float32)
+    args = _lm_args("--rounds", str(rounds), "--log-every", "1", *extra)
+    tag = "topk" if args.transport else "dense"
+    _free_card()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases hold
+    log(f"[lm-c] {tag}: {held_gb:.2f} GB held by earlier phases")
+    _expandable_segments(True)
+    t0 = time.perf_counter()
+    run = TR.build(args, cfg=cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = TR.train(run, log=lambda m: stamps.append(
+        (time.perf_counter(), m)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = cfg.n_layers * args.tau * rounds
+    expect = _expect(flash_attention=n, flash_attention_bwd=n,
+                     fused_local_update=args.tau * rounds)
+    if args.transport == "topk":
+        expect["threshold_select"] = rounds
+    losses = hist["train_loss"]
+    check(len(losses) == rounds and all(math.isfinite(x) for x in losses),
+          f"lm (c) {tag}: train_loss {losses}")
+    check(counts == expect, f"lm (c) {tag}: launches {counts}, expected "
+          f"{expect}")
+    rt = [t for t, m in stamps if m.startswith("round")]
+    c = args.chunk
+    s_round = (rt[-1] - rt[c - 1]) / (rounds - c) if rounds > c else None
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": run.n_params, "args": vars(args), "setup_s": setup_s,
+           "wall_s": wall, "s_per_round": s_round, "train_loss": losses,
+           "launches": counts, "peak_gb": peak_gb, "held_before_gb": held_gb,
+           "copies_per_local_step": counts["copies"] / (args.tau * rounds)}
+    log(f"[lm-c] {cfg.name} {tag}: {run.n_params:,} params, 4 clients x "
+        f"batch 4 x seq 128, tau {args.tau}, {rounds} rounds in {wall:.2f} s "
+        f"(set-up {setup_s:.2f} s); "
+        f"{'%.4f' % s_round if s_round else 'n/a'} s/round after the first "
+        f"chunk; peak {peak_gb:.2f} GB ({held_gb:.2f} GB held before); "
+        f"losses "
+        f"{[round(x, 4) for x in losses]}; launches {counts}; kernel-1 "
+        f"copies per local step {out['copies_per_local_step']:g}  [{card}]")
+    # one profiled round
+    rng = np.random.default_rng(1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        state, _ = run.engine.run(state, run.supplier, 1, rng=rng,
+                                  start_round=rounds)
+        end.record()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    round_ms = start.elapsed_time(end)
+    busy = sum(by_name.values())
+    fwd = sum(v for k_, v in by_name.items() if "flash_simt" in k_)
+    bwd = sum(v for k_, v in by_name.items()
+              if any(p in k_ for p in _BWD_PARTS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["profile"] = {
+        "round_ms": round_ms, "device_busy_ms": busy,
+        "idle_share": (1 - busy / round_ms) if busy else None,
+        "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
+        "flash_fwd_share": fwd / busy if busy else None,
+        "flash_bwd_share": bwd / busy if busy else None,
+        "top_kernels_ms": top}
+    log(f"[lm-c] one profiled round: {round_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms (idle share "
+        f"{(1 - busy / round_ms) if busy else float('nan'):.3f}); "
+        f"kernel 5 {fwd:.3f} ms, 5b {bwd:.3f} ms (shares of busy "
+        f"{fwd / busy if busy else float('nan'):.4f}, "
+        f"{bwd / busy if busy else float('nan'):.4f})  [{card}]")
+    for name, ms in top:
+        log(f"[lm-c]   {ms:9.3f} ms  {name[:100]}")
+    del run, state
+    _free_card()
+    _expandable_segments(False)
+    return out
+
+
+def _free_card() -> None:
+    """Collect the engine's reference cycles (their tensors go only with
+    the cycle) and hand the allocator's cached blocks back."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _expandable_segments(on: bool) -> None:
+    """The caching allocator's expandable segments, for the full-width runs
+    only: their client-width buffers (6.6 GB each) are freed and reused at
+    smaller sizes every local step, and with fixed segments the pool
+    fragmented after the earlier phases until a 6.1 GB request failed with
+    19-25 GB reserved and unused (H100 80GB HBM3)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{'True' if on else 'False'}")
+
+
+def _lm_cli(card: str) -> dict:
+    """(d) the trainer's command line in a subprocess on the card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--scale",
+           "100m", "--rounds", "4", "--tau", "2", "--clients", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-3:]
+    check(proc.returncode == 0, f"lm (d): {' '.join(cmd[1:])} exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    check(any(line.startswith("done: final loss") for line in tail),
+          f"lm (d): no final loss line in {tail}")
+    log(f"[lm-d] python {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s; "
+        + " | ".join(tail) + f"  [{card}]")
+    return {"cmd": cmd[1:], "seconds": secs, "tail": tail}
+
+
+def phase_lm(card: str) -> dict:
+    """Phase 15: federated LM training (see the module docstring)."""
+    import torch
+
+    from repro_torch import device as dev
+
+    t0 = time.perf_counter()
+    cases = [dict(b=16, s=128, h=32, kh=32, d=64),
+             dict(b=2, s=2048, h=32, kh=32, d=64),
+             dict(b=2, s=512, h=32, kh=8, d=128),
+             dict(b=1, s=512, h=16, kh=8, d=256, softcap=50.0),
+             dict(b=1, s=512, h=16, kh=8, d=256, softcap=50.0, window=256)]
+    rows = [_bwd_case(card, seed=500 + i, **c) for i, c in enumerate(cases)]
+    # the model turns TF32 off itself: run (b) with PyTorch's TF32 allowed
+    with dev.full_fp32():
+        check(not torch.backends.cudnn.allow_tf32
+              and torch.get_float32_matmul_precision() == "highest",
+              "lm: TF32 is on inside device.full_fp32")
+    tf32 = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        smoke = {arch: _lm_smoke(card, arch) for arch in LM_ARCHS}
+    finally:
+        torch.set_float32_matmul_precision(tf32)
+    full = _lm_full(card)
+    topk = _lm_full(card, ("--transport", "topk", "--compress-ratio", "0.1",
+                           "--granularity", "global", "--plane"), rounds=4)
+    cli = _lm_cli(card)
+    secs = time.perf_counter() - t0
+    log(f"[lm] phase 15 in {secs:.1f} s  [{card}]")
+    return {"bwd_cases": rows, "smoke": smoke, "full": full, "topk": topk,
+            "cli": cli, "seconds": secs}
+
+
 # -- A/B against an earlier tree -------------------------------------------------
 
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
@@ -2705,6 +3200,11 @@ def main(argv) -> None:
         card = phase_device()
         Path(argv[2]).write_text(json.dumps(ab_part(card), indent=1))
         return
+    if argv[:1] == ["--lm"]:  # phase 15 alone; prints no result
+        card = phase_device()
+        phase_build()
+        phase_lm(card)
+        return
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     # and compiles in this process: no pool of compile workers to outlive it
     cache = ROOT / "build"
@@ -2727,13 +3227,18 @@ def main(argv) -> None:
     wide_comp = phase_wide_compressed(card, ctx)
     asyn = phase_async_paper(card)
     wide_async = phase_wide_async(card, ctx)
+    del ctx  # the wide problem's features on the card (5.4 GB)
     cohort = phase_cohort(card)
     fig4 = phase_fig4(card)
     runtime = phase_runtime(card)
     flash_rows = phase_flash_kernel(card)
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
+    lm = phase_lm(card)
     phase_flex_yardstick(card, flash_rows)
+    for row in lm["bwd_cases"]:
+        if row["softcap"] is not None:
+            _flex_bwd_yardstick(card, row)
 
     # launches on the main paths: every path's counts, read just after it
     paths = [main["tau10"], main["tau1"], *main["baselines"].values(),
@@ -2742,7 +3247,8 @@ def main(argv) -> None:
              asyn["a"], asyn["b"], wide_async, cohort,
              *fig4["card_vs_cpu"]["runs"].values(), *fig4["gate"].values(),
              *fig4["full"].values(), *runtime["runs"].values(),
-             runtime["checkpoint"], gemma_a, gemma_b]
+             runtime["checkpoint"], gemma_a, gemma_b,
+             *lm["smoke"].values(), lm["full"], lm["topk"]]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -2779,6 +3285,11 @@ def main(argv) -> None:
             entry("flash_attention",
                   "src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:30", flash_rows[0]),
+            # no Pallas backward: the reference differentiates this jnp
+            # attention with jax.value_and_grad
+            entry("flash_attention_bwd",
+                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                  "src/repro/models/layers.py:152", lm["bwd_cases"][0]),
         ],
         "build": build,
         "kernel_cases": rows,
@@ -2799,6 +3310,7 @@ def main(argv) -> None:
         "flash_kernel_cases": flash_rows,
         "gemma_card_vs_cpu": gemma_a,
         "gemma_full": gemma_b,
+        "lm_training": lm,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -28,4 +28,5 @@ SMOKE = CONFIG.with_overrides(
     attn=AttnCfg(kind="gqa", num_heads=4, num_kv_heads=2, head_dim=32,
                  logit_softcap=50.0),
     window_local=64,
+    remat=False,
 )

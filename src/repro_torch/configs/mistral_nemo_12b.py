@@ -23,4 +23,5 @@ SMOKE = CONFIG.with_overrides(
     name="mistral-nemo-smoke", n_layers=2, d_model=160, d_ff=448, vocab=512,
     attn=AttnCfg(kind="gqa", num_heads=4, num_kv_heads=2, head_dim=40,
                  rope_theta=1_000_000.0),
+    remat=False,
 )

@@ -22,4 +22,5 @@ CONFIG = ArchConfig(
 SMOKE = CONFIG.with_overrides(
     name="stablelm-smoke", n_layers=2, d_model=128, d_ff=352, vocab=512,
     attn=AttnCfg(kind="gqa", num_heads=4, num_kv_heads=4, head_dim=32),
+    remat=False,
 )

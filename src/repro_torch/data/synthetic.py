@@ -8,6 +8,8 @@ that the paper uses for the sparse-logistic-regression experiments: two
 parameters (alpha, beta) control how much the local models and the local
 feature distributions differ across clients.  The paper uses
 (alpha, beta) = (50, 50), n = 30 clients, d = 20.
+``token_stream_heterogeneous`` makes the LM trainer's per-client token
+streams (``repro_torch.launch.train``).
 """
 from __future__ import annotations
 
@@ -87,3 +89,37 @@ def make_round_batches(
     )  # (n, tau, b, d)
     y = np.take_along_axis(data.labels[:, None], idx, axis=2)
     return {"a": a, "y": y}
+
+
+def token_stream_heterogeneous(
+    n_clients: int,
+    seq_len: int,
+    n_seqs_per_client: int,
+    vocab: int,
+    seed: int = 0,
+    skew: float = 4.0,
+) -> np.ndarray:
+    """Per-client token sequences from client-specific bigram chains.
+
+    Each client gets its own random bigram transition matrix sharpened by
+    ``skew`` (higher = more deterministic = more heterogeneous), so local
+    next-token distributions genuinely differ.  Returns int32 array of shape
+    (n_clients, n_seqs_per_client, seq_len).
+    """
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n_clients, n_seqs_per_client, seq_len), np.int32)
+    for i in range(n_clients):
+        logits = rng.normal(size=(vocab, vocab)) * skew
+        probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+        probs /= probs.sum(axis=1, keepdims=True)
+        cdf = np.cumsum(probs, axis=1)
+        for s in range(n_seqs_per_client):
+            tok = int(rng.integers(vocab))
+            seq = np.empty(seq_len, np.int32)
+            u = rng.uniform(size=seq_len)
+            for t in range(seq_len):
+                seq[t] = tok
+                tok = int(np.searchsorted(cdf[tok], u[t]))
+                tok = min(tok, vocab - 1)
+            out[i, s] = seq
+    return out

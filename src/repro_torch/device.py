@@ -1,6 +1,8 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -15,6 +17,23 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the port "
             "on the CPU explicitly")
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN convolutions and float32 matmuls without TF32 inside the block
+    (the previous settings come back after it): the models run in full
+    float32 on the card, so their trajectories stay within float32
+    rounding of the CPU's."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.set_float32_matmul_precision(matmul)
 
 
 def device_of(tree) -> torch.device:

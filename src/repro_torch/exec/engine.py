@@ -69,7 +69,7 @@ from __future__ import annotations
 
 import inspect
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -800,11 +800,14 @@ class RoundEngine:
 
     def run(self, state, batch_supplier, rounds: int, *,
             rng: Optional[np.random.Generator] = None, seed: int = 0,
-            start_round: int = 0):
+            start_round: int = 0,
+            metrics_cb: Optional[Callable[[int, dict], None]] = None):
         """Run ``rounds`` rounds from ``state``; returns (state, metrics).
 
         ``metrics`` maps metric name -> list with one entry per executed
-        round (a float, or an array for vector metrics).  Chunk-aware
+        round (a float, or an array for vector metrics).
+        ``metrics_cb(round_idx, round_metrics)``, if given, fires per round
+        after each chunk's host sync.  Chunk-aware
         suppliers serve whole chunks through ``sample_chunk``; under partial
         participation, or for a plain callable, batches are drawn per round,
         each followed by that round's mask draw.  Under the cohort stage
@@ -861,9 +864,11 @@ class RoundEngine:
                 # the chunk's ONE host sync: every round's metrics in one copy
                 with _trace.span("exec/host_sync", "exec"):
                     rows = _host_metrics(infos)
-            for row in rows:
+            for i, row in enumerate(rows):
                 for k, v in row.items():
                     metrics.setdefault(k, []).append(v)
+                if metrics_cb is not None:
+                    metrics_cb(r0 + i, row)
             done += c
         if self._cohort is not None:
             self._cohort_round = start_round + rounds

@@ -11,15 +11,16 @@ under a name keyed by a hash of the sources, the shared headers
 flag is rebuilt and a stale library is never loaded.  Nothing is built when
 this module is imported.
 
-:func:`launch` is the one launch path of the plane kernels: it calls a
-library entry on the current stream of the tensor's card and raises on a
-refused launch.
+:func:`launch` is the one launch path of the kernels: it calls a library
+entry on the current stream of the tensor's card and raises on a refused
+launch.
 
 The plane kernels are bitwise equal to their plain versions only without
-FMA contraction (``-fmad=false``); the flash-attention kernel is held to a
-tolerance, so it is built with contraction on, split across the CPUs and
-with ``-Xptxas -v``, whose report (registers, spills, shared memory per
-kernel) is kept in ``build.ptxas`` and beside the library.
+FMA contraction (``-fmad=false``); the flash-attention kernels (forward
+and backward) are held to a tolerance, so they are built with contraction
+on (the forward split across the CPUs) and with ``-Xptxas -v``, whose
+report (registers, spills, shared memory per kernel) is kept in
+``build.ptxas`` and beside the library.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ DEFAULT_FLAGS = ("-fmad=false",)
 # the flash source's six tensor-core instantiations are compiled in
 # parallel inside its nvcc (-split-compile=0: one job per CPU)
 SOURCE_FLAGS = {"flash_attention.cu": ("-fmad=true", "-split-compile=0",
-                                       "-Xptxas", "-v")}
+                                       "-Xptxas", "-v"),
+                "flash_attention_bwd.cu": ("-fmad=true", "-Xptxas", "-v")}
 
 
 def source_flags(src: Path) -> tuple:
@@ -201,8 +203,12 @@ def load_library() -> ctypes.CDLL:
                        ctypes.c_int64, ctypes.c_int64, vp]
         fn.restype = ctypes.c_int
     fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_int, vp, vp, vp, vp] + [ctypes.c_int64] * 12
+    fn.argtypes = ([ctypes.c_int, vp, vp, vp, vp, vp] + [ctypes.c_int64] * 12
                    + [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [vp])
+    fn.restype = ctypes.c_int
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = ([vp] * 10 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+                   + [vp])
     fn.restype = ctypes.c_int
     fn = lib.repro_flash_tile_plan
     fn.argtypes = [ctypes.c_int] * 4 + [vp] * 3
@@ -227,11 +233,12 @@ def stream_handle(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def launch(name: str, entry, device, *args) -> None:
+def launch(name: str, entry, device, *args, errors=None) -> None:
     """Call the library function ``entry`` with ``args`` and the current
     stream of ``device``, entering that card's context only when it is not
     the current one; raises if the entry returns a nonzero (refused)
-    launch code.  No device work besides the launch."""
+    launch code, with the message ``errors`` gives for that code if any.
+    No device work besides the launch."""
     import torch
 
     index = device.index
@@ -241,4 +248,6 @@ def launch(name: str, entry, device, *args) -> None:
         with torch.cuda.device(index):
             err = entry(*args, stream_handle(index))
     if err != 0:
+        if errors and err in errors:
+            raise RuntimeError(f"{name} kernel: {errors[err]}")
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

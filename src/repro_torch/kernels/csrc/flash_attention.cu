@@ -68,7 +68,9 @@
 // float32 inputs cannot take the tensor cores at float32 accuracy, so they
 // take a SIMT kernel: 4 warps of 4 query rows, 32-key tiles; each lane
 // scores one key against the warp's rows, then owns D / 32 columns of the
-// output rows for the PV sum.
+// output rows for the PV sum. Given an lse buffer it also writes each row's
+// log-sum-exp of the logits, (B, H, S) float32, for the backward kernel
+// (flash_attention_bwd.cu); the tensor-core kernel writes none.
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers. The CUDA
 // driver's cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so the
@@ -94,6 +96,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) row log-sum-exp, or null (float32 kernel only)
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
   int S, group, causal, window;
   float scale, cap;  // cap <= 0: no softcap
@@ -752,6 +755,8 @@ __global__ void __launch_bounds__(kThreads) flash_simt_kernel(Args a) {
     if (qpos < a.S) {
 #pragma unroll
       for (int e = 0; e < E; ++e) og[qpos * a.o_s + lane + 32 * e] = acc[r][e] * inv;
+      if (a.lse && lane == 0)
+        a.lse[(static_cast<long long>(b) * gridDim.y + h) * a.S + qpos] = m[r] + logf(lt);
     }
   }
 }
@@ -865,9 +870,10 @@ int launch_dtype(int dtype, const Args& a, int B, int H, int KH, cudaStream_t s)
 
 // dtype codes: 0 float32, 2 bfloat16, 3 float16 (float64 is not taken).
 // Strides in elements; the head dim is contiguous. window <= 0: none;
-// softcap <= 0: none.
+// softcap <= 0: none. lse: null, or (float32 only) a contiguous (B, H, S)
+// float32 buffer for the rows' log-sum-exp.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* o, int64_t q_b, int64_t q_s, int64_t q_h,
+                                     void* o, void* lse, int64_t q_b, int64_t q_s, int64_t q_h,
                                      int64_t k_b, int64_t k_s, int64_t k_h, int64_t v_b,
                                      int64_t v_s, int64_t v_h, int64_t o_b, int64_t o_s,
                                      int64_t o_h, int B, int S, int H, int KH, int D,
@@ -875,11 +881,13 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
                                      void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (lse && dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.q_b = q_b; a.q_s = q_s; a.q_h = q_h;
   a.k_b = k_b; a.k_s = k_s; a.k_h = k_h;
   a.v_b = v_b; a.v_s = v_s; a.v_h = v_h;

@@ -19,6 +19,17 @@ model's attention apply it) and tanh logit ``softcap`` after the
     any S (its ragged tail masked); CPU tensors repeat the kv heads and run
     the plain version.
 
+The gradient: :func:`flash_attention_backward_plain` computes it in
+PyTorch from the output and the rows' log-sum-exp, which the float32
+kernel writes beside the output (``with_lse=True``);
+:func:`flash_attention_bwd` launches its kernel on the card
+(``csrc/flash_attention_bwd.cu``, float32; the Pallas kernel has no
+backward: the reference differentiates its jnp attention).  The
+``torch.autograd.Function`` s :class:`FlashAttention` and
+:class:`FlashAttentionBackward` tie the two together, each with a vmap rule
+that folds the mapped (client) axis into B, so ``torch.func.vmap`` over
+``torch.func.grad_and_value`` makes one launch of each for all clients.
+
 The kernel accumulates in float32 and keeps the running softmax statistics
 in float32; bfloat16 and float16 run on the tensor cores (``wgmma``, TMA
 loads, a producer warp feeding two consumer warpgroups) with the
@@ -33,6 +44,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2, torch.float16: 3}
@@ -40,6 +53,7 @@ _ENCODE_FAILED = 1000  # csrc/flash_attention.cu: kEncodeFailed
 # the bfloat16 / float16 kernel's tiles (csrc/flash_attention.cu: Tile):
 # query rows of a block and of each of its two consumer warpgroups
 BLOCK_Q, WARPGROUP_Q = 128, 64
+BWD_TILE = 32  # query rows and keys of a backward tile (kTile)
 
 
 def block_k(d: int) -> int:
@@ -57,6 +71,20 @@ def kv_tile_range(s: int, q0: int, bq: int, bk: int, *, causal: bool,
         if window is not None:
             lo = max(0, q0 - window + 1)
     return lo // bk, -(-hi // bk)
+
+
+def q_tile_range(s: int, k0: int, bk: int, bq: int, *, causal: bool,
+                 window: int | None) -> tuple[int, int]:
+    """The query tiles ``[t0, t1)`` of ``bq`` rows that hold a row admitting
+    some key in ``[k0, k0 + bk)`` (the backward kernel's ``q_tiles``, which
+    walks them with ``bq = bk = BWD_TILE``): key j is admitted by the rows
+    ``j <= i < j + window``."""
+    lo, hi = 0, s
+    if causal:
+        lo = k0
+        if window is not None:
+            hi = min(s, k0 + bk - 1 + window)
+    return lo // bq, -(-hi // bq)
 
 
 def tile_masked(s: int, q0: int, bq: int, k0: int, bk: int, *, causal: bool,
@@ -120,8 +148,6 @@ def kernel_tile_plan(s: int, d: int, *, causal: bool = True,
     built library, so a machine with ``nvcc``."""
     import ctypes
 
-    from repro_torch.kernels import _build
-
     lib = _build.load_library()
     win = int(window) if (causal and window is not None) else 0
     sizes = (ctypes.c_int * 3)()
@@ -144,6 +170,18 @@ def kernel_tile_plan(s: int, d: int, *, causal: bool = True,
     return (bq, wq, bk), plan
 
 
+def _mask(s: int, causal: bool, window, device):
+    """(S, S) boolean mask of the admitted (query, key) pairs, or None."""
+    if not causal:
+        return None
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
                           scale=None):
     """``ref.flash_attention`` in PyTorch.  q, k, v: ``(B, H, S, D)``;
@@ -153,13 +191,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     logits = torch.einsum("bhsd,bhtd->bhst", q, k).float() * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    if causal:
-        qpos = torch.arange(s, device=q.device)[:, None]
-        kpos = torch.arange(s, device=q.device)[None, :]
-        mask = kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
-        logits = torch.where(mask[None, None], logits,
+    mask = _mask(s, causal, window, q.device)
+    if mask is not None:
+        logits = torch.where(mask, logits,
                              torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", probs.to(v.dtype), v)
@@ -209,49 +243,258 @@ def _check_kernel_layout(q, k, v):
                 f"and 16-byte aligned rows; got strides {t.stride()}")
 
 
-def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None):
+def _grouped_logits(q, k, causal, window, softcap, f):
+    """The logits in ``f`` on the grouped layout: q (B, S, H, D) as
+    (B, S, K, H/K, D) against k (B, S, K, D) -> (B, K, H/K, S, S), after
+    the scale and the softcap; with the mask (or None)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.to(f).reshape(b, s, kh, h // kh, d)
+    r = torch.einsum("bskrd,btkd->bkrst", qg, k.to(f)) / (d ** 0.5)
+    x = softcap * torch.tanh(r / softcap) if softcap is not None else r
+    return x, _mask(s, causal, window, q.device)
+
+
+def lse_plain(q, k, *, causal=True, window=None, softcap=None):
+    """Each query row's log-sum-exp of its admitted logits, ``(B, H, S)``,
+    float64 for float64 inputs, else float32 (what the kernel's float32
+    forward hands the backward)."""
+    b, s, h, _ = q.shape
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    x, mask = _grouped_logits(q, k, causal, window, softcap, f)
+    if mask is not None:
+        x = torch.where(mask, x, torch.full((), -torch.inf, device=x.device))
+    return torch.logsumexp(x, dim=-1).reshape(b, h, s)
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, lse=None, *,
+                                   causal=True, window=None, softcap=None):
+    """The gradient of :func:`flash_attention_bshd` in PyTorch: ``(dq, dk,
+    dv)`` of ``(B, S, H, D)`` queries and ``(B, S, K, D)`` keys and values,
+    given the output ``out``, its gradient ``dout`` and the rows'
+    log-sum-exp ``lse`` (``(B, H, S)``; computed here when None).  With
+    ``x`` the scaled, softcapped logits, ``p = exp(x - lse)`` where the mask
+    admits the pair (else 0)::
+
+        dv = p^T dout,  dp = dout v^T,  ds = p (dp - rowsum(dout * out)),
+        dr = ds (1 - (x / softcap)^2),  dq = scale dr k,  dk = scale dr^T q
+
+    with dk, dv summed over each kv head's query heads.  Computes in
+    float64 for float64 inputs, else in float32; returns the inputs'
+    dtypes."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    rep = h // kh
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    x, mask = _grouped_logits(q, k, causal, window, softcap, f)
+    if lse is None:
+        lse = lse_plain(q, k, causal=causal, window=window, softcap=softcap)
+    p = torch.exp(x - lse.to(f).reshape(b, kh, rep, s)[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), dtype=f, device=p.device))
+    qg = q.to(f).reshape(b, s, kh, rep, d)
+    og = out.to(f).reshape(b, s, kh, rep, d)
+    dog = dout.to(f).reshape(b, s, kh, rep, d)
+    dv = torch.einsum("bkrst,bskrd->btkd", p, dog)
+    dp = torch.einsum("bskrd,btkd->bkrst", dog, v.to(f))
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)  # (B, K, H/K, S)
+    ds = p * (dp - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1 - (x / softcap) ** 2)
+    scale = 1.0 / (d ** 0.5)
+    dq = torch.einsum("bkrst,btkd->bskrd", ds, k.to(f)) * scale
+    dk = torch.einsum("bkrst,bskrd->btkd", ds, qg) * scale
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None,
+                         with_lse=False):
     """Attention of ``(B, S, H, D)`` queries over ``(B, S, K, D)`` keys and
-    values; returns ``(B, S, H, D)`` in the input dtype.
+    values; returns ``(B, S, H, D)`` in the input dtype, and with
+    ``with_lse`` also the rows' log-sum-exp ``(B, H, S)`` float32 (float32
+    inputs only: the tensor-core kernel writes none).
 
     CPU tensors take :func:`flash_attention_plain` after repeating the kv
-    heads.  CUDA tensors launch the kernel (counted in
-    ``flash_attention_bshd.launches``) or raise; nothing falls back.
+    heads (and :func:`lse_plain`).  CUDA tensors launch the kernel (counted
+    in ``flash_attention_bshd.launches``) or raise; nothing falls back.
     """
     _check(q, k, v, window)
     b, s, h, d = q.shape
     kh = k.shape[2]
-    if q.device.type == "cpu":
+    if with_lse and q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"flash_attention: the row log-sum-exp (the backward's input) is "
+            f"written by the float32 kernel only, not for {q.dtype}")
+    if not _build.on_card("flash_attention", q):
         rep = h // kh
         kr = k.repeat_interleave(rep, dim=2) if rep > 1 else k
         vr = v.repeat_interleave(rep, dim=2) if rep > 1 else v
         out = flash_attention_plain(
             q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
-            causal=causal, window=window, softcap=softcap)
-        return out.transpose(1, 2)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
+            causal=causal, window=window, softcap=softcap).transpose(1, 2)
+        if with_lse:
+            return out, lse_plain(q, k, causal=causal, window=window,
+                                  softcap=softcap)
+        return out
     _check_kernel_layout(q, k, v)
-    from repro_torch.kernels import _build
-
     lib = _build.load_library()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     win = int(window) if (causal and window is not None) else 0  # 0: none
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], b, s, h, kh, d, int(causal),
-            win, 1.0 / (d ** 0.5),
-            float(softcap) if softcap is not None else 0.0, stream)
-    if err == _ENCODE_FAILED:
-        raise RuntimeError("flash_attention kernel: cuTensorMapEncodeTiled "
-                           "refused an operand's layout")
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+    _build.launch(
+        "flash_attention", lib.repro_flash_attention, q.device,
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr() if with_lse else None,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], b, s, h, kh, d, int(causal), win, 1.0 / (d ** 0.5),
+        float(softcap) if softcap is not None else 0.0,
+        errors={_ENCODE_FAILED: "cuTensorMapEncodeTiled refused an "
+                                "operand's layout"})
     flash_attention_bshd.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_bshd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
+                        softcap=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention_bshd` at ``q, k, v`` given
+    its output ``out``, the output's gradient ``dout`` and the rows'
+    log-sum-exp ``lse`` (``(B, H, S)`` float32).
+
+    CPU tensors take :func:`flash_attention_backward_plain`.  CUDA tensors
+    launch the backward kernel (``csrc/flash_attention_bwd.cu``; counted in
+    ``flash_attention_bwd.launches``), float32 only, the operands made
+    contiguous first; anything else raises.
+    """
+    _check(q, k, v, window)
+    if not _build.on_card("flash_attention backward", q):
+        return flash_attention_backward_plain(
+            q, k, v, out, dout, lse, causal=causal, window=window,
+            softcap=softcap)
+    if q.dtype != torch.float32:
+        raise NotImplementedError(f"flash_attention backward kernel: "
+                                  f"float32 only, got {q.dtype}")
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward kernel: head dim must "
+                         f"be one of {HEAD_DIMS}, got {d}")
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)} must be {tuple(q.shape)} "
+                         f"and lse {tuple(lse.shape)} {lse.dtype} float32 "
+                         f"{(b, h, s)}")
+    lib = _build.load_library()
+    q, k, v, out, dout, lse = (t.to(torch.float32).contiguous()
+                               for t in (q, k, v, out, dout, lse))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    win = int(window) if (causal and window is not None) else 0
+    _build.launch(
+        "flash_attention_bwd", lib.repro_flash_attention_bwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, kh, d, int(causal), win,
+        1.0 / (d ** 0.5), float(softcap) if softcap is not None else 0.0)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _fold(info, in_dims, tensors):
+    """Batched operands with the mapped axis folded into B: each moved to
+    axis 0 (or expanded there when unmapped) and merged with B."""
+    n = info.batch_size
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.reshape(n * t.shape[1], *t.shape[2:]))
+    return n, out
+
+
+def _unfold(n, t):
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: ``apply(q, k, v, causal, window,
+    softcap) -> (out, lse)``, ``lse`` the rows' log-sum-exp (float32 inputs;
+    empty for others, whose gradient is not implemented).  The forward is
+    :func:`flash_attention_bshd` (kernel 5 on the card); the backward is
+    :class:`FlashAttentionBackward`.  Under ``torch.func.vmap`` the mapped
+    axis is folded into B, so one launch covers every client."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap):
+        if q.dtype == torch.float32:
+            return flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                        softcap=softcap, with_lse=True)
+        out = flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+        return out, q.new_empty((q.shape[0], q.shape[2], 0),
+                                dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.dtype != torch.float32:
+            raise NotImplementedError(f"flash_attention: no backward for "
+                                      f"{q.dtype} (float32 only)")
+        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, out, dout, lse,
+                                                  *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        n, (q, k, v) = _fold(info, in_dims[:3], (q, k, v))
+        out, lse = FlashAttention.apply(q, k, v, causal, window, softcap)
+        return (_unfold(n, out), _unfold(n, lse)), (0, 0)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """``apply(q, k, v, out, dout, lse, causal, window, softcap) -> (dq,
+    dk, dv)``: :func:`flash_attention_bwd` (kernel 5b on the card), with its
+    own vmap rule (the mapped axis folded into B: one launch).  Not
+    differentiable itself."""
+
+    @staticmethod
+    def forward(q, k, v, out, dout, lse, causal, window, softcap):
+        return flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                   window=window, softcap=softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention: no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, dout, lse, causal, window,
+             softcap):
+        n, ts = _fold(info, in_dims[:6], (q, k, v, out, dout, lse))
+        grads = FlashAttentionBackward.apply(*ts, causal, window, softcap)
+        return tuple(_unfold(n, g) for g in grads), (0, 0, 0)

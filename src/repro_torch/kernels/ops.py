@@ -12,6 +12,8 @@ cannot share a plane and raise.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_prox, plane_ops
 
@@ -79,7 +81,15 @@ def gqa_flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     repeat, no transposes) at any S; the kernel owns its tiling, so there
     are no block-size arguments.  On CPU tensors the plain version runs
     after repeating the kv heads (``repro.kernels.ops.gqa_flash_attention``
-    repeats them on every backend).
+    repeats them on every backend).  Differentiable through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttention` (the
+    backward kernel on the card), ``torch.func.grad`` and ``vmap``
+    included; float32 only under autograd (bfloat16 and float16 raise
+    ``NotImplementedError`` when a gradient is asked for).
     """
-    return fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+    if (q.dtype != torch.float32 and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise NotImplementedError(
+            f"flash attention's backward is float32 only; got {q.dtype} "
+            f"under autograd")
+    return fa.FlashAttention.apply(q, k, v, causal, window, softcap)[0]

@@ -21,13 +21,12 @@ CPU's.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import resolve_device
+from repro_torch.device import full_fp32, resolve_device
 
 _SHAPES = {
     "conv1_w": ((3, 3, 1, 32), 9),
@@ -57,21 +56,6 @@ def init_params(seed: int = 0, dtype=torch.float32, device=None) -> dict:
             p = torch.randn(shape, generator=gen) * math.sqrt(2.0 / fan_in)
         params[name] = p.to(dtype).to(dev)
     return params
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """cuDNN convolutions and float32 matmuls without TF32 inside the block
-    (the previous settings come back after it)."""
-    conv = torch.backends.cudnn.allow_tf32
-    matmul = torch.get_float32_matmul_precision()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.set_float32_matmul_precision(matmul)
 
 
 class _OIHW(torch.autograd.Function):

@@ -10,10 +10,16 @@ stacked ``n_periods`` times (the reference's ``lax.scan`` over periods is a
 Python loop over views of the stacked params and caches here) +
 ``suffix_blocks``.
 
-Entry points: ``forward``, ``prefill`` (logits + cache) and ``decode_step``
-(one token against the cache, which is updated in place).  Training
-(``loss_fn``, ``make_grad_fn``), the MoE/RG-LRU/SSM mixers and the audio
-and vision front ends are not ported yet.
+Entry points: ``forward``, ``loss_fn`` and ``make_grad_fn`` (training:
+next-token cross-entropy, gradients through ``torch.func``, so ``vmap``
+over clients composes), ``prefill`` (logits + cache) and ``decode_step``
+(one token against the cache, which is updated in place).  The MoE/RG-LRU/
+SSM mixers and the audio and vision front ends are not ported yet.
+
+On the card, attention's forward and backward are the flash kernels
+(``kernels/flash_attention.py``); the loss and its gradient run with TF32
+off (:func:`repro_torch.device.full_fp32`), so a card's trajectory stays
+within float32 rounding of the CPU's.
 """
 from __future__ import annotations
 
@@ -23,15 +29,20 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import device_of
+from repro_torch.device import device_of, full_fp32
 from repro_torch.models import layers as L
 from repro_torch.utils import tree as tu
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ``ArchConfig`` less its training, sharding and
-    long-context fields, which serving on one card does not read."""
+    """The reference's ``ArchConfig`` less its sharding and long-context
+    fields, which one card does not read.
+
+    ``remat`` is accepted and not honoured: ``torch.utils.checkpoint``
+    rests on saved-tensor hooks, which ``torch.func.grad`` (the per-client
+    gradient that ``vmap`` maps) refuses, so activations are kept as
+    without it; it changes only memory, never the numbers."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -56,6 +67,8 @@ class ArchConfig:
     norm_eps: float = 1e-6
     attn_impl: str = "naive"  # CPU formulation: naive | blocked
     attn_block_q: int = 512
+    remat: bool = True  # accepted, not honoured (see the class docstring)
+    aux_loss_coef: float = 0.01
     decode_supported: bool = True
     citation: str = ""
 
@@ -309,6 +322,41 @@ def forward(p, cfg: ArchConfig, batch, mode="train", caches=None,
         # BEFORE the unembed removes the (B, S, V) materialization entirely
         x = x[:, -1:]
     return _logits(p, cfg, x), new_caches, aux
+
+
+# --- losses ------------------------------------------------------------------
+
+
+def _ce(logits, targets):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.gather(logp, -1, targets.long()[..., None]))
+
+
+def loss_fn(p, cfg: ArchConfig, batch):
+    """The composite-FL smooth part f_i: next-token cross-entropy over
+    ``batch["tokens"]`` (B, S) plus ``aux_loss_coef`` times the blocks' aux
+    loss (0 for the dense blocks ported).  The non-smooth regularizer g is
+    the federated algorithm's prox, not part of it.  The reference's audio
+    and vision branches raise with their front ends."""
+    with full_fp32():
+        logits, _, aux = forward(p, cfg, batch, mode="train")
+        loss = _ce(logits[:, :-1], batch["tokens"][:, 1:])
+    return loss + cfg.aux_loss_coef * aux
+
+
+def make_grad_fn(cfg: ArchConfig):
+    """``(params, batch) -> (loss, grads)`` through
+    ``torch.func.grad_and_value``, so ``torch.func.vmap`` over clients
+    composes (the local step's pattern); the backward runs with TF32 off
+    too."""
+    gv = torch.func.grad_and_value(lambda p, b: loss_fn(p, cfg, b))
+
+    def fn(params, batch):
+        with full_fp32():
+            grads, loss = gv(params, batch)
+        return loss, grads
+
+    return fn
 
 
 # --- serving -----------------------------------------------------------------

@@ -795,3 +795,143 @@ def test_runtime_overlapped_equals_blocking_on_card(cuda):
     assert rt._fields_bitwise(local["fields"], o["server"]["fields"])
     assert b["worker"]["bytes_sent"] == o["worker"]["bytes_sent"]
     assert o["server"]["max_replay_drift"] <= 1e-12
+
+
+# -- the flash-attention backward (kernel 5b) and LM training -----------------
+
+# dq, dk, dv against the plain backward in float64, each within
+# _BWD_TOL x its max |.| (summation order in float32; measured <= 1.3e-5 at
+# logits of std 16 in chip_smoke phase 15)
+_BWD_TOL = 1e-4
+
+
+def _bwd_rel(got, exp):
+    return max(float((g.double() - e).abs().max() / e.abs().max())
+               for g, e in zip(got, exp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,h,kh,causal,window,softcap", [
+    (333, 4, 1, True, 70, 20.0),        # MQA, window + softcap, ragged S
+    (200, 4, 2, True, None, None),      # GQA
+    (130, 2, 2, False, None, 20.0),     # not causal
+    (64, 8, 4, True, 1, None),          # window 1: the diagonal only
+])
+def test_flash_backward_kernel_matches_plain_on_card(cuda, d, s, h, kh,
+                                                     causal, window,
+                                                     softcap):
+    gen = torch.Generator(device=cuda).manual_seed(d + s)
+    q, k, v = (torch.randn((2, s, n, d), generator=gen, device=cuda) * f
+               for n, f in ((h, 2.0), (kh, 2.0), (kh, 1.0)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.flash_attention_bshd.launches
+    out, lse = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
+                                                    **kw)
+    assert flash_attention.flash_attention_bshd.launches == before + 1
+    f64 = [t.double() for t in (q, k, v)]
+    assert float((lse.double() - flash_attention.lse_plain(*f64[:2], **kw))
+                 .abs().max()) <= 1e-4
+    do = torch.randn(out.shape, generator=gen, device=cuda)
+    before = flash_attention.flash_attention_bwd.launches
+    got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd.launches == before + 1
+    exp = flash_attention.flash_attention_backward_plain(
+        *f64, out.double(), do.double(), **kw)
+    if window == 1:
+        # each row attends to itself alone: p = 1 and dp = delta, so dq and
+        # dk are 0 up to the float32 rounding of dp - delta
+        assert _bwd_rel(got[2:], exp[2:]) <= _BWD_TOL
+        scale = float(exp[2].abs().max())
+        assert all(float(g.abs().max()) <= 1e-5 * scale for g in got[:2])
+    else:
+        assert _bwd_rel(got, exp) <= _BWD_TOL
+
+
+@pytest.mark.gpu
+def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="float32"):
+        flash_attention.flash_attention_bwd(q, q, q, q, q, lse)
+    q = torch.zeros(1, 16, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_bwd(q, q, q, q, q, lse)
+    q = torch.zeros(1, 16, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention.flash_attention_bwd(q, q, q, q, q, lse[:, :1])
+
+
+@pytest.mark.gpu
+def test_vmap_of_grad_folds_clients_into_one_launch_on_card(cuda):
+    """``vmap(grad_and_value)`` over 3 clients: one forward and one
+    backward launch for all of them, each client's gradient equal to its
+    own ``backward()`` (the same kernels on the same rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = {"q": torch.randn(3, 2, 64, 4, 64, generator=gen, device=cuda),
+         "k": torch.randn(3, 2, 64, 2, 64, generator=gen, device=cuda),
+         "v": torch.randn(3, 2, 64, 2, 64, generator=gen, device=cuda)}
+
+    def f(p):
+        out = ops.gqa_flash_attention(p["q"], p["k"], p["v"], window=9,
+                                      softcap=5.0)
+        return torch.sum(out * out)
+
+    before = (flash_attention.flash_attention_bshd.launches,
+              flash_attention.flash_attention_bwd.launches)
+    grads, loss = torch.func.vmap(torch.func.grad_and_value(f))(p)
+    assert (flash_attention.flash_attention_bshd.launches,
+            flash_attention.flash_attention_bwd.launches) == (
+                before[0] + 1, before[1] + 1)
+    for i in range(3):
+        pi = {k: v[i].clone().requires_grad_() for k, v in p.items()}
+        f(pi).backward()
+        for name in "qkv":
+            torch.testing.assert_close(grads[name][i], pi[name].grad,
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lm_rounds_on_card_match_the_cpu(cuda):
+    """The trainer's set-up (``launch.train.build``) with the smoke
+    stablelm (head_dim 64), 2 clients, tau 2, 2 rounds: the card's losses
+    and x_bar equal the CPU port's (rtol 1e-5; 1e-4 x max |x_bar|), kernels
+    5 and 5b launched once per layer and local step, kernel 1 once per
+    local step, no copy before it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree as tu
+
+    smoke = registry.get_smoke("stablelm_1_6b")
+    cfg = smoke.with_overrides(param_dtype=torch.float32, attn=dataclasses
+                               .replace(smoke.attn, head_dim=64))
+    params = T.init_model(torch.Generator().manual_seed(0), cfg)
+    res = {}
+    for device in ("cuda", "cpu"):
+        args = TR.parser().parse_args(["--device", device, "--clients", "2",
+                                       "--tau", "2", "--rounds", "2"])
+        run = TR.build(args, cfg=cfg, params=params)
+        counts = (flash_attention.flash_attention_bshd.launches,
+                  flash_attention.flash_attention_bwd.launches,
+                  fused_prox.fused_local_update_2d.launches,
+                  fused_prox.fused_local_update_2d.copies)
+        state, m = run.engine.run(run.state, run.supplier, 2,
+                                  rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        after = (flash_attention.flash_attention_bshd.launches,
+                 flash_attention.flash_attention_bwd.launches,
+                 fused_prox.fused_local_update_2d.launches,
+                 fused_prox.fused_local_update_2d.copies)
+        moved = tuple(a - b for a, b in zip(after, counts))
+        assert moved == ((8, 8, 4, 0) if device == "cuda" else (0, 0, 0, 0))
+        res[device] = (m["train_loss"], tu.tree_leaves(state.x_bar))
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
+    xmax = max(float(x.abs().max()) for x in res["cpu"][1])
+    for a, b in zip(*(res[d][1] for d in ("cuda", "cpu"))):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * xmax

@@ -208,18 +208,20 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags(monkeypatch):
     srcs = _build._sources()
-    assert [s.name for s in srcs] == ["flash_attention.cu", "fused_prox.cu",
-                                      "plane_ops.cu"]
+    assert [s.name for s in srcs] == ["flash_attention.cu",
+                                      "flash_attention_bwd.cu",
+                                      "fused_prox.cu", "plane_ops.cu"]
     flags = {s.name: _build.source_flags(s) for s in srcs}
     for f in flags.values():
         assert "arch=compute_90a,code=sm_90a" in f
-    # the bitwise plane kernels never contract into an FMA; the flash kernel
-    # (held to a tolerance) does, and reports its registers and spills
+    # the bitwise plane kernels never contract into an FMA; the flash
+    # kernels (held to a tolerance) do, and report their registers and spills
     assert "-fmad=false" in flags["fused_prox.cu"]
     assert "-fmad=false" in flags["plane_ops.cu"]
-    assert "-fmad=true" in flags["flash_attention.cu"]
-    assert "-fmad=false" not in flags["flash_attention.cu"]
-    assert "-v" in flags["flash_attention.cu"]
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert "-fmad=true" in flags[name]
+        assert "-fmad=false" not in flags[name]
+        assert "-v" in flags[name]
     # the library name changes with the sources and with any source's flags
     digest = _build._digest(srcs)
     assert len(digest) == 16
