@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py          # needs one CUDA card; exits non-zero without
-    python3 chip_smoke.py --ab DIR # A/B: the checkout at DIR (an earlier
+    python3 chip_smoke.py --ab DIR [PART ...]
+                                   # A/B: the checkout at DIR (an earlier
                                    # tree) and this one, alternated
     python3 chip_smoke.py --lm     # phases 0, 1 and 15 alone (no result)
 
@@ -13,8 +14,12 @@ Phases, each asserting (any failure exits non-zero and prints no result):
   1. build     -- build the kernel library from src/repro_torch/kernels/csrc,
                   one nvcc per source in parallel; print ptxas's registers,
                   spills and notes for each flash-attention kernel: the six
-                  tensor-core instantiations must spill nothing and carry no
-                  (C75xx) note of a serialised wgmma;
+                  bf16 / f16 wgmma instantiations must spill nothing and
+                  carry no (C75xx) note of a serialised wgmma; the nine
+                  float32 ones (the forward, the backward's dK/dV and dQ
+                  kernels, D 64/128/256) must spill nothing and their SASS
+                  (cuobjdump -sass) must hold TF32 tensor-core instructions
+                  (HMMA ... TF32): split TF32, not FMAs;
   2. kernels   -- the fused local-update + L1-prox kernel against its plain
                   PyTorch version on the card, compared as integer bit
                   patterns (-0.0 and NaN included), in float32, bfloat16 and
@@ -88,11 +93,16 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   (1, 4608, 16/8, 256) bf16 softcap 50, global and window
                   4,096; (2, 1000, 16/8, 256) (ragged S); mistral-nemo
                   (1, 4096, 32/8, 128) bf16; stablelm (2, 512, 32/32, 64)
-                  f32; (2, 1000, 32/8, 128) bf16 not causal.  Kernel ms
-                  (CUDA events and profiler), plain ms, the bound (causal
-                  FLOPs at 989 TFLOP/s bf16, 67 f32, against the bytes), and
-                  F.scaled_dot_product_attention's ms where it computes the
-                  same function (no softcap, no window);
+                  f32; (2, 1000, 32/8, 128) bf16 not causal; stablelm's
+                  training shape (16, 128, 32/32, 64) f32.  float32 runs as
+                  training calls it, with the rows' log-sum-exp, held to
+                  lse_plain at 1e-5 of max |lse|.  Kernel ms (CUDA events
+                  and profiler), plain ms, the bound (causal FLOPs at 989
+                  TFLOP/s bf16, 165 split-TF32 f32 -- 67 on the CUDA cores
+                  beside it -- against the bytes), and
+                  F.scaled_dot_product_attention's ms (events and profiler)
+                  where it computes the same function (no softcap, no
+                  window);
  11. gemma2-9b serving -- (a) full width, one local+global period, float32,
                   window 96, 2 x 160-token prompts and 8 teacher-forced
                   decode steps (the ring cache rolls at prefill and wraps in
@@ -165,9 +175,10 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   32/32, 64) and (2, 2048, 32/32, 64), mistral-nemo (2,
                   512, 32/8, 128), gemma2-9b (1, 512, 16/8, 256) softcap
                   50, global and window 256; kernel ms, plain ms, the bound
-                  (10 D operations an admitted pair at 67 TFLOP/s f32,
-                  against the bytes) and SDPA's backward (phase 12:
-                  flex_attention's for the softcap cases); (b) the smoke
+                  (10 D operations an admitted pair at 165 TFLOP/s split
+                  TF32 -- 67 f32 beside it -- against the bytes) and SDPA's
+                  backward, events and profiler (phase 12: flex_attention's
+                  for the softcap cases); (b) the smoke
                   stablelm, mistral-nemo and gemma2 (head_dim 64) through
                   the trainer's set-up (repro_torch.launch.train.build), 2
                   clients, tau 2, 4 rounds, on the card and on the CPU port
@@ -207,11 +218,13 @@ equal to the plain version, one launch and one kernel a call (profiler),
 no copy.  Then the host cost of a wrapper call by parts (10,000 calls of
 each piece).
 
-``--ab DIR`` runs, in four processes (DIR, this tree, this tree, DIR),
-each with its own package and kernels: kernel 1 on phase 2's planes and
-on the two trees, kernel 4 at its record's shapes, phase 3's 500-round
-paths, phase 4's wide round and phase 7b's commits; the results go to
-``chiprun_out/ab.json``.
+``--ab DIR [PART ...]`` runs, in four processes (DIR, this tree, this
+tree, DIR), each with its own package and kernels, the parts named (all by
+default): ``kernels`` -- kernel 1 on phase 2's planes and on the two
+trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
+4's wide round and phase 7b's commits; ``attention`` -- kernel 5 at phase
+10's float32 shapes and kernel 5b at phase 15a's five, each beside SDPA;
+the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
 before each path of phases 3-9, 11, 13, 14 and 15 and read just after; no
@@ -234,9 +247,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ETA, THRESH = 0.37, 0.21
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# peak rate of the kernel's arithmetic (vector units, no tensor cores) per
-# compute type, H100 SXM data sheet: FP32 67 TFLOP/s, FP64 34 TFLOP/s
+# peak rate of the elementwise kernels' arithmetic (vector units, no tensor
+# cores) per compute type, H100 SXM data sheet: FP32 67 TFLOP/s, FP64 34
+# TFLOP/s
 PEAK_OPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
+# float32 attention (kernels 5 and 5b) runs its products on the tensor cores
+# in split TF32 (x = hi + lo, three TF32 products for each float32 one): a
+# third of the dense TF32 rate, 495 / 3 TFLOP/s.  Its bound is taken at this
+# rate; the 67 TFLOP/s of float32 on the CUDA cores is kept beside it
+SPLIT_TF32_OPS = 495e12 / 3
 OPS_PER_ELEMENT = 10  # add, mul, sub, abs, sub, max, 2 compares, sub, mul
 # the plane kernels' operations per element: select -- abs, compare,
 # select; quantize -- div, mul, floor, sub, compare, add, div, mul
@@ -321,7 +340,17 @@ def phase_device():
 
 # -- phase 1 ------------------------------------------------------------------
 
-def phase_build():
+# the float32 attention kernels, which must run their products on the
+# tensor cores (split TF32): the forward and the backward's dK/dV and dQ
+# kernels at each head dim (the backward's delta pre-pass is a row sum)
+TF32_KERNELS = tuple(f"{k}<{d}>" for k in (
+    "flash_tf32_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    for d in (64, 128, 256))
+
+
+def phase_build(tf32: bool = True):
+    """Phase 1; ``tf32``: also hold the float32 attention kernels to the
+    tensor cores (off for an earlier tree's side of an A/B)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -350,19 +379,62 @@ def phase_build():
               f"{r.get('spill_loads')} loaded)")
         check(not any("(C75" in w for w in r["warnings"]),
               f"ptxas: {k} has a serialised wgmma: {r['warnings']}")
-    return {"seconds": dict(_build.build.seconds), "ptxas": report}
+    out = {"seconds": dict(_build.build.seconds), "ptxas": report}
+    if tf32:
+        out["tf32_mma"] = _check_tf32(lib, report)
+    return out
+
+
+def _check_tf32(lib, report: dict) -> dict:
+    """Each of :data:`TF32_KERNELS` spills nothing (ptxas) and its SASS
+    (``cuobjdump -sass`` on the built library) holds TF32 tensor-core
+    instructions (``HMMA ... TF32``), so a build that stayed on the CUDA
+    cores' FMAs fails; returns their count by kernel."""
+    from repro_torch.kernels import _build
+
+    for k in TF32_KERNELS:
+        r = report.get(k)
+        check(r is not None, f"ptxas reported no {k}: {sorted(report)}")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"ptxas: {k} spills ({r.get('spill_stores')} bytes stored, "
+              f"{r.get('spill_loads')} loaded)")
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr}")
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif name in TF32_KERNELS and "HMMA" in line and "TF32" in line:
+            counts[name] = counts.get(name, 0) + 1
+    for k in TF32_KERNELS:
+        check(counts.get(k, 0) > 0, f"{k}: no TF32 HMMA in its SASS: its "
+              f"products are not on the tensor cores")
+    log("[build] TF32 HMMA instructions: " + ", ".join(
+        f"{k} {counts[k]}" for k in TF32_KERNELS) + "; no spills")
+    return counts
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_wgmma_kernel<bf16, 256>`` from ptxas's mangled name."""
-    m = re.search(r"([a-z_]+_kernel)I(.*)E", mangled)
-    if not m:
-        return mangled
-    ty = ("bf16" if "bfloat16" in m.group(2) else
-          "f16" if "__half" in m.group(2) else None)
-    d = re.search(r"Li(\d+)E", m.group(2))
-    args = [x for x in (ty, d.group(1) if d else None) if x]
-    return f"{m.group(1)}<{', '.join(args)}>"
+    """``flash_wgmma_kernel<bf16, 256>`` from ptxas's mangled name: the
+    template ``..._kernel`` whose length prefix (``17flash_tf32_kernelI``)
+    spans it exactly."""
+    for m in re.finditer(r"_kernelI", mangled):
+        end = m.start() + len("_kernel")
+        name = next((mangled[i:end] for i in range(end - 7, 0, -1)
+                     if mangled[:i].endswith(str(end - i))
+                     and not mangled[i].isdigit()), None)
+        if name is None:
+            continue
+        targs = mangled[end + 1:]
+        ty = ("bf16" if "bfloat16" in targs else
+              "f16" if "__half" in targs else None)
+        d = re.search(r"Li(\d+)E", targs)
+        args = [x for x in (ty, d.group(1) if d else None) if x]
+        return f"{name}<{', '.join(args)}>"
+    return mangled
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -2034,8 +2106,24 @@ def phase_runtime(card: str) -> dict:
 
 # -- phase 10 -----------------------------------------------------------------
 
+# phase 10's shapes: gemma2-9b prefill (global and local layers, a ragged
+# S), mistral-nemo, stablelm in float32 (serving's and, last, training's
+# shape: 4 clients x batch 4 folded into B), a non-causal case
+FLASH_CASES = [
+    dict(b=1, s=4608, h=16, kh=8, d=256, dtype="bfloat16", softcap=50.0),
+    dict(b=1, s=4608, h=16, kh=8, d=256, dtype="bfloat16", softcap=50.0,
+         window=4096),
+    dict(b=2, s=1000, h=16, kh=8, d=256, dtype="bfloat16", softcap=50.0),
+    dict(b=1, s=4096, h=32, kh=8, d=128, dtype="bfloat16"),
+    dict(b=2, s=512, h=32, kh=32, d=64, dtype="float32"),
+    dict(b=2, s=1000, h=32, kh=8, d=128, dtype="bfloat16", causal=False),
+    dict(b=16, s=128, h=32, kh=32, d=64, dtype="float32"),
+]
 PEAK_BF16 = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:120
+# the float32 kernel's row log-sum-exp (the backward's input) against
+# lse_plain on the same inputs: max |error| over max |lse|
+LSE_RTOL = 1e-5
 # The reference's check above (max abs error, inputs x 0.5) cannot see a
 # dropped softcap or a shifted window at these shapes: its logits are ~0.25,
 # the softcap of 50 never bends them and the softmax is near uniform, so an
@@ -2133,10 +2221,12 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
     q, k, v = _flash_inputs(b, s, h, kh, d, dtype, seed)
     rep = h // kh
+    # float32 is timed as training calls it: with the rows' log-sum-exp
+    with_lse = dtype == torch.float32
 
     def kern():
         return fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+                                       softcap=softcap, with_lse=with_lse)
 
     def plain():
         return _flash_plain_bshd(q, k, v, causal=causal, window=window,
@@ -2147,6 +2237,15 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     wname = str(dtype).replace("torch.", "")
     where = (f"{(b, s, h, kh, d)} {wname} causal={causal} window={window} "
              f"softcap={softcap}")
+    lse_err = None
+    if with_lse:
+        got, lse = got
+        lse_exp = fa.lse_plain(q, k, causal=causal, window=window,
+                               softcap=softcap)
+        lse_err = float((lse - lse_exp).abs().max() / lse_exp.abs().max())
+        check(lse_err <= LSE_RTOL, f"flash kernel's lse != lse_plain at "
+              f"{where}: {lse_err:.3e} relative > {LSE_RTOL}")
+        del lse, lse_exp
     err = float((got.float() - exp.float()).abs().max())
     check(bool(torch.isfinite(got).all()), f"flash {where}: non-finite output")
     check(err <= FLASH_TOL[wname], f"flash kernel != plain at {where}: max "
@@ -2169,7 +2268,7 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     device_ms = (sum(v for v, _ in recs.values())
                  / sum(n for _, n in recs.values())) if recs else None
     plain_ms = _time_ms(plain, 3, 2)
-    library_ms = None
+    library_ms = library_device_ms = None
     if softcap is None and (window is None or not causal):
         # SDPA computes the same function (no softcap, no window); timed
         # only, on the (B, H, S, D) layout it takes
@@ -2177,43 +2276,59 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=causal, enable_gqa=rep > 1)
         try:
+            got = kern()
+            got = got[0] if with_lse else got
             lib_err = float((lib().transpose(1, 2).float()
-                             - kern().float()).abs().max())
+                             - got.float()).abs().max())
         except TypeError as e:  # a PyTorch without enable_gqa
             log(f"[flash] SDPA not timed: {e}")
         else:
             check(lib_err <= FLASH_TOL[wname],
                   f"SDPA disagrees with the kernel by {lib_err:.3e}")
             library_ms = _time_ms(lib, 5, 3)
+            library_device_ms = _device_ms(lib, 5) or None
         del qt, kt, vt
     pairs = _admitted_pairs(s, causal, window)
     flops = 4 * d * h * b * pairs
     nbytes = b * s * (2 * h + 2 * kh) * d * q.element_size()
-    peak = PEAK_BF16 if dtype != torch.float32 else PEAK_OPS["float32"]
+    peak = PEAK_BF16 if dtype != torch.float32 else SPLIT_TF32_OPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = {"kernel": "flash_attention", "shape": [b, s, h, kh, d],
            "dtype": wname, "causal": causal, "window": window,
-           "softcap": softcap, "seed": seed, "max_abs_err": err,
-           "tol": FLASH_TOL[wname],
+           "softcap": softcap, "seed": seed, "with_lse": with_lse,
+           "max_abs_err": err, "tol": FLASH_TOL[wname],
+           "lse_rel_err": lse_err, "lse_rtol": LSE_RTOL if with_lse else None,
            "max_row_rel_err": row_err, "row_tol": row_tol,
            "controls": ctl,
            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "flex": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, "gflop": flops / 1e9,
+           "library_ms": library_ms, "library_device_ms": library_device_ms,
+           "flex": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_fp32_cores": (1e3 * max(flops / PEAK_OPS["float32"],
+                                             t_bytes)
+                                   if dtype == torch.float32 else None),
+           "gflop": flops / 1e9,
            "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
     log(f"[flash] (B {b}, S {s}, H {h}/{kh}, D {d}) {wname} causal={causal} "
         f"window={window} softcap={softcap}: max abs err {err:.3e} (tol "
-        f"{FLASH_TOL[wname]}); logit std {LOGIT_STD}: max row err "
+        f"{FLASH_TOL[wname]})"
+        + (f", lse {lse_err:.3e} relative (tol {LSE_RTOL})" if with_lse
+           else "")
+        + f"; logit std {LOGIT_STD}: max row err "
         f"{row_err:.3e} (tol {row_tol}), controls "
         + ", ".join(f"{n} {c:.3e}" for n, c in ctl.items())
         + f"; kernel {ms:.4f} ms (device "
         f"{'%.4f ms' % device_ms if device_ms else 'not measured'}, "
         f"{row['TFLOP_per_s']:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-        f"({bound_by}), plain {plain_ms:.4f} ms, "
-        f"SDPA {'%.4f ms' % library_ms if library_ms is not None else 'n/a'}"
-        f"  [{card}]")
+        f"({bound_by}"
+        + (f"; {row['bound_ms_fp32_cores']:.4f} at 67 TFLOP/s f32"
+           if with_lse else "")
+        + f"), plain {plain_ms:.4f} ms, SDPA "
+        + (f"{library_ms:.4f} ms (device "
+           f"{'%.4f ms' % library_device_ms if library_device_ms else 'not measured'})"
+           if library_ms is not None else "n/a")
+        + f"  [{card}]")
     del q, k, v
     torch.cuda.empty_cache()
     return row
@@ -2337,17 +2452,17 @@ def phase_flash_kernel(card: str):
                       f"S {s}, {kw}")
     log("[flash] the kernel's tile plan equals tile_plan (D 64/128/256, 7 "
         "lengths, 5 masks)")
-    bf = torch.bfloat16
-    cases = [
-        dict(b=1, s=4608, h=16, kh=8, d=256, dtype=bf, softcap=50.0),
-        dict(b=1, s=4608, h=16, kh=8, d=256, dtype=bf, softcap=50.0,
-             window=4096),
-        dict(b=2, s=1000, h=16, kh=8, d=256, dtype=bf, softcap=50.0),
-        dict(b=1, s=4096, h=32, kh=8, d=128, dtype=bf),
-        dict(b=2, s=512, h=32, kh=32, d=64, dtype=torch.float32),
-        dict(b=2, s=1000, h=32, kh=8, d=128, dtype=bf, causal=False),
-    ]
-    return [_flash_case(card, seed=200 + i, **c) for i, c in enumerate(cases)]
+    return _flash_cases(card, FLASH_CASES)
+
+
+def _flash_cases(card: str, cases) -> list:
+    """:func:`_flash_case` at each of ``cases`` (entries of
+    :data:`FLASH_CASES`), each with its seed."""
+    import torch
+
+    return [_flash_case(card, seed=200 + FLASH_CASES.index(c),
+                        **dict(c, dtype=getattr(torch, c["dtype"])))
+            for c in cases]
 
 
 def _flex_bwd_yardstick(card: str, row: dict) -> None:
@@ -2723,6 +2838,21 @@ _BWD_PARTS = ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
               "flash_bwd_dq_kernel")
 
 
+# phase 15a's shapes: stablelm's training shape and a long sequence,
+# mistral-nemo, gemma2-9b's softcap (global and local layers)
+BWD_CASES = [dict(b=16, s=128, h=32, kh=32, d=64),
+             dict(b=2, s=2048, h=32, kh=32, d=64),
+             dict(b=2, s=512, h=32, kh=8, d=128),
+             dict(b=1, s=512, h=16, kh=8, d=256, softcap=50.0),
+             dict(b=1, s=512, h=16, kh=8, d=256, softcap=50.0, window=256)]
+
+
+def _bwd_cases(card: str) -> list:
+    """:func:`_bwd_case` at each of :data:`BWD_CASES`, each with its seed."""
+    return [_bwd_case(card, seed=500 + i, **c)
+            for i, c in enumerate(BWD_CASES)]
+
+
 def _bwd_grads_err(got, exp) -> float:
     """max over dq, dk, dv of max |got - exp| / max |exp|."""
     return max(float((g.double() - e).abs().max() / e.abs().max())
@@ -2785,7 +2915,7 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
     recs = {n: t for n, t in _profile_kernels(kern, 5).items()
             if any(p in n for p in _BWD_PARTS)}
     device_ms = sum(recs.values()) / 5 if recs else None
-    library_ms = lib_err = None
+    library_ms = library_device_ms = lib_err = None
     if softcap is None and (window is None or not causal):
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
@@ -2801,11 +2931,12 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
         check(lib_err <= LIB_BWD_TOL, f"SDPA's backward disagrees with the "
               f"kernel at {where} by {lib_err:.3e}")
         library_ms = _time_ms(lib, 5, 3)
+        library_device_ms = _device_ms(lib, 5) or None
         del qt, kt, vt, lib_out, dot
     pairs = _admitted_pairs(s, causal, window)
     flops = 10 * d * h * b * pairs
     nbytes = 4 * (4 * b * s * h * d + 4 * b * s * kh * d + b * h * s)
-    t_ops, t_bytes = flops / PEAK_OPS["float32"], nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = flops / SPLIT_TF32_OPS, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     row = {"kernel": "flash_attention_bwd", "shape": [b, s, h, kh, d],
            "dtype": "float32", "causal": causal, "window": window,
@@ -2815,9 +2946,11 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
            "max_rel_err_f64": err, "tol": BWD_TOL, "controls": ctl,
            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
            "library": "sdpa" if library_ms is not None else None,
-           "library_ms": library_ms, "library_err": lib_err,
-           "bound_ms": bound_ms,
+           "library_ms": library_ms, "library_device_ms": library_device_ms,
+           "library_err": lib_err, "bound_ms": bound_ms,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ms_fp32_cores": 1e3 * max(flops / PEAK_OPS["float32"],
+                                            t_bytes),
            "gflop": flops / 1e9,
            "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
     log(f"[lm-a] 5b (B {b}, S {s}, H {h}/{kh}, D {d}) causal={causal} "
@@ -2827,9 +2960,12 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
         + f"; kernel {ms:.4f} ms (device "
         f"{'%.4f ms' % device_ms if device_ms else 'not measured'}, "
         f"{row['TFLOP_per_s']:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
-        f"({row['bound_by']}), plain {plain_ms:.4f} ms, SDPA backward "
-        f"{'%.4f ms' % library_ms if library_ms is not None else 'n/a'}"
-        f"  [{card}]")
+        f"({row['bound_by']}; {row['bound_ms_fp32_cores']:.4f} at 67 "
+        f"TFLOP/s f32), plain {plain_ms:.4f} ms, SDPA backward "
+        + (f"{library_ms:.4f} ms (device "
+           f"{'%.4f ms' % library_device_ms if library_device_ms else 'not measured'})"
+           if library_ms is not None else "n/a")
+        + f"  [{card}]")
     del q, k, v, out, lse, do, got
     torch.cuda.empty_cache()
     return row
@@ -2981,7 +3117,7 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
                                + e.time_range.elapsed_us() / 1e3)
     round_ms = start.elapsed_time(end)
     busy = sum(by_name.values())
-    fwd = sum(v for k_, v in by_name.items() if "flash_simt" in k_)
+    fwd = sum(v for k_, v in by_name.items() if "flash_tf32" in k_)
     bwd = sum(v for k_, v in by_name.items()
               if any(p in k_ for p in _BWD_PARTS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -3059,12 +3195,7 @@ def phase_lm(card: str) -> dict:
     from repro_torch import device as dev
 
     t0 = time.perf_counter()
-    cases = [dict(b=16, s=128, h=32, kh=32, d=64),
-             dict(b=2, s=2048, h=32, kh=32, d=64),
-             dict(b=2, s=512, h=32, kh=8, d=128),
-             dict(b=1, s=512, h=16, kh=8, d=256, softcap=50.0),
-             dict(b=1, s=512, h=16, kh=8, d=256, softcap=50.0, window=256)]
-    rows = [_bwd_case(card, seed=500 + i, **c) for i, c in enumerate(cases)]
+    rows = _bwd_cases(card)
     # the model turns TF32 off itself: run (b) with PyTorch's TF32 allowed
     with dev.full_fp32():
         check(not torch.backends.cudnn.allow_tf32
@@ -3091,16 +3222,32 @@ def phase_lm(card: str) -> dict:
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
 
 
-def ab_part(card: str) -> dict:
+AB_PARTS = ("kernels", "attention")
+
+
+def ab_part(card: str, parts=AB_PARTS, tf32: bool = True) -> dict:
     """The measurements of one tree for an A/B (the package on
-    ``sys.path`` is that tree's, its kernels built from its sources):
-    kernel 1 on phase 2's planes and on the two trees, kernel 4 at its
-    record's shapes, phase 3's
-    500-round paths, phase 4's wide round (s/round, busy, cat kernels) and
-    phase 7b's commits."""
+    ``sys.path`` is that tree's, its kernels built from its sources;
+    ``tf32``: phase 1's tensor-core check, off for an earlier tree).
+    ``kernels``: kernel 1 on phase 2's planes and on the two trees, kernel 4
+    at its record's shapes, phase 3's 500-round paths, phase 4's wide round
+    (s/round, busy, cat kernels) and phase 7b's commits.  ``attention``:
+    kernel 5 at phase 10's float32 shapes and kernel 5b at phase 15a's, each
+    beside SDPA (forward and backward)."""
+    out = {"build_s": phase_build(tf32)["seconds"]}
+    if "attention" in parts:
+        out["flash"] = _flash_cases(card, [c for c in FLASH_CASES
+                                           if c["dtype"] == "float32"])
+        out["bwd"] = _bwd_cases(card)
+    if "kernels" in parts:
+        out.update(_ab_kernels(card))
+    return out
+
+
+def _ab_kernels(card: str) -> dict:
+    """The ``kernels`` part of :func:`ab_part`."""
     import torch
 
-    build = phase_build()
     planes = phase_kernels(card)
     trees = [r for i, name in enumerate(TREES)
              for r in _tree_case(name, card, 300 + i)]
@@ -3132,17 +3279,15 @@ def ab_part(card: str) -> dict:
     _async_paper_run("cuda", True, 200, 25)
     torch.cuda.synchronize()
     asyn = {"b_s_per_commit": (time.perf_counter() - t0) / 200}
-    out = {"build_s": build["seconds"], "planes": planes, "trees": trees,
-           "commits": commits,
-           "paper": paper, "wide": wide, "async": asyn}
     log(f"[ab] paper {paper}; wide {wide}; async (b) {asyn}  [{card}]")
-    return out
+    return {"planes": planes, "trees": trees, "commits": commits,
+            "paper": paper, "wide": wide, "async": asyn}
 
 
-def run_ab(parent: Path) -> None:
+def run_ab(parent: Path, parts=AB_PARTS) -> None:
     """Parent, this tree, this tree, parent: each in its own process with
-    its own package and kernels; the results side by side in
-    ``chiprun_out/ab.json``."""
+    its own package and kernels, measuring ``parts`` (see
+    :func:`ab_part`); the results side by side in ``chiprun_out/ab.json``."""
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     runs = []
@@ -3150,12 +3295,20 @@ def run_ab(parent: Path) -> None:
                                        ("tree", ROOT), ("parent", parent))):
         dest = out_dir / f"ab_{i}_{label}.json"
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--ab-part", str(root), str(dest)],
+                               "--ab-part", str(root), str(dest), *parts],
                               timeout=900)
         check(proc.returncode == 0, f"A/B run {i} ({label}) failed")
         runs.append({"label": label, **json.loads(dest.read_text())})
     (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
     for r in runs:
+        for row in r.get("flash", []) + r.get("bwd", []):
+            log(f"[ab] {r['label']}: {row['kernel']} {tuple(row['shape'])} "
+                f"softcap={row['softcap']} window={row['window']}: "
+                f"{row['ms']:.4f} ms (device {row['device_ms'] or 0:.4f}); "
+                f"SDPA {row['library_ms'] or 0:.4f} ms (device "
+                f"{row['library_device_ms'] or 0:.4f})")
+        if "planes" not in r:
+            continue
         planes = ", ".join(
             f"{tuple(p['shape'])} {p['dtype']} {p['ms']:.4f} ms (device "
             f"{p['device_ms']:.4f})" for p in r["planes"])
@@ -3194,11 +3347,13 @@ def main(argv) -> None:
              "from a checkout of the repository")
     sys.path.insert(0, str(src))
     if argv[:1] == ["--ab"]:
-        run_ab(Path(argv[1]).resolve())
+        run_ab(Path(argv[1]).resolve(), argv[2:] or AB_PARTS)
         return
     if argv[:1] == ["--ab-part"]:
         card = phase_device()
-        Path(argv[2]).write_text(json.dumps(ab_part(card), indent=1))
+        Path(argv[2]).write_text(json.dumps(ab_part(
+            card, argv[3:] or AB_PARTS, tf32=tree.resolve() == ROOT),
+            indent=1))
         return
     if argv[:1] == ["--lm"]:  # phase 15 alone; prints no result
         card = phase_device()

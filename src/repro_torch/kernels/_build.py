@@ -43,8 +43,9 @@ FALLBACK_NVCC = Path("/usr/local/cuda/bin/nvcc")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMMON_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 DEFAULT_FLAGS = ("-fmad=false",)
-# the flash source's six tensor-core instantiations are compiled in
-# parallel inside its nvcc (-split-compile=0: one job per CPU)
+# the flash source's nine instantiations (bf16 / f16 wgmma and float32
+# split TF32, at three head dims) are compiled in parallel inside its nvcc
+# (-split-compile=0: one job per CPU)
 SOURCE_FLAGS = {"flash_attention.cu": ("-fmad=true", "-split-compile=0",
                                        "-Xptxas", "-v"),
                 "flash_attention_bwd.cu": ("-fmad=true", "-Xptxas", "-v")}

@@ -20,11 +20,14 @@
 //
 // Bound: at the model's shapes the work is the two products, 4 * D * (the
 // admitted (i, j) pairs) operations per head, against 989 TFLOP/s of dense
-// bf16 tensor-core work; the bytes (q, k, v read once, out written once) are
-// some 5x below that at S = 4,608, D = 256. Beside the products, each
-// admitted pair costs an exp and, with a softcap, a tanh on the
-// multi-function unit (~3.9 T/s on the card): 50-75% of the product bound
-// at gemma2's shapes if it ran alone.
+// bf16 tensor-core work, or, in float32, 165 TFLOP/s of split TF32 (three
+// TF32 products per float32 one at 495 TFLOP/s: split_tf32.cuh; the same
+// work in float32 FMAs on the CUDA cores, 67 TFLOP/s, takes 2.5x as long);
+// the bytes (q, k, v read once, out written once) are some 5x below
+// that at S = 4,608, D = 256. Beside the products, each admitted pair costs
+// an exp and, with a softcap, a tanh on the multi-function unit (~3.9 T/s on
+// the card): 50-75% of the bf16 product bound at gemma2's shapes if it ran
+// alone.
 //
 // bfloat16 / float16: one block owns 128 query rows of one (b, h) and is
 // warp-specialised (384 threads):
@@ -65,12 +68,22 @@
 // would be off by up to ~0.02 near saturation), and the softmax runs in
 // base 2 (logits times log2 e, ex2.approx).
 //
-// float32 inputs cannot take the tensor cores at float32 accuracy, so they
-// take a SIMT kernel: 4 warps of 4 query rows, 32-key tiles; each lane
-// scores one key against the warp's rows, then owns D / 32 columns of the
-// output rows for the PV sum. Given an lse buffer it also writes each row's
+// float32 takes its own kernel, on the tensor cores in split TF32
+// (split_tf32.cuh: x = hi + lo, three TF32 mma.sync m16n8k8 products per
+// float32 one, float32 accumulators; mma.sync rather than wgmma because
+// wgmma reads tf32 operands K-major only, which O += P V's V is not):
+// blocks of 64 query rows (128 at D = 128), 16 rows a warp (two warps
+// each taking half of O's columns at D = 256), kv tiles of 32 keys
+// through a two-slot cp.async ring, the next tile
+// loading while this one's products run. S = Q K^T with both operands from
+// padded shared memory; P stays in registers as the A operand of O += P V
+// (its columns taken in the order the accumulator holds them, V's rows
+// read in the same order). The logits, softcap (tanhf), mask, online
+// softmax (__expf) and row sums stay float32 on the CUDA cores. A warp skips a kv tile that holds no key its rows
+// admit; a tile crossing the diagonal, the window's lower edge or S is
+// masked per element. Given an lse buffer it also writes each row's
 // log-sum-exp of the logits, (B, H, S) float32, for the backward kernel
-// (flash_attention_bwd.cu); the tensor-core kernel writes none.
+// (flash_attention_bwd.cu); the bf16 / f16 kernel writes none.
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers. The CUDA
 // driver's cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so the
@@ -88,6 +101,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "split_tf32.cuh"
 
 namespace {
 
@@ -99,7 +113,7 @@ struct Args {
   float* lse;  // (B, H, S) row log-sum-exp, or null (float32 kernel only)
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
   int S, group, causal, window;
-  float scale, cap;  // cap <= 0: no softcap
+  float scale, cap, inv_cap;  // cap <= 0: no softcap
 };
 
 constexpr int kEncodeFailed = 1000;  // not a cudaError_t
@@ -115,7 +129,7 @@ __device__ __forceinline__ bool admitted(const Args& a, int qpos, int kpos) {
 
 __device__ __forceinline__ float to_logit(const Args& a, float s) {
   float x = s * a.scale;
-  if (a.cap > 0.f) x = a.cap * tanhf(x / a.cap);
+  if (a.cap > 0.f) x = a.cap * tanhf(x * a.inv_cap);
   return x;
 }
 
@@ -153,8 +167,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
-
-constexpr int kThreads = 128;  // the SIMT kernel's block
 
 // -- Hopper primitives (the mbarriers: hopper.cuh) ------------------------------
 
@@ -644,119 +656,132 @@ __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
   }
 }
 
-// -- the float32 SIMT kernel -----------------------------------------------------
+// -- the float32 kernel: split TF32 on the tensor cores --------------------------
 
-constexpr int kSimtRows = 4;                          // query rows of a warp
-constexpr int kSimtBq = kSimtRows * (kThreads / 32);  // 16 rows a block
-constexpr int kSimtBk = 32;                           // one key per lane
+// One block owns BQ query rows of one (b, h), 16 rows a warp; kv tiles of BK
+// keys stream through a two-slot cp.async ring (tile i + 1 loads while tile
+// i's products run). kv tiles of 32 keys keep the ring small and the S
+// accumulator at 16 registers: at D = 64 three blocks fit an SM (64 keys
+// leave room for two). At D = 128 a block has 8 row warps
+// sharing each K and V tile; at D = 256 CS = 2 warps share each 16 rows,
+// each accumulating D / 2 columns of O (all D would spill), both computing
+// the rows' scores and softmax.
+template <int D>
+struct Tf32Tile {
+  static constexpr int RW = D == 128 ? 8 : 4;    // warps along the rows
+  static constexpr int CS = D == 256 ? 2 : 1;    // warps along O's columns
+  static constexpr int WARPS = RW * CS;
+  static constexpr int BQ = 16 * RW;             // query rows of a block
+  static constexpr int BK = 32;                  // keys of a kv tile
+  static constexpr int LD = D + 4;               // row stride in shared memory
+  static constexpr int STAGES = 2;
+  static constexpr int SMEM = (BQ + 2 * STAGES * BK) * LD * 4;
+};
 
 template <int D>
-constexpr int simt_smem() {
-  return (kSimtBq * D + kSimtBk * (D + 1) + kSimtBk * D + kSimtBq * kSimtBk) * 4;
-}
+__global__ void __launch_bounds__(Tf32Tile<D>::WARPS * 32)
+    flash_tf32_kernel(const Args a) {
+  using C = Tf32Tile<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, ST = C::STAGES;
+  constexpr int THREADS = C::WARPS * 32, NK = BK / 8, ND = D / C::CS / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // (BQ, LD)
+  float* Ks = Qs + BQ * LD;      // ST x (BK, LD)
+  float* Vs = Ks + ST * BK * LD;  // ST x (BK, LD)
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_simt_kernel(Args a) {
-  constexpr int R = kSimtRows, BQ = kSimtBq, BK = kSimtBk, E = D / 32, LDK = D + 1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // (BQ, D)
-  float* Ks = Qs + BQ * D;                      // (BK, D + 1): lane j reads row j
-  float* Vs = Ks + BK * LDK;                    // (BK, D)
-  float* Ps = Vs + BK * D;                      // (BQ, BK) probabilities
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // diagonal-heavy first
   const int h = blockIdx.y, b = blockIdx.z, kh = h / a.group;
   const float* qg = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
   const float* kg = static_cast<const float*>(a.k) + b * a.k_b + kh * a.k_h;
   const float* vg = static_cast<const float*>(a.v) + b * a.v_b + kh * a.v_h;
-  float* og = static_cast<float*>(a.o) + b * a.o_b + h * a.o_h;
-
-  for (int c = tid; c < BQ * D; c += kThreads) {
-    const int r = c / D, d = c % D;
-    Qs[c] = q0 + r < a.S ? qg[(q0 + r) * a.q_s + d] : 0.f;
-  }
-  float acc[R][E], m[R], l[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;  // this lane's share of the row sum
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
-  }
-  const float* qw = Qs + warp * R * D;
-  float* pw = Ps + warp * R * BK;
-
   int t0, t1;
   kv_tiles(a, q0, BQ, BK, &t0, &t1);
-  for (int kt = t0; kt < t1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    for (int c = tid; c < BK * D; c += kThreads) {
-      const int r = c / D, d = c % D;
-      const bool in = k0 + r < a.S;
-      Ks[r * LDK + d] = in ? kg[(k0 + r) * a.k_s + d] : 0.f;
-      Vs[c] = in ? vg[(k0 + r) * a.v_s + d] : 0.f;
-    }
-    __syncthreads();
+  const int n = t1 - t0;  // >= 1: every row admits its own key, or all keys
+  auto load_kv = [&](int i) {
+    const int k0 = (t0 + i) * BK, slot = i % ST;
+    load_rows<BK, D, THREADS>(Ks + slot * BK * LD, kg, a.k_s, k0, a.S);
+    load_rows<BK, D, THREADS>(Vs + slot * BK * LD, vg, a.v_s, k0, a.S);
+  };
+  load_rows<BQ, D, THREADS>(Qs, qg, a.q_s, q0, a.S);
+  load_kv(0);
+  cp_async_commit();
 
-    float s[R];
+  const int rw = warp % C::RW, c0 = D / C::CS * (warp / C::RW);  // its O columns
+  const int qw = q0 + 16 * rw;         // the warp's first row
+  const int r0 = qw + (lane >> 2);     // this thread's rows r0 and r0 + 8
+  int w0, w1;  // the kv tiles holding a key some row of the warp admits
+  kv_tiles(a, qw, 16, BK, &w0, &w1);
+  float o[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * LDK;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d];
+  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) load_kv(i + 1);
+    cp_async_commit();  // (empty after the last tile: the count stays even)
+    cp_async_wait<1>();  // tile i (and Q) landed
+    __syncthreads();
+    const int kt = t0 + i, k0 = kt * BK;
+    if (kt >= w0 && kt < w1) {  // warp-uniform: no mma.sync under divergence
+      const float* kb = Ks + (i % ST) * BK * LD;
+      const float* vb = Vs + (i % ST) * BK * LD;
+      float s[NK][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) s[r] = fmaf(qw[r * D + d], kd, s[r]);
-    }
-    const int kpos = k0 + lane;
+      for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      mma_nt<NK, D>(s, Qs + 16 * rw * LD, kb, LD);
+      // logits (scale, softcap), mask, online softmax: s[j][e] is the score
+      // of row r0 + (e < 2 ? 0 : 8) against key k0 + 8 j + 2 t + (e & 1)
+      const bool masked = tile_masked(a, qw, 16, k0, BK);
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int qpos = q0 + warp * R + r;
-      const float x = admitted(a, qpos, kpos) ? to_logit(a, s[r]) : -INFINITY;
-      float mx = x;
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[r], mx);
-      const float mu = mn == -INFINITY ? 0.f : mn;
-      const float al = __expf(m[r] - mu);
-      const float p = __expf(x - mu);
-      m[r] = mn;
-      l[r] = l[r] * al + p;
-      pw[r * BK + lane] = p;
+        for (int e = 0; e < 4; ++e) {
+          float x = to_logit(a, s[j][e]);
+          if (masked && !admitted(a, r0 + (e & 2) * 4, k0 + 8 * j + 2 * t + (e & 1)))
+            x = -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float mu[2];
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[r][e] *= al;
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float vj[E];
+      for (int r = 0; r < 2; ++r) {
+        const float mn = quad_max(mx[r]);
+        mu[r] = mn == -INFINITY ? 0.f : mn;  // nothing admitted yet: shift by 0
+        const float al = __expf(m[r] - mu[r]);
+        m[r] = mn;
+        l[r] *= al;
 #pragma unroll
-      for (int e = 0; e < E; ++e) vj[e] = Vs[j * D + lane + 32 * e];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = pw[r * BK + j];
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(p, vj[e], acc[r][e]);
+        for (int j = 0; j < ND; ++j) {
+          o[j][2 * r] *= al;
+          o[j][2 * r + 1] *= al;
+        }
       }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = __expf(s[j][e] - mu[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      mma_pn<ND, NK>(o, s, vb + c0, LD);
     }
-    __syncwarp();
+    __syncthreads();  // the slot is read before tile i + 2 refills it
   }
 
+  float* og = static_cast<float*>(a.o) + b * a.o_b + h * a.o_h;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float lt = l[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const float lt = quad_sum(l[r]);
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    const int qpos = q0 + warp * R + r;
-    if (qpos < a.S) {
+    if (row < a.S) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) og[qpos * a.o_s + lane + 32 * e] = acc[r][e] * inv;
-      if (a.lse && lane == 0)
-        a.lse[(static_cast<long long>(b) * gridDim.y + h) * a.S + qpos] = m[r] + logf(lt);
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<float2*>(og + row * a.o_s + c0 + 8 * j + 2 * t) =
+            make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      if (a.lse && t == 0 && c0 == 0)
+        a.lse[(static_cast<long long>(b) * gridDim.y + h) * a.S + row] = m[r] + logf(lt);
     }
   }
 }
@@ -823,13 +848,13 @@ int launch_wgmma(const Args& a, int B, int H, int KH, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_simt(const Args& a, int B, int H, cudaStream_t stream) {
-  constexpr int smem = simt_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_simt_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_tf32(const Args& a, int B, int H, cudaStream_t stream) {
+  using C = Tf32Tile<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_tf32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.S + kSimtBq - 1) / kSimtBq, H, B);
-  flash_simt_kernel<D><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.S + C::BQ - 1) / C::BQ, H, B);
+  flash_tf32_kernel<D><<<grid, C::WARPS * 32, C::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -859,7 +884,7 @@ int tile_plan(const Args& a, int* sizes, int* ranges, unsigned char* masks) {
 template <int D>
 int launch_dtype(int dtype, const Args& a, int B, int H, int KH, cudaStream_t s) {
   switch (dtype) {
-    case 0: return launch_simt<D>(a, B, H, s);
+    case 0: return launch_tf32<D>(a, B, H, s);
     case 2: return launch_wgmma<__nv_bfloat16, D>(a, B, H, KH, s);
     case 3: return launch_wgmma<__half, D>(a, B, H, KH, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -898,6 +923,7 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   a.window = window;
   a.scale = static_cast<float>(scale);
   a.cap = static_cast<float>(softcap);
+  a.inv_cap = softcap > 0 ? static_cast<float>(1.0 / softcap) : 0.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch_dtype<64>(dtype, a, B, H, KH, s);

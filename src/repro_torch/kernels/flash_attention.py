@@ -33,10 +33,14 @@ that folds the mapped (client) axis into B, so ``torch.func.vmap`` over
 The kernel accumulates in float32 and keeps the running softmax statistics
 in float32; bfloat16 and float16 run on the tensor cores (``wgmma``, TMA
 loads, a producer warp feeding two consumer warpgroups) with the
-probabilities rounded to the input dtype for the PV product, float32 on the
-CUDA cores.  It is held to the plain version at the reference's own
-tolerances (``tests/test_kernels.py``): 2e-5 in float32, 3e-2 in bfloat16.
-:func:`tile_plan` is the tensor-core kernel's tiling, which it mirrors;
+probabilities rounded to the input dtype for the PV product; float32 runs
+its products on the tensor cores too, in split TF32 (each operand split
+into two TF32 parts, three TF32 products per float32 one: float32's
+accuracy), as does the backward.  It is held to the plain version at the
+reference's own tolerances (``tests/test_kernels.py``): 2e-5 in float32,
+3e-2 in bfloat16.
+:func:`tile_plan` is the bfloat16 / float16 kernel's tiling, which it
+mirrors;
 :func:`kernel_tile_plan` reads the compiled kernel's own, which the card
 tests hold to it.
 """
@@ -53,12 +57,28 @@ _ENCODE_FAILED = 1000  # csrc/flash_attention.cu: kEncodeFailed
 # the bfloat16 / float16 kernel's tiles (csrc/flash_attention.cu: Tile):
 # query rows of a block and of each of its two consumer warpgroups
 BLOCK_Q, WARPGROUP_Q = 128, 64
-BWD_TILE = 32  # query rows and keys of a backward tile (kTile)
 
 
 def block_k(d: int) -> int:
     """Keys of a kv tile of the bfloat16 / float16 kernel at head dim d."""
     return 80 if d == 256 else 128
+
+
+def f32_tiles(d: int) -> tuple[int, int]:
+    """``(bq, bk)`` of the float32 forward kernel at head dim ``d``: query
+    rows of a block and keys of a kv tile (``csrc/flash_attention.cu:
+    Tf32Tile``), walked by :func:`kv_tile_range`."""
+    return (128 if d == 128 else 64), 32
+
+
+def bwd_tiles(d: int) -> dict:
+    """The backward kernels' ``(bq, bk)`` tiles at head dim ``d``, query
+    rows and keys (``csrc/flash_attention_bwd.cu: BwdTile``): ``"dkv"``,
+    the query tiles a dK/dV block of ``bk`` keys walks by
+    :func:`q_tile_range`; ``"dq"``, the kv tiles a dQ block of ``bq`` rows
+    walks by :func:`kv_tile_range`."""
+    return {"dkv": (32, 32) if d == 256 else (64 if d == 128 else 32, 64),
+            "dq": (128 if d == 128 else 64, 32)}
 
 
 def kv_tile_range(s: int, q0: int, bq: int, bk: int, *, causal: bool,
@@ -77,8 +97,8 @@ def q_tile_range(s: int, k0: int, bk: int, bq: int, *, causal: bool,
                  window: int | None) -> tuple[int, int]:
     """The query tiles ``[t0, t1)`` of ``bq`` rows that hold a row admitting
     some key in ``[k0, k0 + bk)`` (the backward kernel's ``q_tiles``, which
-    walks them with ``bq = bk = BWD_TILE``): key j is admitted by the rows
-    ``j <= i < j + window``."""
+    walks them with :func:`bwd_tiles`' ``"dkv"`` sizes): key j is admitted
+    by the rows ``j <= i < j + window``."""
     lo, hi = 0, s
     if causal:
         lo = k0
@@ -368,7 +388,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     CPU tensors take :func:`flash_attention_backward_plain`.  CUDA tensors
     launch the backward kernel (``csrc/flash_attention_bwd.cu``; counted in
     ``flash_attention_bwd.launches``), float32 only, the operands made
-    contiguous first; anything else raises.
+    contiguous and 16-byte aligned first; anything else raises.
     """
     _check(q, k, v, window)
     if not _build.on_card("flash_attention backward", q):
@@ -390,8 +410,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
                          f"and lse {tuple(lse.shape)} {lse.dtype} float32 "
                          f"{(b, h, s)}")
     lib = _build.load_library()
-    q, k, v, out, dout, lse = (t.to(torch.float32).contiguous()
-                               for t in (q, k, v, out, dout, lse))
+    # contiguous, and at a 16-byte boundary: the kernels read rows with
+    # 16-byte copies (a contiguous view can start anywhere in its storage)
+    q, k, v, out, dout, lse = (
+        t if t.data_ptr() % 16 == 0 else t.clone()
+        for t in (x.to(torch.float32).contiguous()
+                  for x in (q, k, v, out, dout, lse)))
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

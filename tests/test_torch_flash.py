@@ -179,8 +179,9 @@ def _admitted(s, causal, window):
     return ok
 
 
-@pytest.mark.parametrize("bq,bk", [(128, 80), (128, 128), (64, 80),
-                                   (64, 128), (128, 64)])
+@pytest.mark.parametrize("bq,bk", sorted(
+    {(128, 80), (128, 128), (64, 80), (64, 128), (128, 64)}
+    | {fa.f32_tiles(d) for d in fa.HEAD_DIMS}))
 @pytest.mark.parametrize("causal", [True, False])
 def test_tile_plan_covers_every_admitted_pair(bq, bk, causal):
     """Against a brute-force mask: every admitted pair lies in a visited

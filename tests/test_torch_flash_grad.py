@@ -201,31 +201,39 @@ def test_backward_wrapper_cpu_is_plain_and_other_devices_raise():
         fa.FlashAttentionBackward.backward(None)
 
 
-@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 100, 129])
+# (query rows, keys) of the tiles the backward kernels walk, at every head
+# dim: the dK/dV kernel's key block and its query tiles, the dQ kernel's
+# query block and its kv tiles
+_BWD_TILES = sorted({t for d in fa.HEAD_DIMS
+                     for t in fa.bwd_tiles(d).values()})
+
+
+@pytest.mark.parametrize("bq,bk", _BWD_TILES)
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 65, 100, 129, 200])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 1),
                                            (True, 7), (True, 40),
                                            (False, None)])
 def test_q_tile_range_holds_exactly_the_rows_a_kv_tile_needs(s, causal,
-                                                             window):
+                                                             window, bq, bk):
     """The backward's dk/dv walk (``q_tile_range``, mirrored by the
-    kernel's ``q_tiles``) and its dq walk (``kv_tile_range``): every tile
-    with an admitted pair is visited, and only tiles touching the mask's
-    admitted band (the first and last may hold refused pairs)."""
-    t = fa.BWD_TILE
+    kernel's ``q_tiles``) and its dq walk (``kv_tile_range``), with query
+    tiles of ``bq`` rows and kv tiles of ``bk`` keys: every tile with an
+    admitted pair is visited, and only tiles touching the mask's admitted
+    band (the first and last may hold refused pairs)."""
     mask = fa._mask(s, causal, window, "cpu")
     mask = torch.ones(s, s, dtype=torch.bool) if mask is None else mask
-    n = -(-s // t)
-    for kt in range(n):
-        t0, t1 = fa.q_tile_range(s, kt * t, t, t, causal=causal,
+    nq, nk = -(-s // bq), -(-s // bk)
+    for kt in range(nk):
+        t0, t1 = fa.q_tile_range(s, kt * bk, bk, bq, causal=causal,
                                  window=window)
-        need = [qt for qt in range(n)
-                if mask[qt * t:(qt + 1) * t, kt * t:(kt + 1) * t].any()]
+        need = [qt for qt in range(nq)
+                if mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk].any()]
         assert list(range(t0, t1)) == need, (kt, t0, t1, need)
-    for qt in range(n):
-        t0, t1 = fa.kv_tile_range(s, qt * t, t, t, causal=causal,
+    for qt in range(nq):
+        t0, t1 = fa.kv_tile_range(s, qt * bq, bq, bk, causal=causal,
                                   window=window)
-        need = [kt for kt in range(n)
-                if mask[qt * t:(qt + 1) * t, kt * t:(kt + 1) * t].any()]
+        need = [kt for kt in range(nk)
+                if mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk].any()]
         assert list(range(t0, t1)) == need, (qt, t0, t1, need)
 
 
@@ -300,6 +308,21 @@ def test_backward_launch_marshals_the_entry(fake_card):
     assert a[10:17] == [B, S, H, KH, 64, 1, 9]
     assert a[17] == pytest.approx(64 ** -0.5) and a[18] == 5.0 and a[19] == 7
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+
+
+def test_backward_launch_hands_aligned_contiguous_operands(fake_card):
+    """The kernels read rows with 16-byte copies: a contiguous view that
+    starts off a 16-byte boundary is copied first, an aligned one is passed
+    in place."""
+    lib = fake_card(_FakeLibrary())
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(8, d=64))
+    flat = torch.cat([torch.zeros(1), q.flatten()])
+    q_off = flat[1:].view(q.shape)  # contiguous, 4 bytes off
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16
+    fa.flash_attention_bwd(q_off, k, v, q, do, torch.zeros(B, H, S))
+    (_, *a), = lib.calls
+    assert all(p % 16 == 0 for p in a[:10])
+    assert a[0] != q_off.data_ptr() and a[1] == k.data_ptr()
 
 
 @pytest.mark.parametrize("rc,match", [

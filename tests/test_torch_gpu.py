@@ -849,6 +849,83 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda, d, s, h, kh,
         assert _bwd_rel(got, exp) <= _BWD_TOL
 
 
+# the float32 kernels' tiles are 64 query rows (128 at D = 128) by 64 keys
+# (32 at D = 256), dK/dV blocks of 64 keys (32 at D = 256): a ragged S of
+# 200 with GQA group 4 and windows that end just inside, on and just past a
+# 64-key tile edge, so tiles meet the diagonal, the window's lower edge and
+# S at every offset
+_F32_EDGES = [(d, w) for d in (64, 128, 256) for w in (63, 64, 65)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,window", _F32_EDGES)
+def test_flash_f32_kernels_at_tile_edges_on_card(cuda, d, window):
+    gen = torch.Generator(device=cuda).manual_seed(d + window)
+    b, s, h, kh = 2, 200, 8, 2
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=cuda) * f
+               for n, f in ((h, 2.0), (kh, 2.0), (kh, 1.0)))
+    kw = dict(causal=True, window=window, softcap=None)
+    out, lse = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
+                                                    **kw)
+    f64 = [t.double() for t in (q, k, v)]
+    assert _row_rel_err(out, _flash_plain(*f64, **kw)) <= _ROW_TOL[
+        torch.float32]
+    exp_lse = flash_attention.lse_plain(*f64[:2], **kw)
+    assert float((lse.double() - exp_lse).abs().max()
+                 / exp_lse.abs().max()) <= _LSE_RTOL
+    do = torch.randn(out.shape, generator=gen, device=cuda)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    exp = flash_attention.flash_attention_backward_plain(
+        *f64, out.double(), do.double(), **kw)
+    assert _bwd_rel(got, exp) <= _BWD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_f32_kernels_are_deterministic_on_card(cuda, d):
+    """No atomics: two calls of the forward (output and lse) and of the
+    backward (dq, dk, dv) on the same inputs are equal bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, 333, n, d), generator=gen, device=cuda)
+               for n in (8, 2, 2))
+    kw = dict(causal=True, window=100, softcap=30.0)
+    first = flash_attention.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    second = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
+                                                  **kw)
+    assert all(_bits_equal(x, y) for x, y in zip(first, second))
+    do = torch.randn(first[0].shape, generator=gen, device=cuda)
+    grads = [flash_attention.flash_attention_bwd(q, k, v, *first[:1], do,
+                                                 first[1], **kw)
+             for _ in range(2)]
+    assert all(_bits_equal(x, y) for x, y in zip(*grads))
+
+
+# the float32 kernel's row log-sum-exp against lse_plain (float64), max
+# |error| over max |lse|: the logits' summation order, at logits of std 16
+_LSE_RTOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,h,kh,causal,window,softcap", [
+    (333, 4, 1, True, 70, 20.0),        # MQA, window + softcap, ragged S
+    (200, 8, 2, True, None, None),      # GQA group 4
+    (130, 2, 2, False, None, 20.0),     # not causal
+])
+def test_flash_lse_matches_lse_plain_on_card(cuda, d, s, h, kh, causal,
+                                             window, softcap):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k = (torch.randn((2, s, n, d), generator=gen, device=cuda) * 4.0
+            for n in (h, kh))
+    v = torch.randn((2, s, kh, d), generator=gen, device=cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, lse = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
+                                                  **kw)
+    exp = flash_attention.lse_plain(q.double(), k.double(), **kw)
+    assert float((lse.double() - exp).abs().max()
+                 / exp.abs().max()) <= _LSE_RTOL
+
+
 @pytest.mark.gpu
 def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
