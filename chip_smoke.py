@@ -5,7 +5,7 @@
     python3 chip_smoke.py --ab DIR [PART ...]
                                    # A/B: the checkout at DIR (an earlier
                                    # tree) and this one, alternated
-    python3 chip_smoke.py --lm     # phases 0, 1 and 15 alone (no result)
+    python3 chip_smoke.py --lm     # phases 0, 1, 15 and 16 alone (no result)
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
@@ -179,13 +179,16 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   TF32 -- 67 f32 beside it -- against the bytes) and SDPA's
                   backward, events and profiler (phase 12: flex_attention's
                   for the softcap cases); (b) the smoke
-                  stablelm, mistral-nemo and gemma2 (head_dim 64) through
+                  stablelm, mistral-nemo, gemma2, phi3 and recurrentgemma
+                  (head_dim 64) and mamba2 (no attention) through
                   the trainer's set-up (repro_torch.launch.train.build), 2
                   clients, tau 2, 4 rounds, on the card and on the CPU port
                   with params from one seed and PyTorch's TF32 allowed:
                   train_loss at rtol 1e-5 and x_bar within 1e-4 x max
-                  |x_bar| every round, kernels 5 and 5b n_layers x tau x
-                  rounds times, kernel 1 tau x rounds; (c) stablelm-1.6b at
+                  |x_bar| every round, kernels 5 and 5b (attention layers)
+                  x tau x rounds times (recurrentgemma-smoke 1 of 3
+                  layers, mamba2 none), kernel 1 tau x rounds; (c)
+                  stablelm-1.6b at
                   full width (depth cut from 24 to 4 layers, 411 M float32
                   params) through the trainer's build and train: 4 clients,
                   batch 4, seq 128, tau 4, chunk 4, 8 rounds: finite loss,
@@ -196,6 +199,43 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   round; (d) ``python -m repro_torch.launch.train --scale
                   100m --rounds 4 --tau 2 --clients 2`` in a subprocess
                   exits 0.
+ 16. model zoo -- run after phase 15, before 12: the recurrent and
+                  state-space families and phi3.  (c) first, on an empty
+                  card: kernel 5 (bf16, causal) at the new prefill shapes
+                  -- recurrentgemma-9b's local layers (1, 4096, 16/1, 256)
+                  window 2,048, phi3-medium-14b's long-context variant (1,
+                  12288, 40/10, 128) window 8,192 and full attention (1,
+                  4096, 40/10, 128) -- through phase 10's checks: the
+                  reference's 3e-2, then the sharp check at logit std 16
+                  (max row error 1e-2, the controls window +-32 and causal
+                  flipped), against the plain version (the blocked one at
+                  S 12,288, where the dense one's logits do not fit);
+                  kernel ms (events, profiler), the bound (admitted causal
+                  pairs x 4 D x H at 989 TFLOP/s), the plain version's ms
+                  and SDPA's (is_causal; with a window a boolean (S, S)
+                  mask on kv heads repeated to H), the backend it took
+                  named by trial.  (a) card vs CPU port in float32 at full
+                  width: recurrentgemma-9b's one period (rec, rec, local;
+                  window cut to 96), phi3-medium-14b's one layer under its
+                  long-context variant at window 96, mamba2-130m's 24
+                  layers: 2 x 160-token prompts and 8 teacher-forced decode
+                  steps (the rings roll at prefill and wrap in decode),
+                  logits within 1e-4 x max|logit|, each cache leaf within
+                  1e-4 of its max, kernel 5 once per attention layer.  (b)
+                  full width and depth in bf16, random params from a seed:
+                  recurrentgemma-9b (38 layers, window 2,048; prompts 4,096
+                  / 1,024 / 640), phi3-medium-14b under its long-context
+                  variant (40 layers, window 8,192; prompts 12,288 / 2,048
+                  / 700) and mamba2-130m (24 layers; 4,096 / 1,024 / 640):
+                  generate 2 x 1,024 + 16, then serve the three requests
+                  (16 new each) on 2 slots, segment 8: finite logprobs,
+                  kernel 5 launched 12 / 40 / 0 times per prefill and
+                  nothing else; prefill ms per prompt length, decode ms per
+                  token, peak memory; one profiled prefill of the first
+                  prompt (busy, idle share, kernel 5's share, the device
+                  time of the RG-LRU scan and of the SSD inside profiler
+                  ranges, and each timed alone at that shape) and one
+                  profiled decode step (busy, idle share).
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
@@ -227,7 +267,7 @@ trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
 the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11, 13, 14 and 15 and read just after; no
+before each path of phases 3-9, 11, 13, 14, 15 and 16 and read just after; no
 path may copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -2161,15 +2201,32 @@ def _flash_plain_bshd(q, k, v, **kw):
         v.repeat_interleave(rep, 2).transpose(1, 2), **kw).transpose(1, 2)
 
 
+def _flash_plain_blocked(q, k, v, *, causal=True, window=None,
+                         softcap=None):
+    """The port's blocked attention (``layers._blocked_sdpa``, a (512, S)
+    logits tile at a time) on the (B, S, H, D) layout: the plain version
+    where the dense one's (S, S) logits do not fit on the card."""
+    from repro_torch.models import layers as L
+
+    return L._blocked_sdpa(q, k, v, causal=causal, window=window,
+                           cap=softcap, scale=1.0 / math.sqrt(q.shape[-1]),
+                           block_q=512)
+
+
+FLASH_PLAINS = {"dense": _flash_plain_bshd, "blocked": _flash_plain_blocked}
+
+
 def _row_rel_err(got, exp) -> float:
     """max over output rows (b, s, h) of ||got - exp|| / ||exp||."""
     g, e = got.float().flatten(0, 2), exp.float().flatten(0, 2)
     return float(((g - e).norm(dim=1) / e.norm(dim=1)).max())
 
 
-def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed):
-    """The sharp check (see ROW_TOL) and its controls; returns (max row
-    error, {control: its max row difference from the plain version})."""
+def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed,
+                 plain=_flash_plain_bshd):
+    """The sharp check (see ROW_TOL) and its controls against the plain
+    version ``plain``; returns (max row error, {control: its max row
+    difference from the plain version})."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2181,7 +2238,7 @@ def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed):
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = fa.flash_attention_bshd(q, k, v, **kw)
     q, k, v = q.float(), k.float(), v.float()
-    exp = _flash_plain_bshd(q, k, v, **kw)
+    exp = plain(q, k, v, **kw)
     err = _row_rel_err(got, exp)
     del got
     controls = {}
@@ -2193,7 +2250,7 @@ def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed):
     controls["causal flipped"] = dict(kw, causal=not causal)
     ctl = {}
     for name, ckw in controls.items():
-        ctl[name] = _row_rel_err(_flash_plain_bshd(q, k, v, **ckw), exp)
+        ctl[name] = _row_rel_err(plain(q, k, v, **ckw), exp)
         torch.cuda.empty_cache()
     return err, ctl
 
@@ -2207,16 +2264,37 @@ def _flash_inputs(b, s, h, kh, d, dtype, seed):
                   * 0.5).to(dtype) for n in (h, kh, kh))
 
 
+def _sdpa_backend(call, out) -> str:
+    """The SDPA backend ``call()`` took: the first of the backends, in
+    the dispatcher's order, that gives ``out`` bitwise when it is the only
+    one allowed (``None`` if none does)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                if _bit_diff(call(), out) == 0:
+                    return backend.name
+        except RuntimeError:  # the backend cannot take these inputs
+            continue
+    return None
+
+
 def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
-                softcap=None, seed=0):
+                softcap=None, seed=0, plain="dense"):
     """The flash kernel against its plain version at one shape (the
-    reference's check, then the sharp one with its controls); times the
-    kernel, the plain version and, where it computes the same function,
-    ``F.scaled_dot_product_attention``."""
+    reference's check, then the sharp one with its controls); ``plain``
+    names the plain version in FLASH_PLAINS.  Times the kernel, the plain
+    version and, where it computes the same function (no softcap),
+    ``F.scaled_dot_product_attention`` -- for a causal window with a
+    boolean (S, S) mask and the kv heads repeated to H, so the call may
+    leave the fused backends -- and names the backend SDPA took."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
     q, k, v = _flash_inputs(b, s, h, kh, d, dtype, seed)
@@ -2228,9 +2306,11 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
         return fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                        softcap=softcap, with_lse=with_lse)
 
+    plain_name, plain_fn = plain, FLASH_PLAINS[plain]
+
     def plain():
-        return _flash_plain_bshd(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
+        return plain_fn(q, k, v, causal=causal, window=window,
+                        softcap=softcap)
 
     got, exp = kern(), plain()
     torch.cuda.synchronize()
@@ -2252,7 +2332,7 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
           f"abs err {err:.3e} > {FLASH_TOL[wname]}")
     del got, exp
     row_err, ctl = _flash_sharp(b, s, h, kh, d, dtype, causal, window,
-                                softcap, seed + 1000)
+                                softcap, seed + 1000, plain_fn)
     row_tol = ROW_TOL[wname]
     check(row_err <= row_tol, f"flash kernel != plain at {where}, logit std "
           f"{LOGIT_STD}: max row error {row_err:.3e} > {row_tol}")
@@ -2268,26 +2348,39 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     device_ms = (sum(v for v, _ in recs.values())
                  / sum(n for _, n in recs.values())) if recs else None
     plain_ms = _time_ms(plain, 3, 2)
-    library_ms = library_device_ms = None
-    if softcap is None and (window is None or not causal):
-        # SDPA computes the same function (no softcap, no window); timed
-        # only, on the (B, H, S, D) layout it takes
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = library_device_ms = yardstick = backend = None
+    if softcap is None:
+        # SDPA computes the same function; timed only, on the (B, H, S, D)
+        # layout it takes
+        qt = q.transpose(1, 2).contiguous()
+        if window is None or not causal:
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            lib_kw = dict(is_causal=causal, enable_gqa=rep > 1)
+            yardstick = "SDPA"
+        else:
+            kt, vt = (x.repeat_interleave(rep, 2).transpose(1, 2)
+                      .contiguous() for x in (k, v))
+            lib_kw = dict(attn_mask=L.causal_mask(s, s, window=window,
+                                                  device="cuda"))
+            yardstick = "SDPA, boolean (S, S) mask, kv heads repeated to H"
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=rep > 1)
+            qt, kt, vt, **lib_kw)
         try:
             got = kern()
             got = got[0] if with_lse else got
-            lib_err = float((lib().transpose(1, 2).float()
+            lib_out = lib()
+            lib_err = float((lib_out.transpose(1, 2).float()
                              - got.float()).abs().max())
         except TypeError as e:  # a PyTorch without enable_gqa
             log(f"[flash] SDPA not timed: {e}")
         else:
-            check(lib_err <= FLASH_TOL[wname],
-                  f"SDPA disagrees with the kernel by {lib_err:.3e}")
+            check(lib_err <= FLASH_TOL[wname], f"SDPA disagrees with the "
+                  f"kernel at {where} by {lib_err:.3e}")
+            backend = _sdpa_backend(lib, lib_out)
+            del lib_out
             library_ms = _time_ms(lib, 5, 3)
             library_device_ms = _device_ms(lib, 5) or None
-        del qt, kt, vt
+        del qt, kt, vt, got
     pairs = _admitted_pairs(s, causal, window)
     flops = 4 * d * h * b * pairs
     nbytes = b * s * (2 * h + 2 * kh) * d * q.element_size()
@@ -2302,9 +2395,11 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
            "lse_rel_err": lse_err, "lse_rtol": LSE_RTOL if with_lse else None,
            "max_row_rel_err": row_err, "row_tol": row_tol,
            "controls": ctl,
-           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "library_device_ms": library_device_ms,
-           "flex": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms": ms, "device_ms": device_ms, "plain": plain_name,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_device_ms, "library": yardstick,
+           "library_backend": backend, "flex": None, "bound_ms": bound_ms,
+           "bound_by": bound_by,
            "bound_ms_fp32_cores": (1e3 * max(flops / PEAK_OPS["float32"],
                                              t_bytes)
                                    if dtype == torch.float32 else None),
@@ -2324,10 +2419,11 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
         f"({bound_by}"
         + (f"; {row['bound_ms_fp32_cores']:.4f} at 67 TFLOP/s f32"
            if with_lse else "")
-        + f"), plain {plain_ms:.4f} ms, SDPA "
-        + (f"{library_ms:.4f} ms (device "
-           f"{'%.4f ms' % library_device_ms if library_device_ms else 'not measured'})"
-           if library_ms is not None else "n/a")
+        + f"), plain ({plain_name}) {plain_ms:.4f} ms, "
+        + (f"{yardstick}: {library_ms:.4f} ms (device "
+           f"{'%.4f ms' % library_device_ms if library_device_ms else 'not measured'}"
+           f"; backend {backend})"
+           if library_ms is not None else "SDPA n/a")
         + f"  [{card}]")
     del q, k, v
     torch.cuda.empty_cache()
@@ -2830,7 +2926,8 @@ LIB_BWD_TOL = 1e-3
 # (b): card vs CPU port, per round: train_loss at rtol LM_LOSS_RTOL, x_bar
 # within LM_XBAR_TOL x max |x_bar|
 LM_LOSS_RTOL, LM_XBAR_TOL = 1e-5, 1e-4
-LM_ARCHS = ("stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b")
+LM_ARCHS = ("stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b",
+            "phi3_medium_14b", "recurrentgemma_9b", "mamba2_130m")
 # (c): stablelm-1.6b at full width, its 24 layers cut to LM_LAYERS so that
 # 4 clients' DProx state fits one 80 GB card
 LM_LAYERS = 4
@@ -2991,9 +3088,11 @@ def _lm_smoke(card: str, arch: str) -> dict:
     from repro_torch.utils import tree as tu
 
     smoke = registry.get_smoke(arch)
-    # the smoke head dims (32, 40) are not kernel widths
-    cfg = smoke.with_overrides(param_dtype=torch.float32, attn=dataclasses
-                               .replace(smoke.attn, head_dim=64))
+    # the smoke head dims (32, 40) are not kernel widths; mamba2 attends
+    # nowhere
+    attn = (None if smoke.attn is None
+            else dataclasses.replace(smoke.attn, head_dim=64))
+    cfg = smoke.with_overrides(param_dtype=torch.float32, attn=attn)
     params = T.init_model(torch.Generator().manual_seed(0), cfg)
     rounds, tau = 4, 2
     traj = {}
@@ -3017,10 +3116,11 @@ def _lm_smoke(card: str, arch: str) -> dict:
         traj[device] = go() if device == "cuda" else _cpu_run(go)
         if device == "cuda":
             counts = read_counts()
-            n = cfg.n_layers * tau * rounds
+            n = _attn_layers(cfg) * tau * rounds
             check(counts == _expect(flash_attention=n, flash_attention_bwd=n,
                                     fused_local_update=tau * rounds),
-                  f"lm (b) {arch}: launches {counts}")
+                  f"lm (b) {arch}: launches {counts}, expected {n} of "
+                  f"kernels 5 and 5b")
     (lg, xg), (lc, xc) = traj["cuda"], traj["cpu"]
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
     xbar_gap = max(
@@ -3032,13 +3132,28 @@ def _lm_smoke(card: str, arch: str) -> dict:
           f"rel gap {loss_gap:.3e} > {LM_LOSS_RTOL}")
     check(xbar_gap <= LM_XBAR_TOL, f"lm (b) {arch}: card vs cpu x_bar gap "
           f"{xbar_gap:.3e} of max |x_bar| > {LM_XBAR_TOL}")
-    log(f"[lm-b] {cfg.name} (head_dim 64), 2 clients, tau {tau}, {rounds} "
+    hd = "no attention" if cfg.attn is None else "head_dim 64"
+    log(f"[lm-b] {cfg.name} ({hd}), 2 clients, tau {tau}, {rounds} "
         f"rounds: card vs cpu train_loss rel gap {loss_gap:.3e} (tol "
         f"{LM_LOSS_RTOL}), x_bar gap {xbar_gap:.3e} of max |x_bar| (tol "
         f"{LM_XBAR_TOL}); losses {[round(x, 6) for x in lg]}; launches "
         f"{counts}  [{card}]")
     return {"arch": arch, "loss_rel_gap": loss_gap, "xbar_rel_gap": xbar_gap,
             "train_loss_card": lg, "train_loss_cpu": lc, "launches": counts}
+
+
+def _layer_kinds(cfg) -> list:
+    """Every layer's mixer kind, in order (the model's own sequence)."""
+    from repro_torch.models import transformer as T
+
+    prefix, pattern, suffix = T._block_sequence(cfg)
+    return [k for k, _ in prefix + pattern * cfg.n_periods + suffix]
+
+
+def _attn_layers(cfg) -> int:
+    """The model's attention layers: kernel 5 launches once on each per
+    prefill or forward, 5b once on each per backward."""
+    return sum(k in ("attn", "local") for k in _layer_kinds(cfg))
 
 
 def _lm_full(card: str, extra=(), rounds: int = 8):
@@ -3217,6 +3332,389 @@ def phase_lm(card: str) -> dict:
             "cli": cli, "seconds": secs}
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+# (a): card vs CPU port in float32 at full width, per model: logits within
+# ZOO_TOL x max |logit|, every cache leaf within ZOO_TOL x its own max |.|
+ZOO_TOL = 1e-4
+# (b): the models at full width and depth in bf16, each with its prompt
+# lengths (the first is profiled), the generate batch's prompt length,
+# max_len and new tokens per request
+ZOO_FULL = [
+    dict(arch="recurrentgemma_9b", lens=(4096, 1024, 640), gen_len=1024,
+         max_len=8192),
+    dict(arch="phi3_medium_14b", long_context=True, lens=(12288, 2048, 700),
+         gen_len=1024, max_len=16384),
+    dict(arch="mamba2_130m", lens=(4096, 1024, 640), gen_len=1024,
+         max_len=8192),
+]
+ZOO_NEW = 16
+# (c): kernel 5 at the new prefill shapes (bf16, causal): recurrentgemma-9b's
+# local layers, phi3-medium-14b under its long-context variant and at full
+# attention
+ZOO_FLASH_CASES = [
+    dict(b=1, s=4096, h=16, kh=1, d=256, dtype="bfloat16", window=2048),
+    # the dense plain version's (40, S, S) float32 logits do not fit
+    dict(b=1, s=12288, h=40, kh=10, d=128, dtype="bfloat16", window=8192,
+         plain="blocked"),
+    dict(b=1, s=4096, h=40, kh=10, d=128, dtype="bfloat16")]
+# the port's plain-PyTorch recurrences, timed inside a profiled prefill
+# (each wrapped in a profiler range while it runs)
+ZOO_RANGES = ("_rglru_scan", "ssd_chunked_with_state")
+
+
+def _zoo_cfg(arch: str, long_context: bool = False, **over):
+    from repro_torch.configs import registry
+
+    cfg = registry.get(arch).with_overrides(**over)
+    return cfg.long_context_variant() if long_context else cfg
+
+
+def _named_leaves(tree, prefix=""):
+    """[(path, tensor)] of a cache tree in the reference's (sorted) order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _named_leaves(t, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _zoo_card_vs_cpu(card: str, tag: str, cfg) -> dict:
+    """16a, one model: prefill and 8 teacher-forced decode steps on the
+    card and on the CPU port from one seed's params, float32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree as tu
+
+    steps, s_prompt, max_len = 8, 160, 256
+    t0 = time.perf_counter()
+    params_cpu = T.init_model(torch.Generator().manual_seed(0), cfg)
+    params = tu.tree_map(lambda x: x.to("cuda"), params_cpu)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(16)
+    prompts = rng.integers(0, cfg.vocab, (2, s_prompt + steps),
+                           dtype=np.int32)
+    n_flash = _attn_layers(cfg)
+    reset_counts()
+    got, caches = _teacher_forced(params, cfg, prompts, steps, max_len)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == _expect(flash_attention=n_flash),
+          f"16a {tag}: launches {counts}, expected {n_flash} flash launches "
+          "(one per attention layer of one prefill)")
+    before = read_counts()
+    t0 = time.perf_counter()
+    exp, caches_cpu = _teacher_forced(params_cpu, cfg, prompts, steps,
+                                      max_len)
+    cpu_s = time.perf_counter() - t0
+    check(read_counts() == before, "the CPU run launched a kernel")
+    scale = max(float(e.abs().max()) for e in exp)
+    errs = [float((g - e).abs().max()) for g, e in zip(got, exp)]
+    tol = ZOO_TOL * scale
+    check(all(math.isfinite(e) for e in errs) and max(errs) <= tol,
+          f"16a {tag}: card vs CPU logits differ by {max(errs):.3e} > "
+          f"{tol:.3e} (per step {errs})")
+    cache_errs = {}
+    for (name, a), (_, c) in zip(_named_leaves(caches),
+                                 _named_leaves(caches_cpu)):
+        c_max = float(c.abs().max())
+        err = float((a.float().cpu() - c.float()).abs().max())
+        cache_errs[name] = err / c_max if c_max > 0 else err
+        check(math.isfinite(err) and err <= ZOO_TOL * c_max,
+              f"16a {tag}: card vs CPU cache {name} differs by {err:.3e} > "
+              f"{ZOO_TOL} x max|cache| {c_max:.3e}")
+    worst = max(cache_errs, key=cache_errs.get)
+    log(f"[zoo-16a] {tag} ({cfg.name}, f32, {T.count_params(params):,} "
+        f"params): 2 x {s_prompt}-token prompts + {steps} teacher-forced "
+        f"steps: max |logit| {scale:.4f}, card vs CPU {max(errs):.3e} (tol "
+        f"{ZOO_TOL} x max|logit| = {tol:.3e}; prefill {errs[0]:.3e}, decode "
+        f"{max(errs[1:]):.3e}); caches, each leaf over its max: worst "
+        f"{cache_errs[worst]:.3e} ({worst}; tol {ZOO_TOL}); launches "
+        f"{n_flash} flash; init {init_s:.1f} s, CPU run {cpu_s:.1f} s  "
+        f"[{card}]")
+    del params, params_cpu, caches, caches_cpu
+    _free_card()
+    return {"model": tag, "arch": cfg.name, "launches": counts,
+            "max_abs_diff": max(errs), "tol": tol, "max_abs_logit": scale,
+            "errs": errs, "cache_rel_errs": cache_errs, "init_s": init_s,
+            "cpu_s": cpu_s}
+
+
+def _ranged(name: str, fn):
+    """``fn`` inside a profiler range named ``name``."""
+    import torch
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def _profile_with_ranges(fn, sessions: int = 2):
+    """One call of ``fn`` profiled (of ``sessions``, the one with the most
+    kernel records, as :func:`_profile_kernels`), with each of
+    :data:`ZOO_RANGES` in ``models/layers`` wrapped in a profiler range
+    while it runs.  Returns (device ms by kernel name, {range: (device ms
+    of the kernels launched inside it, calls)}, the profiled call's host
+    ms ending in a synchronise).  The profiler marks each range on the
+    device too, with a span (``zoo/...``) from the range's first kernel to
+    its last; a span is not a kernel and is left out of the first, and a
+    range's time is the sum of the kernels inside its spans (one stream,
+    so they are the range's own).  Two other readings were tried and not
+    kept: ``key_averages`` returned the span (with the host's gaps) in one
+    run and the kernels in another, and summing each operator's kernels
+    down the event tree read the scan 35% above its time alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers as L
+
+    fn()
+    torch.cuda.synchronize()
+    orig = {n: getattr(L, n) for n in ZOO_RANGES}
+    best, best_n, ranges, wall = {}, -1, {}, None
+    try:
+        for n in ZOO_RANGES:
+            setattr(L, n, _ranged(f"zoo/{n}", orig[n]))
+        for _ in range(sessions):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            by_name, n_rec = {}, 0
+            for e in prof.events():
+                if (e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.name.startswith("zoo/")):
+                    n_rec += 1
+                    by_name[e.name] = (by_name.get(e.name, 0.0)
+                                       + e.time_range.elapsed_us() / 1e3)
+            if n_rec > best_n:
+                best, best_n, wall = by_name, n_rec, ms
+                ranges = _range_device_ms(prof.events(), "zoo/")
+    finally:
+        for n, f in orig.items():
+            setattr(L, n, f)
+    return best, ranges, wall
+
+
+def _range_device_ms(events, prefix: str) -> dict:
+    """{range name less ``prefix``: (ms of the kernels inside its device
+    spans, spans)} from a profiler's events: the device-side spans named
+    ``prefix...`` and the kernels that start and end within one."""
+    import torch
+
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in cuda if e.name.startswith(prefix)]
+    kernels = [e.time_range for e in cuda if not e.name.startswith(prefix)]
+    out = {}
+    for sp in spans:
+        t0, t1 = sp.time_range.start, sp.time_range.end
+        us = sum(k.end - k.start for k in kernels
+                 if k.start >= t0 and k.end <= t1)
+        name = sp.name[len(prefix):]
+        total, n = out.get(name, (0.0, 0))
+        out[name] = (total + us, n + 1)
+    return {k: (us / 1e3, n) for k, (us, n) in out.items()}
+
+
+def _standalone_recurrence_ms(cfg, s: int) -> dict:
+    """The model's recurrence alone at a B = 1, ``s``-token prefill's shape
+    (CUDA events around back-to-back calls, so the host's launch gaps
+    count where its kernels are small): the RG-LRU scan at (1, s, width)
+    float32, the SSD at (1, s, H, P) with state N; ms of one call and the
+    layers that run it."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    kinds = _layer_kinds(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    if cfg.rglru is not None:
+        w = cfg.rglru.width or cfg.d_model
+        a = torch.rand((1, s, w), generator=gen, device="cuda") * 0.49 + 0.5
+        b = torch.randn((1, s, w), generator=gen, device="cuda")
+        out["_rglru_scan"] = (_time_ms(lambda: L._rglru_scan(a, b), 3, 2),
+                              kinds.count("rec"))
+    if cfg.ssm is not None:
+        c = cfg.ssm
+        x = torch.randn((1, s, c.num_heads, c.head_dim), generator=gen,
+                        device="cuda")
+        dt = torch.rand((1, s, c.num_heads), generator=gen, device="cuda")
+        A = -torch.rand((c.num_heads,), generator=gen, device="cuda") * 15 - 1
+        B, C = (torch.randn((1, s, c.state_dim), generator=gen,
+                            device="cuda") for _ in range(2))
+        D = torch.ones((c.num_heads,), device="cuda")
+        out["ssd_chunked_with_state"] = (_time_ms(
+            lambda: L.ssd_chunked_with_state(x, dt, A, B, C, D, c.chunk), 3,
+            2), kinds.count("ssm"))
+    return out
+
+
+def _zoo_full(card: str, arch: str, lens, gen_len: int, max_len: int,
+              long_context: bool = False) -> dict:
+    """16b, one model at full width and depth in bf16: generate, then
+    continuous batching with mixed prompt lengths; timings and profiles
+    outside the counted path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = _zoo_cfg(arch, long_context)
+    new = ZOO_NEW
+    _free_card()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.count_params(params)
+    eng = ServingEngine(cfg, params, max_len=max_len, device="cuda")
+    rng = np.random.default_rng(16)
+    eng.generate(rng.integers(0, cfg.vocab, (1, 64), dtype=np.int32),
+                 max_new_tokens=2)  # warm-up: cuBLAS handles, allocator
+    prompts = rng.integers(0, cfg.vocab, (2, gen_len), dtype=np.int32)
+    reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, n,
+                                              dtype=np.int32),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_gen = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    t_serve = time.perf_counter()
+    served = eng.serve(reqs, slots=2, segment=8)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = read_counts()
+    n_attn = _attn_layers(cfg)
+    prefills = 1 + len(reqs)
+    check(counts == _expect(flash_attention=n_attn * prefills),
+          f"16b {cfg.name}: launches {counts}, expected {n_attn} flash "
+          f"launches per prefill x {prefills} prefills and nothing else")
+    check(gen.tokens.shape == (2, new) and np.isfinite(gen.logprobs).all(),
+          f"16b {cfg.name} generate: bad shape or non-finite logprobs")
+    check([r.id for r in served] == list(range(len(reqs))),
+          f"16b {cfg.name} serve: finished {[r.id for r in served]}")
+    for r in served:
+        check(len(r.tokens) == new and np.isfinite(r.logprobs).all()
+              and ((0 <= r.tokens) & (r.tokens < cfg.vocab)).all(),
+              f"16b {cfg.name} serve: request {r.id} incomplete or "
+              "non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    window = (None if cfg.attn is None else
+              cfg.window_local if "local" in cfg.block_pattern
+              else cfg.attn.window)
+    log(f"[zoo-16b] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"{n_attn} attending, window {window}, {n_params / 1e9:.3f} B "
+        f"params, bf16, init {init_s:.1f} s): generate 2 x {gen_len} + "
+        f"{new} in {t_serve - t_gen:.2f} s; serve {len(reqs)} requests "
+        f"(prompts {tuple(lens)}, {new} new each) on 2 slots, segment 8, "
+        f"max_len {max_len} in {t_end - t_serve:.2f} s; launches {counts}; "
+        f"peak {peak_gb:.1f} GB  [{card}]")
+
+    # timings outside the counted path
+    prefill_ms = {}
+    for n in lens:
+        prefill_ms[n], _ = _prefill_ms(params, cfg, 1, n, rng, max_len)
+    prefill_ms[f"2x{gen_len}"], (logits, caches, cache_len) = _prefill_ms(
+        params, cfg, 2, gen_len, rng, max_len)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._segment(params, caches, tok, cache_len, new, 0.0, [None])
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / new
+    decode_busy = sum(_profile_kernels(lambda: eng._segment(
+        params, caches, tok, cache_len, 1, 0.0, [None]), 1, 2).values())
+    del caches, logits
+    log(f"[zoo-16b] {cfg.name} prefill ms (host clock, synchronised, B=1): "
+        + ", ".join(f"S={k}: {v:.1f}" for k, v in prefill_ms.items())
+        + f"; decode {decode_ms:.2f} ms/token at batch 2, one profiled step "
+        f"device busy {decode_busy:.2f} ms (idle share "
+        f"{1 - decode_busy / decode_ms:.3f})  [{card}]")
+    n = lens[0]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)), device="cuda")
+    by_name, ranges, wall = _profile_with_ranges(lambda: T.prefill(
+        params, cfg, {"tokens": toks}, max_len=max_len, last_only=True))
+    busy = sum(by_name.values())
+    flash_ms = sum(v for k, v in by_name.items() if "flash_" in k)
+    alone = _standalone_recurrence_ms(cfg, n)
+    prof = {"S": n, "device_busy_ms": busy, "flash_ms": flash_ms,
+            "flash_share": flash_ms / busy if busy > 0 else None,
+            "profiled_ms": wall, "idle_share": 1 - busy / wall,
+            "ranges": {k: {"device_ms": ms, "calls": c,
+                           "share": ms / busy if busy > 0 else None}
+                       for k, (ms, c) in ranges.items()},
+            "standalone": {k: {"ms_per_call": ms, "layers": c,
+                               "ms_per_prefill": ms * c}
+                           for k, (ms, c) in alone.items()},
+            "top_kernels_ms": sorted(by_name.items(),
+                                     key=lambda kv: -kv[1])[:8]}
+    rec = "; ".join(
+        f"{k} {v['device_ms']:.2f} ms device in {v['calls']} calls "
+        f"({v['share'] or 0:.3f} of busy)" for k, v in prof["ranges"].items())
+    std = "; ".join(
+        f"{k} alone {v['ms_per_call']:.3f} ms x {v['layers']} layers = "
+        f"{v['ms_per_prefill']:.2f} ms" for k, v in prof["standalone"].items())
+    log(f"[zoo-16b] {cfg.name} profiled prefill S={n}: {wall:.2f} ms "
+        f"(host clock, synchronised), device busy {busy:.2f} ms (idle share "
+        f"{prof['idle_share']:.3f}), flash kernel {flash_ms:.2f} ms "
+        f"({prof['flash_share'] or 0:.3f} of busy); {rec or 'no recurrence'}"
+        f"{'; ' + std if std else ''}  [{card}]")
+    for kname, ms in prof["top_kernels_ms"]:
+        log(f"[zoo-16b]   {ms:9.3f} ms  {kname[:110]}")
+    del params, eng
+    _free_card()
+    return {"arch": cfg.name, "launches": counts, "n_params": n_params,
+            "n_attn_layers": n_attn, "window": window, "init_s": init_s,
+            "generate_s": t_serve - t_gen, "serve_s": t_end - t_serve,
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_step_device_busy_ms": decode_busy,
+            "prefill_profile": prof, "peak_gb": peak_gb,
+            "serve_tokens": {r.id: r.tokens.tolist() for r in served}}
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 16: the recurrent and state-space families and phi3 (see the
+    module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    flash = [_flash_case(card, seed=1600 + i,
+                         **dict(c, dtype=getattr(torch, c["dtype"])))
+             for i, c in enumerate(ZOO_FLASH_CASES)]
+    _free_card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    f32 = torch.float32
+    card_vs_cpu = [
+        _zoo_card_vs_cpu(card, "recurrentgemma-9b, one period (rec, rec, "
+                         "local), window 96", _zoo_cfg(
+                             "recurrentgemma_9b", n_layers=3,
+                             suffix_blocks=(), window_local=96,
+                             param_dtype=f32)),
+        _zoo_card_vs_cpu(card, "phi3-medium-14b, one layer, long-context "
+                         "variant at window 96", _zoo_cfg(
+                             "phi3_medium_14b", True, n_layers=1,
+                             long_window=96, param_dtype=f32)),
+        _zoo_card_vs_cpu(card, "mamba2-130m, 24 layers",
+                         _zoo_cfg("mamba2_130m", param_dtype=f32)),
+    ]
+    full = [_zoo_full(card, **c) for c in ZOO_FULL]
+    secs = time.perf_counter() - t0
+    log(f"[zoo] phase 16 in {secs:.1f} s  [{card}]")
+    return {"flash_cases": flash, "card_vs_cpu": card_vs_cpu, "full": full,
+            "seconds": secs}
+
+
 # -- A/B against an earlier tree -------------------------------------------------
 
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
@@ -3355,10 +3853,11 @@ def main(argv) -> None:
             card, argv[3:] or AB_PARTS, tf32=tree.resolve() == ROOT),
             indent=1))
         return
-    if argv[:1] == ["--lm"]:  # phase 15 alone; prints no result
+    if argv[:1] == ["--lm"]:  # phases 15 and 16 alone; prints no result
         card = phase_device()
         phase_build()
         phase_lm(card)
+        phase_zoo(card)
         return
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     # and compiles in this process: no pool of compile workers to outlive it
@@ -3390,6 +3889,7 @@ def main(argv) -> None:
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
     lm = phase_lm(card)
+    zoo = phase_zoo(card)
     phase_flex_yardstick(card, flash_rows)
     for row in lm["bwd_cases"]:
         if row["softcap"] is not None:
@@ -3403,7 +3903,8 @@ def main(argv) -> None:
              *fig4["card_vs_cpu"]["runs"].values(), *fig4["gate"].values(),
              *fig4["full"].values(), *runtime["runs"].values(),
              runtime["checkpoint"], gemma_a, gemma_b,
-             *lm["smoke"].values(), lm["full"], lm["topk"]]
+             *lm["smoke"].values(), lm["full"], lm["topk"],
+             *zoo["card_vs_cpu"], *zoo["full"]]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -3466,6 +3967,7 @@ def main(argv) -> None:
         "gemma_card_vs_cpu": gemma_a,
         "gemma_full": gemma_b,
         "lm_training": lm,
+        "zoo": zoo,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -1,2 +1,2 @@
-"""Architecture configs of the port (the dense-GQA models); see
-:mod:`repro_torch.configs.registry`."""
+"""Architecture configs of the port and the input shapes
+(:mod:`repro_torch.configs.base`); see :mod:`repro_torch.configs.registry`."""

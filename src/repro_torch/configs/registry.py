@@ -2,9 +2,12 @@
 -> the reduced same-family variant the CPU tests use.
 
 The counterpart of :mod:`repro.configs.registry` for the architectures the
-port runs: the dense-GQA models, whose every layer the ported attention and
-MLP cover.  The reference's other architectures raise
-``NotImplementedError``.
+port runs: the dense-GQA models (stablelm, mistral-nemo, gemma2, phi3), the
+RG-LRU + local-attention hybrid recurrentgemma and the Mamba2 SSD model.
+The reference's other four raise ``NotImplementedError``: grok-1 (its MoE
+block) and deepseek-v3 (MoE and MLA attention) need blocks the port lacks,
+hubert (audio) and internvl2 (vision) their front ends -- and hubert's head
+dim of 80 is not one the flash kernels take.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ ARCH_IDS = [
 ]
 
 #: the ones ported so far
-PORTED = ["stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b"]
+PORTED = ["stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b",
+          "phi3_medium_14b", "recurrentgemma_9b", "mamba2_130m"]
 
 # CLI aliases with dashes
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -1,10 +1,13 @@
-"""Model layers: the dense-GQA part of :mod:`repro.models.layers`.
+"""Model layers: the dense-GQA, RG-LRU and Mamba2 parts of
+:mod:`repro.models.layers`.
 
-What the serving path of the dense attention models (gemma2, stablelm,
-mistral-nemo) runs: init helpers, RMS norm, rotary embedding, softcap, the
-gated MLPs, and GQA attention with an optional sliding window and tanh
-logit softcap -- full-sequence (prefill) and one token against a linear or
-ring-buffer KV cache (decode).
+What the dense attention models (gemma2, stablelm, mistral-nemo, phi3), the
+hybrid recurrentgemma and the state-space mamba2 run: init helpers, RMS
+norm, rotary embedding, softcap, the gated MLPs, GQA attention with an
+optional sliding window and tanh logit softcap -- full-sequence (prefill)
+and one token against a linear or ring-buffer KV cache (decode) -- the
+RG-LRU recurrent block (Griffin) and the Mamba2 SSD block, each
+full-sequence and one token against its state cache.
 
 Every ``init_*`` returns the params alone (the reference's logical-axis
 specs serve its sharding, which one card does not need); the draws come
@@ -21,8 +24,20 @@ Decode writes the new token's K/V into the cache buffers in place
 (:func:`_write_slot`) instead of returning fresh copies: a functional copy
 of a multi-GB cache per token would cost more than the decode.
 
-MLA, MoE, RG-LRU, Mamba2 and the encoder/VLM front ends are not ported
-yet and raise ``NotImplementedError``.
+The RG-LRU and SSD recurrences are ``jnp`` in the reference (no Pallas
+kernel) and plain PyTorch on tensors here, on the card too: the linear
+recurrence h_t = a_t h_{t-1} + b_t is a log-depth doubling scan
+(:func:`_linear_scan`, ~log2 S elementwise passes, never a Python loop
+over S), out of place so that ``torch.func.vmap`` and ``grad`` (the
+trainer's per-client gradient) compose.  It associates its products in
+another order than XLA's ``associative_scan``, so it agrees with the
+reference to float32 rounding, not bitwise.  ``F.softplus`` returns x
+above 20 where ``jax.nn.softplus`` is ``logaddexp(x, 0)``; the two differ
+there by at most log1p(exp(-20)) ~ 2.1e-9, below float32's spacing at 20
+(1.9e-6), so they round alike.
+
+MLA, MoE and the encoder/VLM front ends are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -338,3 +353,311 @@ def mlp(p, x, act="swiglu"):
     actfn = swiglu if act == "swiglu" else gelu_mul
     h = actfn(x @ p["w_gate"], x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# linear recurrences and the causal depthwise conv (RG-LRU, Mamba2)
+# ---------------------------------------------------------------------------
+
+
+def _linear_scan(a, b, dim: int = 1):
+    """h_t = a_t * h_{t-1} + b_t along ``dim`` with h_{-1} = 0.
+
+    A Hillis-Steele doubling scan: after the step of span s, element t
+    holds (A, B) with h_t = A * h_{t-2s} + B, so ceil(log2 S) steps of a
+    few elementwise passes finish it (12 at S = 4,096).  ``a`` may
+    broadcast against ``b`` in every dim but ``dim``.  Out of place, with
+    no data-dependent control flow, so ``vmap`` and ``grad`` compose.
+    """
+    n = b.shape[dim]
+    span = 1
+    while span < n:
+        rest = n - span
+        b = torch.cat([b.narrow(dim, 0, span),
+                       b.narrow(dim, span, rest)
+                       + a.narrow(dim, span, rest) * b.narrow(dim, 0, rest)],
+                      dim)
+        if 2 * span < n:  # the last step needs no products of a
+            a = torch.cat([a.narrow(dim, 0, span),
+                           a.narrow(dim, span, rest)
+                           * a.narrow(dim, 0, rest)], dim)
+        span *= 2
+    return b
+
+
+def _causal_conv1d(x, w, state=None):
+    """x: (B,L,C); w: (W,C) depthwise.  state: (B,W-1,C) carry for decode.
+    Returns (out, the last W-1 rows of the padded input).  The taps are
+    summed in the order i = 0..W-1, in x's dtype, as the reference's."""
+    W = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], W - 1) + tuple(x.shape[2:]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, L+W-1, C)
+    L_ = x.shape[1]
+    out = sum(xp[:, i:i + L_] * w[i] for i in range(W))
+    new_state = xp[:, xp.shape[1] - (W - 1):] if W > 1 else None
+    return out, new_state
+
+
+def conv_tail(u, W: int):
+    """The conv state a decode step continues from after a prompt ``u``
+    (B,S,C): its last W-1 rows, left-padded with zeros when S < W-1 (as
+    the reference's ``_fill_rglru_cache``; its ``_fill_mamba2_cache``
+    keeps ``u[:, -(W-1):]`` unpadded, which comes out short and makes the
+    next decode step fail for such prompts)."""
+    S = u.shape[1]
+    tail = u[:, max(S - (W - 1), 0):]
+    if S < W - 1:
+        tail = torch.cat([u.new_zeros((u.shape[0], W - 1 - S)
+                                      + tuple(u.shape[2:])), tail], dim=1)
+    return tail
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUCfg:
+    width: int = 0  # rnn width (defaults to d_model)
+    conv_width: int = 4
+    c: float = 8.0
+
+
+def init_rglru_block(gen, cfg: RGLRUCfg, d_model, dtype):
+    w = cfg.width or d_model
+    p = {"w_x": init_dense(gen, (d_model, w), dtype),
+         "w_gate": init_dense(gen, (d_model, w), dtype),
+         "w_out": init_dense(gen, (w, d_model), dtype),
+         "conv": _normal(gen, (cfg.conv_width, w), 0.1, dtype),
+         "w_a": init_dense(gen, (w, w), dtype),
+         "w_i": init_dense(gen, (w, w), dtype)}
+    # Lambda init so that a = sigmoid(lam) in [0.9, 0.999]
+    u = torch.rand((w,), generator=gen, dtype=torch.float32,
+                   device=gen.device) * (0.999 - 0.9) + 0.9
+    p["lam"] = torch.log(u / (1 - u))
+    return p
+
+
+def _rglru_scan(a, b, h0=None):
+    """h_t = a_t * h_{t-1} + b_t over axis 1 (:func:`_linear_scan`)."""
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _linear_scan(a, b, dim=1)
+
+
+def _rglru_coeffs(p, cfg: RGLRUCfg, u):
+    """The recurrence's a_t and b_t (float32) from the conv output u."""
+    r = torch.sigmoid((u @ p["w_a"]).float())
+    i = torch.sigmoid((u @ p["w_i"]).float())
+    log_a = -cfg.c * r * F.softplus(p["lam"].float())
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-12)) * (i * u.float())
+    return a, b
+
+
+def rglru_block_train(p, cfg: RGLRUCfg, x, with_state: bool = False):
+    """Full-sequence Griffin recurrent block.  ``with_state`` (prefill)
+    also returns the conv's input (B,S,W) and the last state h_S (B,W)."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    u_in = x @ p["w_x"]
+    u, _ = _causal_conv1d(u_in, p["conv"])
+    a, b = _rglru_coeffs(p, cfg, u)
+    h = _rglru_scan(a, b)
+    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    return (out, u_in, h[:, -1]) if with_state else out
+
+
+def rglru_block_decode(p, cfg: RGLRUCfg, x, cache):
+    """One-token step. cache: {"h": (B,W) f32, "conv": (B,conv_w-1,W)},
+    written in place; returns (out, cache)."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    u = x @ p["w_x"]
+    u, conv_state = _causal_conv1d(u, p["conv"], cache["conv"])
+    a, b = _rglru_coeffs(p, cfg, u)
+    h = a[:, 0] * cache["h"] + b[:, 0]
+    out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv_state)
+    return out, cache
+
+
+def init_rglru_cache(cfg: RGLRUCfg, d_model, batch, dtype, device=None,
+                     lead=()):
+    w = cfg.width or d_model
+    lead = tuple(lead)
+    return {"h": torch.zeros(lead + (batch, w), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, w),
+                                dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) layer
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMCfg:
+    num_heads: int = 8      # H
+    head_dim: int = 64      # P
+    state_dim: int = 128    # N
+    conv_width: int = 4
+    chunk: int = 64
+    expand: int = 2
+
+
+def init_mamba2_block(gen, cfg: SSMCfg, d_model, dtype):
+    H, P, N = cfg.num_heads, cfg.head_dim, cfg.state_dim
+    inner = H * P
+    dev = gen.device
+    p = {"in_x": init_dense(gen, (d_model, inner), dtype),
+         "in_z": init_dense(gen, (d_model, inner), dtype),
+         "in_B": init_dense(gen, (d_model, N), dtype),
+         "in_C": init_dense(gen, (d_model, N), dtype),
+         "in_dt": init_dense(gen, (d_model, H), dtype),
+         "conv": _normal(gen, (cfg.conv_width, inner + 2 * N), 0.1, dtype)}
+    p["A_log"] = torch.log(torch.rand((H,), generator=gen,
+                                      dtype=torch.float32, device=dev)
+                           * 15.0 + 1.0)
+    p["D"] = torch.ones((H,), dtype=torch.float32, device=dev)
+    p["dt_bias"] = torch.zeros((H,), dtype=torch.float32, device=dev)
+    p["out"] = init_dense(gen, (inner, d_model), dtype)
+    return p
+
+
+def _segsum(a):
+    """a: (..., T). Returns (..., T, T) with out[..., i, j] = sum_{j<k<=i} a_k,
+    -inf above the diagonal (strictly causal cumulative log-decay).  The
+    -inf is a constant, so exp of it has a zero (finite) gradient."""
+    T = a.shape[-1]
+    cums = torch.cumsum(a, dim=-1)
+    diff = cums[..., :, None] - cums[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, torch.full((), -math.inf,
+                                              device=a.device))
+
+
+def _pad_steps(t, pad):
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))],
+                     dim=1)
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk):
+    """Chunked SSD forward; see :func:`ssd_chunked_with_state`."""
+    return ssd_chunked_with_state(x, dt, A, B, C, D, chunk)[0]
+
+
+def ssd_chunked_with_state(x, dt, A, B, C, D, chunk):
+    """Chunked SSD forward (Mamba2, Dao & Gu 2024, Listing 1 adapted).
+
+    x: (b,l,h,p)  dt: (b,l,h)  A: (h,) (negative)  B,C: (b,l,n)  D: (h,)
+    Returns (y: (b,l,h,p), final_state: (b,h,p,n)).
+    Sequences whose length is not a multiple of ``chunk`` are zero-padded:
+    padded steps have dt=0 (decay exp(0)=1, zero input) so they neither decay
+    nor perturb the state, and their outputs are discarded.  The reference's
+    intra-chunk 5-operand einsum is two contractions here whose largest
+    intermediate is (b, nc, h, q, q); the recurrence over chunks is
+    :func:`_linear_scan`.
+    """
+    l_orig = x.shape[1]
+    pad = (-l_orig) % chunk
+    if pad:
+        x, dt, B, C = (_pad_steps(t, pad) for t in (x, dt, B, C))
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    q = chunk
+    nc = l // q
+    xb = (x * dt[..., None]).reshape(b, nc, q, h, p)
+    a = (A[None, None] * dt).reshape(b, nc, q, h)  # log-decay per step
+    Bc = B.reshape(b, nc, q, n)
+    Cc = C.reshape(b, nc, q, n)
+
+    # intra-chunk (quadratic within chunk)
+    Lm = torch.exp(_segsum(a.permute(0, 1, 3, 2)))  # (b,nc,h,q,q)
+    G = torch.einsum("bcsn,bczn->bcsz", Cc, Bc)  # (b,nc,q,q)
+    y_intra = torch.einsum("bchsz,bczhp->bcshp", G[:, :, None] * Lm, xb)
+
+    # chunk states
+    a_cum = torch.cumsum(a, dim=2)  # (b,nc,q,h)
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (b,nc,q,h)
+    S = torch.einsum("bczn,bczhp->bchnp", Bc,
+                     xb * decay_to_end[..., None])  # per-chunk state
+
+    # inter-chunk recurrence: inclusive states at chunk ends
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (b,nc,h)
+    S_inc = _linear_scan(chunk_decay[..., None, None], S, dim=1)
+    S_prev = torch.cat([torch.zeros_like(S_inc[:, :1]), S_inc[:, :-1]],
+                       dim=1)  # state entering each chunk
+
+    decay_in = torch.exp(a_cum)  # (b,nc,q,h) decay from chunk start to step
+    y_inter = (torch.einsum("bcsn,bchnp->bcshp", Cc, S_prev)
+               * decay_in[..., None])
+
+    y = (y_intra + y_inter).reshape(b, l, h, p)
+    y = y + x * D[None, None, :, None]
+    final_state = S_inc[:, -1].transpose(-1, -2)  # (b,h,n,p)->(b,h,p,n)
+    return y[:, :l_orig], final_state
+
+
+def _mamba2_in(p, cfg: SSMCfg, x, conv_state=None):
+    """The block's input projections, conv and gates: (z, ubc_raw,
+    new conv state, u, B, C, dt, A)."""
+    H, P, N = cfg.num_heads, cfg.head_dim, cfg.state_dim
+    inner = H * P
+    z = F.silu(x @ p["in_z"])
+    ubc_raw = torch.cat([x @ p["in_x"], x @ p["in_B"], x @ p["in_C"]],
+                        dim=-1)
+    ubc, new_state = _causal_conv1d(ubc_raw, p["conv"], conv_state)
+    ubc = F.silu(ubc)
+    u, Bm, Cm = (ubc[..., :inner], ubc[..., inner:inner + N],
+                 ubc[..., inner + N:])
+    dt = F.softplus((x @ p["in_dt"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    return z, ubc_raw, new_state, u, Bm, Cm, dt, A
+
+
+def mamba2_train(p, cfg: SSMCfg, x, with_state: bool = False):
+    """Full-sequence Mamba2 block.  ``with_state`` (prefill) also returns
+    the conv's input (B,S,inner+2N) and the final SSM state (B,H,P,N)."""
+    H, P = cfg.num_heads, cfg.head_dim
+    z, ubc_raw, _, u, Bm, Cm, dt, A = _mamba2_in(p, cfg, x)
+    u4 = u.reshape(u.shape[0], u.shape[1], H, P).float()
+    y, final = ssd_chunked_with_state(u4, dt, A, Bm.float(), Cm.float(),
+                                      p["D"], cfg.chunk)
+    y = y.reshape(x.shape[0], x.shape[1], H * P).to(x.dtype) * z
+    out = y @ p["out"]
+    return (out, ubc_raw, final) if with_state else out
+
+
+def mamba2_decode(p, cfg: SSMCfg, x, cache):
+    """One-token SSM step.  cache: {"ssm": (B,H,P,N) fp32, "conv":
+    (B,W-1,ch)}, written in place; returns (out, cache)."""
+    H, P = cfg.num_heads, cfg.head_dim
+    z, _, conv_state, u, Bm, Cm, dt, A = _mamba2_in(p, cfg, x, cache["conv"])
+    dt = dt[:, 0]  # (B,H)
+    u4 = u[:, 0].reshape(-1, H, P).float()
+    decay = torch.exp(A[None] * dt)  # (B,H)
+    # h' = decay * h + dt * B x^T ;  y = C . h' + D x
+    hB = torch.einsum("bhp,bn,bh->bhpn", u4, Bm[:, 0].float(), dt)
+    h = cache["ssm"] * decay[..., None, None] + hB
+    y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0].float())
+    y = y + u4 * p["D"][None, :, None]
+    y = y.reshape(-1, 1, H * P).to(x.dtype) * z
+    out = y @ p["out"]
+    cache["ssm"].copy_(h)
+    cache["conv"].copy_(conv_state)
+    return out, cache
+
+
+def init_mamba2_cache(cfg: SSMCfg, batch, dtype, device=None, lead=()):
+    H, P, N = cfg.num_heads, cfg.head_dim, cfg.state_dim
+    ch = H * P + 2 * N
+    lead = tuple(lead)
+    return {"ssm": torch.zeros(lead + (batch, H, P, N), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, ch),
+                                dtype=dtype, device=device)}

@@ -3,18 +3,20 @@
 
 A model is a sequence of blocks, each ``norm -> mixer -> residual [-> norm
 -> mlp -> residual]`` (gemma2's post-norms included).  Ported mixers:
-``attn`` (full causal GQA attention) and ``local`` (sliding-window
-attention, ``window = cfg.window_local``), with a dense MLP.  The layer
-stack is ``prefix_blocks`` + a repeating ``block_pattern`` with its params
-stacked ``n_periods`` times (the reference's ``lax.scan`` over periods is a
-Python loop over views of the stacked params and caches here) +
+``attn`` (full causal GQA attention), ``local`` (sliding-window attention,
+``window = cfg.window_local``), ``rec`` (the RG-LRU block of
+recurrentgemma) and ``ssm`` (the Mamba2 SSD block), with a dense MLP or
+none (``mlp_kind="none"``: mamba2's block is its mixer).  The layer stack
+is ``prefix_blocks`` + a repeating ``block_pattern`` with its params
+stacked ``n_periods`` times (the reference's ``lax.scan`` over periods is
+a Python loop over views of the stacked params and caches here) +
 ``suffix_blocks``.
 
 Entry points: ``forward``, ``loss_fn`` and ``make_grad_fn`` (training:
 next-token cross-entropy, gradients through ``torch.func``, so ``vmap``
 over clients composes), ``prefill`` (logits + cache) and ``decode_step``
-(one token against the cache, which is updated in place).  The MoE/RG-LRU/
-SSM mixers and the audio and vision front ends are not ported yet.
+(one token against the cache, which is updated in place).  The MoE block,
+MLA and the audio and vision front ends are not ported yet.
 
 On the card, attention's forward and backward are the flash kernels
 (``kernels/flash_attention.py``); the loss and its gradient run with TF32
@@ -36,8 +38,12 @@ from repro_torch.utils import tree as tu
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ``ArchConfig`` less its sharding and long-context
-    fields, which one card does not read.
+    """The reference's ``ArchConfig``, its long-context fields
+    (``long_mode``, ``long_window``, :meth:`long_context_variant`)
+    included.  Not yet here: ``moe``, ``causal`` and ``frontend_dim``
+    (their blocks and front ends are not ported), ``fed_plan`` (a mesh
+    sharding tag that only the reference's TPU dry run reads) and
+    ``scan_unroll`` (an XLA cost-probe switch).
 
     ``remat`` is accepted and not honoured: ``torch.utils.checkpoint``
     rests on saved-tensor hooks, which ``torch.func.grad`` (the per-client
@@ -51,6 +57,8 @@ class ArchConfig:
     d_ff: int
     vocab: int
     attn: Optional[L.AttnCfg] = None
+    ssm: Optional[L.SSMCfg] = None
+    rglru: Optional[L.RGLRUCfg] = None
     block_pattern: tuple = ("attn",)
     prefix_blocks: tuple = ()
     suffix_blocks: tuple = ()
@@ -69,6 +77,9 @@ class ArchConfig:
     attn_block_q: int = 512
     remat: bool = True  # accepted, not honoured (see the class docstring)
     aux_loss_coef: float = 0.01
+    # deployment metadata, as the reference's
+    long_mode: str = "sliding"  # native | sliding | skip
+    long_window: int = 8192
     decode_supported: bool = True
     citation: str = ""
 
@@ -88,6 +99,17 @@ class ArchConfig:
     def with_overrides(self, **kw):
         return dataclasses.replace(self, **kw)
 
+    def long_context_variant(self):
+        """Sub-quadratic variant used for the long_500k shape: every
+        attention layer's window capped at ``long_window``."""
+        if self.long_mode == "native":
+            return self
+        if self.long_mode == "skip":
+            raise ValueError(f"{self.name} does not support long context")
+        attn = dataclasses.replace(self.attn, window=self.long_window)
+        return dataclasses.replace(self, attn=attn, window_local=min(
+            self.window_local or self.long_window, self.long_window))
+
 
 # ---------------------------------------------------------------------------
 # block init / apply
@@ -102,8 +124,10 @@ def _mixer_cfg(cfg: ArchConfig, kind: str):
         return dataclasses.replace(cfg.attn, window=cfg.window_local,
                                    impl=cfg.attn_impl,
                                    block_q=cfg.attn_block_q)
-    if kind in ("rec", "ssm"):
-        raise L._not_ported(f"the {kind!r} mixer")
+    if kind == "rec":
+        return cfg.rglru
+    if kind == "ssm":
+        return cfg.ssm
     raise ValueError(kind)
 
 
@@ -118,9 +142,11 @@ def init_block(gen, cfg: ArchConfig, kind: str, mlp_kind: str):
     def norm():
         return L.init_norm(cfg.d_model, torch.float32, gen.device)
 
+    init_mixer = {"rec": L.init_rglru_block,
+                  "ssm": L.init_mamba2_block}.get(kind, L.init_attention)
     p = {"norm1": norm(),
-         "mixer": L.init_attention(gen, _mixer_cfg(cfg, kind), cfg.d_model,
-                                   cfg.param_dtype)}
+         "mixer": init_mixer(gen, _mixer_cfg(cfg, kind), cfg.d_model,
+                             cfg.param_dtype)}
     if cfg.post_norm:
         p["post_norm1"] = norm()
     if mlp_kind == "dense":
@@ -139,14 +165,24 @@ def apply_block(p, cfg: ArchConfig, kind: str, mlp_kind: str, x, positions,
     mcfg = _mixer_cfg(cfg, kind)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = cache
-    if mode == "decode":
-        y, new_cache = L.attention_decode(p["mixer"], mcfg, h, cache,
-                                          cache_len)
-    else:
-        y = L.attention_train(p["mixer"], mcfg, h, positions)
-        if mode == "prefill":
-            new_cache = _fill_attn_cache(p["mixer"], mcfg, h, positions,
-                                         cache)
+    if kind in ("attn", "local"):
+        if mode == "decode":
+            y, new_cache = L.attention_decode(p["mixer"], mcfg, h, cache,
+                                              cache_len)
+        else:
+            y = L.attention_train(p["mixer"], mcfg, h, positions)
+            if mode == "prefill":
+                new_cache = _fill_attn_cache(p["mixer"], mcfg, h, positions,
+                                             cache)
+    else:  # rec | ssm
+        train, decode, fill = _RECURRENT[kind]
+        if mode == "decode":
+            y, new_cache = decode(p["mixer"], mcfg, h, cache)
+        elif mode == "prefill":
+            y, conv_in, state = train(p["mixer"], mcfg, h, with_state=True)
+            new_cache = fill(mcfg, conv_in, state, cache)
+        else:
+            y = train(p["mixer"], mcfg, h)
     if cfg.post_norm:
         y = L.rms_norm(y, p["post_norm1"], cfg.norm_eps)
     x = x + y
@@ -159,7 +195,7 @@ def apply_block(p, cfg: ArchConfig, kind: str, mlp_kind: str, x, positions,
     return x, new_cache, 0.0
 
 
-# --- prefill cache filler ----------------------------------------------------
+# --- prefill cache fillers ---------------------------------------------------
 
 
 def _ring_scatter(full, T):
@@ -188,6 +224,33 @@ def _fill_attn_cache(p, mcfg: L.AttnCfg, h, positions, cache):
     cache["k"].copy_(_ring_scatter(k.to(cache["k"].dtype), T))
     cache["v"].copy_(_ring_scatter(v.to(cache["v"].dtype), T))
     return cache
+
+
+def _fill_rglru_cache(mcfg: L.RGLRUCfg, u, h_last, cache):
+    """The prompt's RG-LRU state written into ``cache`` in place: the last
+    scanned state and the conv's last W-1 inputs (zero-padded on the left
+    for a shorter prompt).  The block's own prefill pass hands them over,
+    where the reference recomputes the block to get them."""
+    cache["h"].copy_(h_last)
+    cache["conv"].copy_(L.conv_tail(u, mcfg.conv_width))
+    return cache
+
+
+def _fill_mamba2_cache(mcfg: L.SSMCfg, ubc_raw, state, cache):
+    """The prompt's SSD state and conv tail written into ``cache`` in
+    place.  A prompt shorter than ``conv_width - 1`` tokens gets a
+    zero-padded conv tail, as ``_fill_rglru_cache``; the reference keeps
+    it short there and fails on the next decode step."""
+    cache["ssm"].copy_(state)
+    cache["conv"].copy_(L.conv_tail(ubc_raw, mcfg.conv_width))
+    return cache
+
+
+#: the recurrent mixers: (full-sequence block, one-token step, prefill
+#: cache filler)
+_RECURRENT = {"rec": (L.rglru_block_train, L.rglru_block_decode,
+                      _fill_rglru_cache),
+              "ssm": (L.mamba2_train, L.mamba2_decode, _fill_mamba2_cache)}
 
 
 # ---------------------------------------------------------------------------
@@ -335,9 +398,9 @@ def _ce(logits, targets):
 def loss_fn(p, cfg: ArchConfig, batch):
     """The composite-FL smooth part f_i: next-token cross-entropy over
     ``batch["tokens"]`` (B, S) plus ``aux_loss_coef`` times the blocks' aux
-    loss (0 for the dense blocks ported).  The non-smooth regularizer g is
-    the federated algorithm's prox, not part of it.  The reference's audio
-    and vision branches raise with their front ends."""
+    loss (0 for every block ported: no MoE yet).  The non-smooth
+    regularizer g is the federated algorithm's prox, not part of it.  The
+    reference's audio and vision branches raise with their front ends."""
     with full_fp32():
         logits, _, aux = forward(p, cfg, batch, mode="train")
         loss = _ce(logits[:, :-1], batch["tokens"][:, 1:])
@@ -368,8 +431,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     prefix, pattern, suffix = _block_sequence(cfg)
 
     def one(kind, lead=()):
-        return L.init_attn_cache(_mixer_cfg(cfg, kind), batch, max_len,
-                                 cfg.param_dtype, device, lead)
+        mcfg = _mixer_cfg(cfg, kind)
+        if kind == "rec":
+            return L.init_rglru_cache(mcfg, cfg.d_model, batch,
+                                      cfg.param_dtype, device, lead)
+        if kind == "ssm":
+            return L.init_mamba2_cache(mcfg, batch, cfg.param_dtype, device,
+                                       lead)
+        return L.init_attn_cache(mcfg, batch, max_len, cfg.param_dtype,
+                                 device, lead)
 
     return {"prefix": [one(kind) for kind, _ in prefix],
             "suffix": [one(kind) for kind, _ in suffix],

@@ -5,8 +5,8 @@ tokens, and the reference's bfloat16 params carried across bitwise.
 Weights come from the reference's ``init_model`` through
 :mod:`repro_torch.interop`; prompts from numpy.  Everything runs on the CPU
 (``device="cpu"``), where attention takes the reference's formulations; the
-card runs the same path through the flash kernel (``chip_smoke.py`` phase
-11 holds it to this CPU path).
+card runs the same path through the flash kernel (``chip_smoke.py`` phases
+11 and 16 hold it to this CPU path).
 
 Tolerances: float32 logits within ``1e-4 * max|logit|`` of the reference's
 (the two packages sum in different orders); caches within ``1e-5`` of
@@ -29,7 +29,8 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServingEngine, SnapshotStore
 from repro_torch.utils import tree as tu
 
-ARCHS = ["gemma2_9b", "stablelm_1_6b"]
+ARCHS = ["gemma2_9b", "stablelm_1_6b", "phi3_medium_14b", "recurrentgemma_9b",
+         "mamba2_130m"]
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,12 @@ reference's CPU formulations (``naive`` and ``blocked``).  Tolerances:
     ~1e-6 of their size but differ from each other by far less than it);
   * four engine rounds (chunk 2): train_loss at rtol 1e-5, x_bar within
     ``1e-5 * max |x_bar|``.
+
+mamba2 needs a looser bound on two leaves, stated in :data:`LOOSE`: its
+``A_log`` gradient (at most ~3e-4, against ~1e-2 for the other leaves) is
+a sum of terms that cancel, and ``dt_bias`` starts at zero, so after a
+round its x_bar is the update alone and carries that update's relative
+error.  Every other leaf of every arch keeps the bounds above.
 """
 import dataclasses
 
@@ -51,6 +57,13 @@ from repro_torch.models import transformer as T
 from repro_torch.utils import tree as tu
 
 ARCHS = list(registry.PORTED)
+
+#: per (arch, check): {leaf name: relative bound} replacing the check's own
+#: bound on that leaf.  mamba2, measured with this file's inputs: A_log's
+#: gradient 5.4e-5 of its max |leaf| (1.9-5.4e-5 over token seeds 0-2);
+#: dt_bias's x_bar after one DProx round 1.19e-5 of its max |leaf|
+LOOSE = {("mamba2_130m", "grads"): {"A_log": 1e-4},
+         ("mamba2_130m", "x_bar"): {"dt_bias": 1e-4}}
 
 
 @pytest.fixture(autouse=True)
@@ -89,13 +102,17 @@ def _jleaves(tree):
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
 
 
-def _assert_tree_close(got, exp, rel):
+def _assert_tree_close(got, exp, rel, loose=None):
+    """Every leaf within ``rel * max |leaf|`` of the reference's, a leaf
+    named in ``loose`` ({last key: bound}) within its own bound."""
     g, e = _leaves(got), _jleaves(exp)
-    assert len(g) == len(e)
-    for a, b in zip(g, e):
+    names = [getattr(path[-1], "key", None) for path, _ in
+             jax.tree_util.tree_flatten_with_path(exp)[0]]
+    assert len(g) == len(e) == len(names)
+    for a, b, name in zip(g, e, names):
         assert a.shape == b.shape
-        tol = rel * float(np.abs(b).max())
-        np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+        tol = (loose or {}).get(name, rel) * float(np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
 
 
 def _tree_gap(got, exp) -> float:
@@ -146,7 +163,7 @@ def test_loss_and_grads_match_jax_value_and_grad(lms, arch, impl):
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     np.testing.assert_allclose(float(T.loss_fn(tp, cfg, batch)), float(jl),
                                rtol=1e-5)
-    _assert_tree_close(grads, jg, 1e-5)
+    _assert_tree_close(grads, jg, 1e-5, LOOSE.get((arch, "grads")))
 
 
 def test_training_fields_are_the_references():
@@ -213,7 +230,8 @@ def test_one_dprox_round_matches_the_reference(lms, arch):
     state, info = fn(talg.init_state(tp, n), {"tokens": torch.as_tensor(toks)})
     np.testing.assert_allclose(float(info["train_loss"]),
                                float(jinfo["train_loss"]), rtol=1e-5)
-    _assert_tree_close(state.x_bar, jstate.x_bar, 1e-6)
+    _assert_tree_close(state.x_bar, jstate.x_bar, 1e-6,
+                       LOOSE.get((arch, "x_bar")))
     assert _tree_gap(state.c, jstate.c) <= 1e-3
 
 
@@ -319,6 +337,11 @@ def test_scale_100m_is_the_references():
         t = TR.scale_config(registry.get(arch), "100m")
         assert (t.name, t.n_layers, t.d_model, t.d_ff, t.vocab, t.remat) == (
             j.name, j.n_layers, j.d_model, j.d_ff, j.vocab, j.remat)
-        ta, ja = dataclasses.asdict(t.attn), dataclasses.asdict(j.attn)
-        assert {k: ta[k] for k in ta if k in ja} == {
-            k: ja[k] for k in ta if k in ja}
+        for field in ("attn", "rglru", "ssm"):
+            tf, jf = getattr(t, field), getattr(j, field)
+            assert (tf is None) == (jf is None), (arch, field)
+            if tf is None:
+                continue
+            ta, ja = dataclasses.asdict(tf), dataclasses.asdict(jf)
+            assert {k: ta[k] for k in ta if k in ja} == {
+                k: ja[k] for k in ta if k in ja}
