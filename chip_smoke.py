@@ -5,7 +5,8 @@
     python3 chip_smoke.py --ab DIR [PART ...]
                                    # A/B: the checkout at DIR (an earlier
                                    # tree) and this one, alternated
-    python3 chip_smoke.py --lm     # phases 0, 1, 15 and 16 alone (no result)
+    python3 chip_smoke.py --lm     # phases 0, 1, 15, 16 and 17 alone
+                                   # (no result)
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
@@ -180,8 +181,11 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   backward, events and profiler (phase 12: flex_attention's
                   for the softcap cases); (b) the smoke
                   stablelm, mistral-nemo, gemma2, phi3 and recurrentgemma
-                  (head_dim 64) and mamba2 (no attention) through
-                  the trainer's set-up (repro_torch.launch.train.build), 2
+                  (head_dim 64), mamba2 (no attention), grok (head_dim 32)
+                  and deepseek (MLA, Dk 24 / Dv 16) through
+                  the trainer's set-up (repro_torch.launch.train.build),
+                  hubert and internvl2 (head_dim 32) through
+                  core.algorithm's round on launch.specs.train_batches, 2
                   clients, tau 2, 4 rounds, on the card and on the CPU port
                   with params from one seed and PyTorch's TF32 allowed:
                   train_loss at rtol 1e-5 and x_bar within 1e-4 x max
@@ -236,6 +240,49 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   time of the RG-LRU scan and of the SSD inside profiler
                   ranges, and each timed alone at that shape) and one
                   profiled decode step (busy, idle share).
+ 17. the rest of the zoo -- run after phase 16, before 12: hubert-xlarge,
+                  internvl2-26b, grok-1-314b and deepseek-v3-671b.  (c)
+                  first, on an empty card: kernel 5 in bf16 through phase
+                  10's checks at hubert's (8, 1500, 16/16, 80) not causal,
+                  deepseek-v3's MLA prefill (1, 4096, 128/128, Dk 192 / Dv
+                  128) causal (the blocked plain version) and grok-1's (1,
+                  4096, 48/8, 128) softcap 30; then kernel 5 in float32
+                  with the lse and kernel 5b (against the plain versions in
+                  float64, with controls) at (4, 512, 16/16, 80) not causal
+                  and (4, 512, 16/16, 192/128) causal.  Head dims the
+                  kernels are not built at run padded to the next width
+                  (128, 256): the kernel alone on inputs padded beforehand
+                  is timed beside the call.  The bound: admitted pairs x
+                  2 (Dk + Dv) x H at 989 TFLOP/s (bf16) or 165 (split
+                  TF32), at the true head dims; SDPA's time where it takes
+                  the shape, its backend named by trial.  (a) card vs CPU
+                  port in float32 at full width on cuts, params from one
+                  seed: hubert's 2 of 48 layers on features (2, 160, 512)
+                  (every frame's logits, the caches and the masked loss),
+                  internvl2's 1 layer on patches (2, 40, 3200) + 120
+                  tokens, then 8 teacher-forced decode steps, grok-1's 1
+                  layer with d_ff_expert cut 32,768 -> 4,096, deepseek-v3's
+                  1 dense MLA layer + 1 MLA / MoE layer with 16 of 256
+                  experts (top-8 and the shared expert kept): 160-token
+                  prompts and 8 decode steps; logits within 1e-4 x
+                  max|logit|, each cache leaf within 1e-4 of its max, one
+                  kernel-5 launch per attention layer, and for the MoE
+                  cases the smallest top-k margin of the router
+                  probabilities on each side.  (b) full width in bf16,
+                  random params from a seed: hubert-xlarge's 48 layers
+                  encode (8, 1500) frames (48 launches; the serving engine
+                  refuses it); internvl2-26b's 48 layers generate 2 x
+                  (1,024 patches + 3,072 tokens) + 16; grok-1 (depth 4 of
+                  64) and deepseek-v3 (depth 4 of 61: 3 dense MLA layers +
+                  1 MLA / MoE) prefill 4,096 and 1,024 tokens and generate
+                  2 x 1,024 + 16, grok's greedy serve of 3 requests equal
+                  to sequential generate bitwise at lossless capacity
+                  (deepseek's recorded beside it: MLA's batched decode
+                  rounds apart from batch 1, as the reference says):
+                  launches, peak memory, prefill ms, decode ms per token,
+                  one profiled prefill (busy, idle share, kernel 5's share,
+                  the MoE's route / dispatch / expert GEMMs / combine inside
+                  profiler ranges) and one profiled decode step.
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
@@ -267,7 +314,7 @@ trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
 the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11, 13, 14, 15 and 16 and read just after; no
+before each path of phases 3-9, 11, 13-17 and read just after; no
 path may copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -766,18 +813,19 @@ def _fig2_run(tau: int, device: str, rounds: int, eval_every: int,
         eval_every=eval_every, device=device, engine=engine)
 
 
-def _cpu_run(fn):
-    """``fn()`` with one CPU thread (the small CPU reference runs faster
-    so); the kernel counters must not move."""
+def _cpu_run(fn, threads: int = 1):
+    """``fn()`` with ``threads`` CPU threads (one: the small CPU reference
+    runs faster so; 0: every core, for the full-width runs); the kernel
+    counters must not move."""
     import torch
 
     before = read_counts()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    old = torch.get_num_threads()
+    torch.set_num_threads(threads or os.cpu_count() or old)
     try:
         out = fn()
     finally:
-        torch.set_num_threads(threads)
+        torch.set_num_threads(old)
     check(read_counts() == before, "the CPU run launched a kernel")
     return out
 
@@ -2223,18 +2271,20 @@ def _row_rel_err(got, exp) -> float:
 
 
 def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed,
-                 plain=_flash_plain_bshd):
+                 plain=_flash_plain_bshd, dv=None):
     """The sharp check (see ROW_TOL) and its controls against the plain
     version ``plain``; returns (max row error, {control: its max row
-    difference from the plain version})."""
+    difference from the plain version}).  ``dv``: v's head dim (default
+    ``d``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     sd = LOGIT_STD ** 0.5  # q.k / sqrt(D) has std sd * sd
-    q, k, v = ((torch.randn((b, s, n, d), generator=gen, device="cuda")
-                * f).to(dtype) for n, f in ((h, sd), (kh, sd), (kh, 1.0)))
+    q, k, v = ((torch.randn((b, s, n, w), generator=gen, device="cuda")
+                * f).to(dtype) for n, w, f in ((h, d, sd), (kh, d, sd),
+                                               (kh, dv or d, 1.0)))
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = fa.flash_attention_bshd(q, k, v, **kw)
     q, k, v = q.float(), k.float(), v.float()
@@ -2255,13 +2305,14 @@ def _flash_sharp(b, s, h, kh, d, dtype, causal, window, softcap, seed,
     return err, ctl
 
 
-def _flash_inputs(b, s, h, kh, d, dtype, seed):
-    """q, k, v of the reference's check: standard normals times 0.5."""
+def _flash_inputs(b, s, h, kh, d, dtype, seed, dv=None):
+    """q, k, v of the reference's check: standard normals times 0.5 (v of
+    head dim ``dv``, default ``d``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple((torch.randn((b, s, n, d), generator=gen, device="cuda")
-                  * 0.5).to(dtype) for n in (h, kh, kh))
+    return tuple((torch.randn((b, s, n, w), generator=gen, device="cuda")
+                  * 0.5).to(dtype) for n, w in ((h, d), (kh, d), (kh, dv or d)))
 
 
 def _sdpa_backend(call, out) -> str:
@@ -2282,14 +2333,17 @@ def _sdpa_backend(call, out) -> str:
 
 
 def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
-                softcap=None, seed=0, plain="dense"):
+                softcap=None, seed=0, plain="dense", dv=None):
     """The flash kernel against its plain version at one shape (the
     reference's check, then the sharp one with its controls); ``plain``
-    names the plain version in FLASH_PLAINS.  Times the kernel, the plain
-    version and, where it computes the same function (no softcap),
-    ``F.scaled_dot_product_attention`` -- for a causal window with a
-    boolean (S, S) mask and the kv heads repeated to H, so the call may
-    leave the fused backends -- and names the backend SDPA took."""
+    names the plain version in FLASH_PLAINS, ``dv`` v's head dim (default
+    ``d``).  Times the kernel, the plain version and, where it computes the
+    same function (no softcap), ``F.scaled_dot_product_attention`` -- for a
+    causal window with a boolean (S, S) mask and the kv heads repeated to
+    H, so the call may leave the fused backends -- and names the backend
+    SDPA took.  At head dims the kernel is not built at, the wrapper pads
+    to its width: the kernel alone on inputs padded beforehand is timed
+    too (``padded_ms``; the rest of ``ms`` is the pad and the slice)."""
     import torch
     import torch.nn.functional as F
 
@@ -2297,7 +2351,8 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     from repro_torch.models import layers as L
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
-    q, k, v = _flash_inputs(b, s, h, kh, d, dtype, seed)
+    dv = dv or d
+    q, k, v = _flash_inputs(b, s, h, kh, d, dtype, seed, dv)
     rep = h // kh
     # float32 is timed as training calls it: with the rows' log-sum-exp
     with_lse = dtype == torch.float32
@@ -2315,8 +2370,9 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
     got, exp = kern(), plain()
     torch.cuda.synchronize()
     wname = str(dtype).replace("torch.", "")
-    where = (f"{(b, s, h, kh, d)} {wname} causal={causal} window={window} "
-             f"softcap={softcap}")
+    dims = d if dv == d else f"{d}/{dv}"
+    where = (f"{(b, s, h, kh, dims)} {wname} causal={causal} "
+             f"window={window} softcap={softcap}")
     lse_err = None
     if with_lse:
         got, lse = got
@@ -2332,7 +2388,7 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
           f"abs err {err:.3e} > {FLASH_TOL[wname]}")
     del got, exp
     row_err, ctl = _flash_sharp(b, s, h, kh, d, dtype, causal, window,
-                                softcap, seed + 1000, plain_fn)
+                                softcap, seed + 1000, plain_fn, dv)
     row_tol = ROW_TOL[wname]
     check(row_err <= row_tol, f"flash kernel != plain at {where}, logit std "
           f"{LOGIT_STD}: max row error {row_err:.3e} > {row_tol}")
@@ -2347,6 +2403,14 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
             for k, v in _profile_kernels(kern, 5).items() if "flash_" in k}
     device_ms = (sum(v for v, _ in recs.values())
                  / sum(n for _, n in recs.values())) if recs else None
+    width = fa.kernel_width(d, dv)
+    padded_ms = None
+    if width != d or width != dv:
+        (pq, pk, pv), _ = fa.to_kernel_width(q, k, v)
+        padded_ms = _time_ms(lambda: fa.flash_attention_bshd(
+            pq, pk, pv, causal=causal, window=window, softcap=softcap,
+            with_lse=with_lse), 5, 3)
+        del pq, pk, pv
     plain_ms = _time_ms(plain, 3, 2)
     library_ms = library_device_ms = yardstick = backend = None
     if softcap is None:
@@ -2382,14 +2446,15 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
             library_device_ms = _device_ms(lib, 5) or None
         del qt, kt, vt, got
     pairs = _admitted_pairs(s, causal, window)
-    flops = 4 * d * h * b * pairs
-    nbytes = b * s * (2 * h + 2 * kh) * d * q.element_size()
+    flops = 2 * (d + dv) * h * b * pairs
+    nbytes = b * s * (h + kh) * (d + dv) * q.element_size()
     peak = PEAK_BF16 if dtype != torch.float32 else SPLIT_TF32_OPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = {"kernel": "flash_attention", "shape": [b, s, h, kh, d],
-           "dtype": wname, "causal": causal, "window": window,
+           "dv": dv, "kernel_width": width, "padded_ms": padded_ms,
+           "pad_flop_factor": 2 * width / (d + dv), "dtype": wname, "causal": causal, "window": window,
            "softcap": softcap, "seed": seed, "with_lse": with_lse,
            "max_abs_err": err, "tol": FLASH_TOL[wname],
            "lse_rel_err": lse_err, "lse_rtol": LSE_RTOL if with_lse else None,
@@ -2405,7 +2470,8 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
                                    if dtype == torch.float32 else None),
            "gflop": flops / 1e9,
            "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
-    log(f"[flash] (B {b}, S {s}, H {h}/{kh}, D {d}) {wname} causal={causal} "
+    log(f"[flash] (B {b}, S {s}, H {h}/{kh}, D {dims}) {wname} "
+        f"causal={causal} "
         f"window={window} softcap={softcap}: max abs err {err:.3e} (tol "
         f"{FLASH_TOL[wname]})"
         + (f", lse {lse_err:.3e} relative (tol {LSE_RTOL})" if with_lse
@@ -2415,8 +2481,12 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
         + ", ".join(f"{n} {c:.3e}" for n, c in ctl.items())
         + f"; kernel {ms:.4f} ms (device "
         f"{'%.4f ms' % device_ms if device_ms else 'not measured'}, "
-        f"{row['TFLOP_per_s']:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-        f"({bound_by}"
+        f"{row['TFLOP_per_s']:.1f} TFLOP/s)"
+        + (f" at width {width}: the kernel alone on padded inputs "
+           f"{padded_ms:.4f} ms, the pad and slice {ms - padded_ms:.4f} ms, "
+           f"padded operations x{row['pad_flop_factor']:.3f}"
+           if padded_ms is not None else "")
+        + f", bound {bound_ms:.4f} ms ({bound_by}"
         + (f"; {row['bound_ms_fp32_cores']:.4f} at 67 TFLOP/s f32"
            if with_lse else "")
         + f"), plain ({plain_name}) {plain_ms:.4f} ms, "
@@ -2676,18 +2746,33 @@ def _teacher_forced(params, cfg, prompts, steps, max_len):
     the prompt's own continuation; returns ([logits...], caches)."""
     import torch
 
+    toks = torch.as_tensor(prompts, device=params["embed"].device)
+    return _forced(params, cfg, {"tokens": toks}, steps, max_len)
+
+
+def _forced(params, cfg, batch, steps: int, max_len: int):
+    """Prefill over ``batch`` (its last ``steps`` tokens held back), then
+    ``steps`` teacher-forced decode steps on them; returns ([logits of the
+    last prefill position, then each step], caches).  hubert (no decode):
+    the prefill's logits at every frame and its caches."""
+    import torch
+
     from repro_torch.models import transformer as T
 
-    toks = torch.as_tensor(prompts, device=params["embed"].device)
+    if not cfg.decode_supported:
+        logits, caches, _ = T.prefill(params, cfg, batch, max_len=max_len)
+        return [logits.float().cpu()], caches
+    toks = batch["tokens"]
     s = toks.shape[1] - steps
-    logits, caches, cache_len = T.prefill(params, cfg, {"tokens": toks[:, :s]},
-                                          max_len=max_len, last_only=True)
+    logits, caches, cache_len = T.prefill(params, cfg, dict(
+        batch, tokens=toks[:, :s]), max_len=max_len, last_only=True)
     out = [logits[:, -1].float().cpu()]
     for i in range(steps):
-        lg, caches = T.decode_step(params, cfg, caches, toks[:, s + i:s + i + 1],
-                                   cache_len)
+        lg, caches = T.decode_step(params, cfg, caches,
+                                   toks[:, s + i:s + i + 1], cache_len)
         out.append(lg[:, 0].float().cpu())
         cache_len = cache_len + 1
+    del logits
     return out, caches
 
 
@@ -2791,15 +2876,22 @@ def phase_gemma_card_vs_cpu(card: str):
 
 
 def _prefill_ms(params, cfg, b, s, rng, max_len):
+    """A (b, s) random prompt's prefill: (host ms, synchronised; out)."""
+    import torch
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), device="cuda")
+    return _batch_prefill_ms(params, cfg, {"tokens": toks}, max_len)
+
+
+def _batch_prefill_ms(params, cfg, batch, max_len):
+    """``batch``'s prefill: (host ms, synchronised; prefill's output)."""
     import torch
 
     from repro_torch.models import transformer as T
 
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = T.prefill(params, cfg, {"tokens": toks}, max_len=max_len,
-                    last_only=True)
+    out = T.prefill(params, cfg, batch, max_len=max_len, last_only=True)
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0), out
 
@@ -2927,7 +3019,14 @@ LIB_BWD_TOL = 1e-3
 # within LM_XBAR_TOL x max |x_bar|
 LM_LOSS_RTOL, LM_XBAR_TOL = 1e-5, 1e-4
 LM_ARCHS = ("stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b",
-            "phi3_medium_14b", "recurrentgemma_9b", "mamba2_130m")
+            "phi3_medium_14b", "recurrentgemma_9b", "mamba2_130m",
+            "grok_1_314b", "deepseek_v3_671b", "hubert_xlarge",
+            "internvl2_26b")
+# the archs whose smoke config keeps its own head dims on the card (32; MLA
+# 24 / 16: the wrapper pads them to the kernel's 64); the older six run at
+# head_dim 64, as before the pad
+LM_OWN_DIMS = ("grok_1_314b", "deepseek_v3_671b", "hubert_xlarge",
+               "internvl2_26b")
 # (c): stablelm-1.6b at full width, its 24 layers cut to LM_LAYERS so that
 # 4 clients' DProx state fits one 80 GB card
 LM_LAYERS = 4
@@ -2957,10 +3056,11 @@ def _bwd_grads_err(got, exp) -> float:
 
 
 def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
-              softcap=None, seed=0):
-    """Kernel 5b at one shape: against the plain version in float64, its
-    controls, and its time beside the plain version's, the bound and SDPA's
-    backward (where it computes the same function)."""
+              softcap=None, seed=0, dv=None):
+    """Kernel 5b at one shape (``dv``: v's head dim, default ``d``): against
+    the plain version in float64, its controls, and its time beside the
+    plain version's, the bound and SDPA's backward (where it computes the
+    same function)."""
     import torch
     import torch.nn.functional as F
 
@@ -2969,8 +3069,9 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed)
     sd = LOGIT_STD ** 0.5
-    q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda") * f
-               for n, f in ((h, sd), (kh, sd), (kh, 1.0)))
+    dv = dv or d
+    q, k, v = (torch.randn((b, s, n, w), generator=gen, device="cuda") * f
+               for n, w, f in ((h, d, sd), (kh, d, sd), (kh, dv, 1.0)))
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = fa.flash_attention_bshd(q, k, v, with_lse=True, **kw)
     do = torch.randn(out.shape, generator=gen, device="cuda")
@@ -2980,7 +3081,8 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
 
     got = kern()
     torch.cuda.synchronize()
-    where = (f"{(b, s, h, kh, d)} causal={causal} window={window} "
+    dims = d if dv == d else f"{d}/{dv}"
+    where = (f"{(b, s, h, kh, dims)} causal={causal} window={window} "
              f"softcap={softcap}")
     check(all(bool(torch.isfinite(g).all()) for g in got),
           f"flash bwd {where}: non-finite gradient")
@@ -3031,12 +3133,17 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
         library_device_ms = _device_ms(lib, 5) or None
         del qt, kt, vt, lib_out, dot
     pairs = _admitted_pairs(s, causal, window)
-    flops = 10 * d * h * b * pairs
-    nbytes = 4 * (4 * b * s * h * d + 4 * b * s * kh * d + b * h * s)
+    # QK^T and dP = dO V^T are recomputed / computed (2 Dk and 2 Dv an
+    # admitted pair), dV += P^T dO (2 Dv), dQ += dS K and dK += dS^T Q
+    # (2 Dk each): 10 D when Dv = Dk
+    flops = (6 * d + 4 * dv) * h * b * pairs
+    # read q, k, v, out, dout, lse; write dq, dk, dv
+    nbytes = 4 * (b * s * h * (2 * d + 2 * dv) + b * s * kh * (2 * d + 2 * dv)
+                  + b * h * s)
     t_ops, t_bytes = flops / SPLIT_TF32_OPS, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     row = {"kernel": "flash_attention_bwd", "shape": [b, s, h, kh, d],
-           "dtype": "float32", "causal": causal, "window": window,
+           "dv": dv, "dtype": "float32", "causal": causal, "window": window,
            "softcap": softcap, "seed": seed, "max_abs_err": max(
                float((g - e).abs().max()) for g, e in zip(got, fa.
                flash_attention_backward_plain(q, k, v, out, do, lse, **kw))),
@@ -3050,7 +3157,7 @@ def _bwd_case(card: str, b, s, h, kh, d, causal=True, window=None,
                                             t_bytes),
            "gflop": flops / 1e9,
            "TFLOP_per_s": flops / ((device_ms or ms) * 1e-3) / 1e12}
-    log(f"[lm-a] 5b (B {b}, S {s}, H {h}/{kh}, D {d}) causal={causal} "
+    log(f"[lm-a] 5b (B {b}, S {s}, H {h}/{kh}, D {dims}) causal={causal} "
         f"window={window} softcap={softcap}: vs plain f64 {err:.3e} of max "
         f"|grad| (tol {BWD_TOL}), controls "
         + ", ".join(f"{n} {c:.3e}" for n, c in ctl.items())
@@ -3088,9 +3195,8 @@ def _lm_smoke(card: str, arch: str) -> dict:
     from repro_torch.utils import tree as tu
 
     smoke = registry.get_smoke(arch)
-    # the smoke head dims (32, 40) are not kernel widths; mamba2 attends
-    # nowhere
-    attn = (None if smoke.attn is None
+    # mamba2 attends nowhere
+    attn = (smoke.attn if smoke.attn is None or arch in LM_OWN_DIMS
             else dataclasses.replace(smoke.attn, head_dim=64))
     cfg = smoke.with_overrides(param_dtype=torch.float32, attn=attn)
     params = T.init_model(torch.Generator().manual_seed(0), cfg)
@@ -3098,6 +3204,8 @@ def _lm_smoke(card: str, arch: str) -> dict:
     traj = {}
     for device in ("cuda", "cpu"):
         def go(device=device):
+            if cfg.frontend is not None:
+                return _lm_rounds(cfg, params, device, rounds, tau)
             args = _lm_args("--device", device, "--clients", "2", "--tau",
                             str(tau), "--rounds", str(rounds))
             run = TR.build(args, cfg=cfg, params=params)
@@ -3132,14 +3240,47 @@ def _lm_smoke(card: str, arch: str) -> dict:
           f"rel gap {loss_gap:.3e} > {LM_LOSS_RTOL}")
     check(xbar_gap <= LM_XBAR_TOL, f"lm (b) {arch}: card vs cpu x_bar gap "
           f"{xbar_gap:.3e} of max |x_bar| > {LM_XBAR_TOL}")
-    hd = "no attention" if cfg.attn is None else "head_dim 64"
-    log(f"[lm-b] {cfg.name} ({hd}), 2 clients, tau {tau}, {rounds} "
+    hd = ("no attention" if cfg.attn is None
+          else "MLA, Dk 24 / Dv 16" if cfg.attn.kind == "mla"
+          else f"head_dim {cfg.attn.head_dim}")
+    how = ("core.algorithm's round on specs.train_batches"
+           if cfg.frontend is not None else "the trainer's set-up")
+    log(f"[lm-b] {cfg.name} ({hd}; {how}), 2 clients, tau {tau}, {rounds} "
         f"rounds: card vs cpu train_loss rel gap {loss_gap:.3e} (tol "
         f"{LM_LOSS_RTOL}), x_bar gap {xbar_gap:.3e} of max |x_bar| (tol "
         f"{LM_XBAR_TOL}); losses {[round(x, 6) for x in lg]}; launches "
         f"{counts}  [{card}]")
     return {"arch": arch, "loss_rel_gap": loss_gap, "xbar_rel_gap": xbar_gap,
             "train_loss_card": lg, "train_loss_cpu": lc, "launches": counts}
+
+
+def _lm_rounds(cfg, params, device: str, rounds: int, tau: int):
+    """A front-end smoke config (hubert, internvl2) trained through
+    ``core.algorithm``'s round function on ``launch.specs.train_batches``
+    (the reference's ``launch/train.py`` makes token streams only, so its
+    tests/test_arch_smoke.py trains them so): DProx, 2 clients, L1 1e-5,
+    eta 1e-3, eta_g 2, one batch of 2 x 64 positions per client from seed
+    ``r`` in round ``r``.  Returns (losses, x_bar on the CPU per round)."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import algorithm as talg
+    from repro_torch.core.prox import L1
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree as tu
+
+    fn = talg.make_round_fn(talg.DProxConfig(tau=tau, eta=1e-3, eta_g=2.0),
+                            L1(lam=1e-5), T.make_grad_fn(cfg))
+    state = talg.init_state(tu.tree_map(lambda x: x.to(device), params), 2)
+    losses, xbars = [], []
+    for r in range(rounds):
+        batches = specs.train_batches(cfg, InputShape("smoke", "train", 64, 4),
+                                      2, tau, seed=r, device=device)
+        state, info = fn(state, batches)
+        losses.append(float(info["train_loss"]))
+        xbars.append(tu.tree_map(lambda x: x.detach().cpu(), state.x_bar))
+    return losses, xbars
 
 
 def _layer_kinds(cfg) -> list:
@@ -3455,11 +3596,11 @@ def _ranged(name: str, fn):
     return wrapped
 
 
-def _profile_with_ranges(fn, sessions: int = 2):
+def _profile_with_ranges(fn, sessions: int = 2, names=ZOO_RANGES):
     """One call of ``fn`` profiled (of ``sessions``, the one with the most
-    kernel records, as :func:`_profile_kernels`), with each of
-    :data:`ZOO_RANGES` in ``models/layers`` wrapped in a profiler range
-    while it runs.  Returns (device ms by kernel name, {range: (device ms
+    kernel records, as :func:`_profile_kernels`), with each of ``names``
+    (functions of ``models/layers``) wrapped in a profiler range while it
+    runs.  Returns (device ms by kernel name, {range: (device ms
     of the kernels launched inside it, calls)}, the profiled call's host
     ms ending in a synchronise).  The profiler marks each range on the
     device too, with a span (``zoo/...``) from the range's first kernel to
@@ -3476,10 +3617,10 @@ def _profile_with_ranges(fn, sessions: int = 2):
 
     fn()
     torch.cuda.synchronize()
-    orig = {n: getattr(L, n) for n in ZOO_RANGES}
+    orig = {n: getattr(L, n) for n in names}
     best, best_n, ranges, wall = {}, -1, {}, None
     try:
-        for n in ZOO_RANGES:
+        for n in names:
             setattr(L, n, _ranged(f"zoo/{n}", orig[n]))
         for _ in range(sessions):
             with profile(activities=[ProfilerActivity.CPU,
@@ -3715,6 +3856,456 @@ def phase_zoo(card: str) -> dict:
             "seconds": secs}
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+# (c): kernel 5 at the new prefill shapes, bf16: hubert-xlarge (30-s clips
+# at 50 frames/s, not causal, D 80), deepseek-v3's MLA prefill (Dk 192 / Dv
+# 128, causal; the blocked plain version: 128 heads of (S, S) float32 logits
+# several times over would crowd the card), grok-1 (softcap 30)
+ZOO2_FLASH_CASES = [
+    dict(b=8, s=1500, h=16, kh=16, d=80, dtype="bfloat16", causal=False),
+    dict(b=1, s=4096, h=128, kh=128, d=192, dv=128, dtype="bfloat16",
+         plain="blocked"),
+    dict(b=1, s=4096, h=48, kh=8, d=128, dtype="bfloat16", softcap=30.0)]
+# then float32 with the row log-sum-exp (kernel 5) and kernel 5b at the two
+# new head dims
+ZOO2_F32_CASES = [dict(b=4, s=512, h=16, kh=16, d=80, causal=False),
+                  dict(b=4, s=512, h=16, kh=16, d=192, dv=128)]
+# (b): full width in bf16, random params from a seed; depth as given
+ZOO2_NEW = 16
+# the MoE's parts, timed inside a profiled prefill (each wrapped in a
+# profiler range while it runs)
+MOE_RANGES = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
+
+
+class _RouterMargins:
+    """While entered, records each MoE router call's smallest top-k margin:
+    over tokens, the k-th largest router probability less the (k+1)-th
+    (a routing flip between the card and the CPU can only come from a
+    margin at the level of their difference)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.margins, self._orig = [], L.moe_route
+        orig = self._orig
+
+        def route(p, cfg, xf):
+            import torch
+
+            out = orig(p, cfg, xf)
+            top = torch.topk(out[0], cfg.top_k + 1, dim=-1).values
+            self.margins.append(float((top[:, -2] - top[:, -1]).min()))
+            return out
+
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.moe_route = self._orig
+
+    @property
+    def smallest(self):
+        return min(self.margins) if self.margins else None
+
+
+def _zoo2_card_vs_cpu(card: str, tag: str, cfg, batch, steps: int,
+                      max_len: int) -> dict:
+    """17a, one model at full width in float32 on a cut: prefill (and
+    ``steps`` teacher-forced decode steps) on the card and on the CPU port
+    from one seed's params (drawn on the card, copied to the CPU): logits
+    within ZOO_TOL x max |logit|, each cache leaf within ZOO_TOL of its
+    max; hubert's masked loss at rtol 1e-5; the MoE router's smallest
+    top-k margin on each side."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree as tu
+
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    params_cpu = tu.tree_map(lambda x: x.cpu(), params)
+    init_s = time.perf_counter() - t0
+    n_params = T.count_params(params)
+    on_card = tu.tree_map(lambda x: x.to("cuda"), batch)
+    n_flash = _attn_layers(cfg)
+    reset_counts()
+    with _RouterMargins() as rm_card:
+        got, caches = _forced(params, cfg, on_card, steps, max_len)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == _expect(flash_attention=n_flash),
+          f"17a {tag}: launches {counts}, expected {n_flash} flash launches "
+          "(one per attention layer of one prefill)")
+    t0 = time.perf_counter()
+    with _RouterMargins() as rm_cpu:
+        exp, caches_cpu = _cpu_run(lambda: _forced(
+            params_cpu, cfg, batch, steps, max_len), threads=0)
+    cpu_s = time.perf_counter() - t0
+    scale = max(float(e.abs().max()) for e in exp)
+    errs = [float((g - e).abs().max()) for g, e in zip(got, exp)]
+    tol = ZOO_TOL * scale
+    margins = {"card": rm_card.smallest, "cpu": rm_cpu.smallest}
+    check(all(math.isfinite(e) for e in errs) and max(errs) <= tol,
+          f"17a {tag}: card vs CPU logits differ by {max(errs):.3e} > "
+          f"{tol:.3e} (per step {errs}; smallest router top-k margin "
+          f"{margins})")
+    cache_errs = {}
+    for (name, a), (_, c) in zip(_named_leaves(caches),
+                                 _named_leaves(caches_cpu)):
+        c_max = float(c.abs().max())
+        err = float((a.float().cpu() - c.float()).abs().max())
+        cache_errs[name] = err / c_max if c_max > 0 else err
+        check(math.isfinite(err) and err <= ZOO_TOL * c_max,
+              f"17a {tag}: card vs CPU cache {name} differs by {err:.3e} > "
+              f"{ZOO_TOL} x max|cache| {c_max:.3e}")
+    worst = max(cache_errs, key=cache_errs.get)
+    loss = None
+    if cfg.frontend == "audio":
+        reset_counts()
+        got_l = float(T.loss_fn(params, cfg, on_card))
+        check(read_counts() == _expect(flash_attention=n_flash),
+              f"17a {tag}: loss launches {read_counts()}")
+        exp_l = float(_cpu_run(lambda: T.loss_fn(params_cpu, cfg, batch),
+                               threads=0))
+        check(abs(got_l - exp_l) <= 1e-5 * abs(exp_l), f"17a {tag}: masked "
+              f"loss card {got_l} vs CPU {exp_l}")
+        loss = {"card": got_l, "cpu": exp_l}
+        counts = {k: v + (n_flash if k == "flash_attention" else 0)
+                  for k, v in counts.items()}
+    log(f"[zoo-17a] {tag} ({cfg.name}, f32, {n_params:,} params): "
+        f"{len(got) - 1} teacher-forced steps after the prefill: max |logit| "
+        f"{scale:.4f}, card vs CPU {max(errs):.3e} (tol {ZOO_TOL} x "
+        f"max|logit| = {tol:.3e}; per step "
+        + ", ".join(f"{e:.2e}" for e in errs)
+        + f"); caches, each leaf over its max: worst {cache_errs[worst]:.3e} "
+        f"({worst}; tol {ZOO_TOL})"
+        + (f"; masked loss card {loss['card']:.7f} CPU {loss['cpu']:.7f}"
+           if loss else "")
+        + (f"; smallest router top-k margin card {margins['card']:.3e}, "
+           f"CPU {margins['cpu']:.3e}" if margins["card"] is not None
+           else "")
+        + f"; launches {n_flash} flash a pass; init {init_s:.1f} s, CPU run "
+        f"{cpu_s:.1f} s  [{card}]")
+    del params, params_cpu, caches, caches_cpu, on_card
+    _free_card()
+    return {"model": tag, "arch": cfg.name, "n_params": n_params,
+            "launches": counts, "max_abs_diff": max(errs), "tol": tol,
+            "max_abs_logit": scale, "errs": errs,
+            "cache_rel_errs": cache_errs, "loss": loss,
+            "router_min_topk_margin": margins, "init_s": init_s,
+            "cpu_s": cpu_s}
+
+
+def _zoo2_cases_a() -> list:
+    """17a's four cuts: (tag, config, CPU batch, decode steps, max_len)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import specs
+    from repro_torch.models.layers import MoECfg
+
+    f32 = torch.float32
+    rng = np.random.default_rng(17)
+    hub = _zoo_cfg("hubert_xlarge", n_layers=2, param_dtype=f32)
+    ivl = _zoo_cfg("internvl2_26b", n_layers=1, param_dtype=f32)
+    grok = _zoo_cfg("grok_1_314b", n_layers=1, param_dtype=f32)
+    grok = grok.with_overrides(moe=dataclasses.replace(grok.moe,
+                                                       d_ff_expert=4096))
+    ds = _zoo_cfg("deepseek_v3_671b", n_layers=2, prefix_blocks=("attn",),
+                  param_dtype=f32)
+    ds = ds.with_overrides(moe=dataclasses.replace(ds.moe, num_experts=16))
+    hub_b = specs.example(hub, 2, 160, seed=17, device="cpu")
+    ivl_b = {"patches": torch.from_numpy(rng.normal(size=(2, 40, 3200)).astype(
+                 np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, ivl.vocab, (2, 128),
+                                                     dtype=np.int32))}
+
+    def toks(cfg):
+        return {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, 168), dtype=np.int32))}
+
+    return [("hubert-xlarge, 2 of 48 layers, features (2, 160, 512), masked "
+             "loss", hub, hub_b, 0, 160),
+            ("internvl2-26b, 1 layer, patches (2, 40, 3200) + 120 tokens",
+             ivl, ivl_b, 8, 256),
+            ("grok-1-314b, 1 layer, d_ff_expert 4096 of 32768", grok,
+             toks(grok), 8, 256),
+            ("deepseek-v3-671b, 1 dense MLA layer + 1 MLA/MoE layer, 16 of "
+             "256 experts (top-8, shared expert)", ds, toks(ds), 8, 256)]
+
+
+def _zoo2_profile(card, params, cfg, batch, max_len) -> dict:
+    """One profiled prefill of ``batch``: device busy, idle share, kernel
+    5's share and the MoE's parts inside profiler ranges."""
+    from repro_torch.models import transformer as T
+
+    by_name, ranges, wall = _profile_with_ranges(lambda: T.prefill(
+        params, cfg, batch, max_len=max_len, last_only=True),
+        names=MOE_RANGES if cfg.moe is not None else ())
+    busy = sum(by_name.values())
+    flash_ms = sum(v for k, v in by_name.items() if "flash_" in k)
+    prof = {"device_busy_ms": busy, "flash_ms": flash_ms,
+            "flash_share": flash_ms / busy if busy > 0 else None,
+            "profiled_ms": wall, "idle_share": 1 - busy / wall,
+            "ranges": {k: {"device_ms": ms, "calls": c,
+                           "share": ms / busy if busy > 0 else None}
+                       for k, (ms, c) in ranges.items()},
+            "top_kernels_ms": sorted(by_name.items(),
+                                     key=lambda kv: -kv[1])[:8]}
+    rng_txt = "; ".join(
+        f"{k} {v['device_ms']:.2f} ms device in {v['calls']} calls "
+        f"({v['share'] or 0:.3f} of busy)" for k, v in prof["ranges"].items())
+    log(f"[zoo-17b] {cfg.name} profiled prefill: {wall:.2f} ms (host clock, "
+        f"synchronised), device busy {busy:.2f} ms (idle share "
+        f"{prof['idle_share']:.3f}), flash kernel {flash_ms:.2f} ms "
+        f"({prof['flash_share'] or 0:.3f} of busy)"
+        + (f"; {rng_txt}" if rng_txt else "") + f"  [{card}]")
+    for kname, ms in prof["top_kernels_ms"]:
+        log(f"[zoo-17b]   {ms:9.3f} ms  {kname[:110]}")
+    return prof
+
+
+def _zoo2_full(card: str, arch: str, n_layers=None, lens=(), gen_len=1024,
+               **kw) -> dict:
+    """17b, one model at full width in bf16 (depth ``n_layers`` when cut):
+    hubert encodes a batch of 30-s clips; internvl2 generates over patches
+    and text; grok and deepseek prefill prompts of ``lens`` and generate 2
+    x ``gen_len`` + ZOO2_NEW; at lossless capacity grok's greedy serve
+    equals its sequential generate, deepseek's is recorded beside it.
+    Peak memory, prefill ms per prompt,
+    decode ms per token and one profiled prefill."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
+
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    if arch == "deepseek_v3_671b":
+        over["prefix_blocks"] = ("attn",) * min(3, n_layers - 1)
+    cfg = _zoo_cfg(arch, **over)
+    new = ZOO2_NEW
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = T.count_params(params)
+    n_attn = _attn_layers(cfg)
+    rng = np.random.default_rng(17)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params,
+           "init_s": init_s, "init_peak_gb": init_peak_gb,
+           "n_attn_layers": n_attn}
+    max_len = kw.get("max_len", 4096 + 1024)
+    if cfg.frontend == "audio":
+        batch = specs.example(cfg, 8, 1500, seed=17, device="cuda")
+        with torch.no_grad():
+            T.forward(params, cfg, batch)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, _, _ = T.forward(params, cfg, batch)
+            torch.cuda.synchronize()
+            enc_ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        check(counts == _expect(flash_attention=n_attn), f"17b {cfg.name}: "
+              f"launches {counts}, expected {n_attn} flash")
+        check(logits.shape == (8, 1500, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"17b {cfg.name}: bad or non-finite logits")
+        try:
+            ServingEngine(cfg, params, device="cuda")
+            check(False, f"17b {cfg.name}: the serving engine took it")
+        except ValueError as e:
+            refusal = str(e)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        enc_ms_ev = _time_ms(lambda: T.forward(params, cfg, batch), 3, 1)
+        out.update(launches=counts, encode_ms=enc_ms,
+                   encode_ms_events=enc_ms_ev, peak_gb=peak_gb,
+                   serve_refusal=refusal)
+        log(f"[zoo-17b] {cfg.name} ({cfg.n_layers} layers, {n_params / 1e9:.3f}"
+            f" B params, bf16, init {init_s:.1f} s): encode (8, 1500) frames "
+            f"in {enc_ms:.1f} ms (host clock; {enc_ms_ev:.1f} ms CUDA events)"
+            f", launches {counts}, peak {peak_gb:.1f} GB (init peak "
+            f"{init_peak_gb:.1f} GB); the serving engine refuses it: "
+            f"{refusal!r}  [{card}]")
+        with torch.no_grad():
+            out["prefill_profile"] = _zoo2_profile(card, params, cfg, batch,
+                                                   1500)
+        del params, batch, logits
+        _free_card()
+        return out
+
+    eng = ServingEngine(cfg, params, max_len=max_len, device="cuda")
+    if cfg.frontend == "vision":
+        s_img, s_txt = 1024, 3072
+        patches = torch.randn((2, s_img, cfg.frontend_dim), device="cuda",
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(17)).to(torch.bfloat16)
+        prompts = rng.integers(0, cfg.vocab, (2, s_txt), dtype=np.int32)
+        extra = {"patches": patches}
+        eng.generate(prompts[:, :64], max_new_tokens=2,
+                     extra_inputs={"patches": patches[:, :16]})  # warm-up
+    else:
+        prompts = rng.integers(0, cfg.vocab, (2, gen_len), dtype=np.int32)
+        extra = None
+        eng.generate(prompts[:, :64], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new, extra_inputs=extra)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == _expect(flash_attention=n_attn), f"17b {cfg.name}: "
+          f"launches {counts}, expected {n_attn} flash (one prefill)")
+    check(gen.tokens.shape == (2, new) and np.isfinite(gen.logprobs).all()
+          and ((0 <= gen.tokens) & (gen.tokens < cfg.vocab)).all(),
+          f"17b {cfg.name} generate: bad shape, ids or non-finite logprobs")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out.update(launches=counts, generate_s=gen_s, peak_gb=peak_gb)
+    shape = (f"2 x ({s_img} patches + {s_txt} tokens)" if extra
+             else f"2 x {gen_len}")
+    log(f"[zoo-17b] {cfg.name} full width ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, bf16, init {init_s:.1f} s, init peak"
+        f" {init_peak_gb:.1f} GB): generate {shape} + {new} in {gen_s:.2f} s;"
+        f" launches {counts}; peak {peak_gb:.1f} GB  [{card}]")
+
+    # greedy serve against sequential generate at lossless capacity: grok
+    # bitwise; deepseek (MLA) recorded -- the absorbed decode's products
+    # round differently at batch 2 and 1 (the reference leaves MLA out of
+    # its bitwise batched-decode parity), so a token may flip on a near tie
+    if cfg.moe is not None:
+        m = cfg.moe
+        lossless = cfg.with_overrides(moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k + 0.1))
+        leng = ServingEngine(lossless, params, max_len=max_len,
+                             device="cuda")
+        reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, n,
+                                                  dtype=np.int32),
+                        max_new_tokens=m_) for i, (n, m_) in
+                enumerate(((700, 12), (300, 9), (520, 12)))]
+        reset_counts()
+        served = leng.serve(reqs, slots=2, segment=4)
+        torch.cuda.synchronize()
+        n_flash = n_attn * len(reqs)
+        check(read_counts() == _expect(flash_attention=n_flash),
+              f"17b {cfg.name} serve: launches {read_counts()}, expected "
+              f"{n_flash}")
+        diffs, lp_gap = [], 0.0
+        for r in served:
+            seq = leng.generate(reqs[r.id].prompt[None, :],
+                                max_new_tokens=reqs[r.id].max_new_tokens)
+            check(len(r.tokens) == len(seq.tokens[0])
+                  and np.isfinite(r.logprobs).all(), f"17b {cfg.name} "
+                  f"serve: request {r.id} incomplete or non-finite")
+            same = r.tokens == seq.tokens[0]
+            diffs.append(int((~same).sum()))
+            upto = int(np.argmin(same)) if not same.all() else len(same)
+            if upto:  # logprobs along the common prefix
+                lp_gap = max(lp_gap, float(np.abs(
+                    r.logprobs[:upto] - seq.logprobs[0][:upto]).max()))
+        if arch == "grok_1_314b":
+            check(not any(diffs), f"17b {cfg.name}: greedy serve differs "
+                  f"from sequential generate at lossless capacity: {diffs}")
+        out["serve_vs_generate"] = {"requests": len(reqs),
+                                    "differing_tokens": diffs,
+                                    "max_logprob_diff": lp_gap,
+                                    "launches": n_flash}
+        out["launches"] = {k: v + (n_flash if k == "flash_attention" else 0)
+                           for k, v in out["launches"].items()}
+        log(f"[zoo-17b] {cfg.name} lossless capacity (cf "
+            f"{lossless.moe.capacity_factor}): serve 3 requests (2 slots, "
+            f"segment 4) against sequential generate: differing tokens "
+            f"{diffs}, max logprob difference on the common prefix "
+            f"{lp_gap:.3e} ({'held bitwise' if arch == 'grok_1_314b' else 'recorded'}); "
+            f"{n_flash} flash launches  [{card}]")
+        del leng
+
+    # timings outside the counted path
+    prefill_ms = {}
+    if extra:
+        b1 = {"tokens": torch.as_tensor(prompts[:1], device="cuda"),
+              "patches": patches[:1]}
+        prefill_ms[f"{s_img}+{s_txt}"], _ = _batch_prefill_ms(params, cfg, b1,
+                                                             max_len)
+        b2 = {"tokens": torch.as_tensor(prompts, device="cuda"),
+              "patches": patches}
+        key = f"2x({s_img}+{s_txt})"
+        prof_batch = b1
+    else:
+        for n in lens:
+            b1 = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
+                                            device="cuda")}
+            prefill_ms[n], _ = _batch_prefill_ms(params, cfg, b1, max_len)
+        b2 = {"tokens": torch.as_tensor(prompts, device="cuda")}
+        key = f"2x{gen_len}"
+        prof_batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (1, lens[0])), device="cuda")}
+    prefill_ms[key], (logits, caches, cache_len) = _batch_prefill_ms(
+        params, cfg, b2, max_len)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._segment(params, caches, tok, cache_len, new, 0.0, [None])
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / new
+    decode_busy = sum(_profile_kernels(lambda: eng._segment(
+        params, caches, tok, cache_len, 1, 0.0, [None]), 1, 2).values())
+    del caches, logits
+    log(f"[zoo-17b] {cfg.name} prefill ms (host clock, synchronised): "
+        + ", ".join(f"S={k}: {v:.1f}" for k, v in prefill_ms.items())
+        + f"; decode {decode_ms:.2f} ms/token at batch 2, one profiled step "
+        f"device busy {decode_busy:.2f} ms (idle share "
+        f"{1 - decode_busy / decode_ms:.3f})  [{card}]")
+    out.update(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               decode_step_device_busy_ms=decode_busy,
+               prefill_profile=_zoo2_profile(card, params, cfg, prof_batch,
+                                             max_len))
+    del params, eng
+    _free_card()
+    return out
+
+
+def phase_zoo2(card: str) -> dict:
+    """Phase 17: the rest of the zoo (see the module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    _free_card()
+    flash = [_flash_case(card, seed=1700 + i,
+                         **dict(c, dtype=getattr(torch, c["dtype"])))
+             for i, c in enumerate(ZOO2_FLASH_CASES)]
+    flash += [_flash_case(card, seed=1710 + i, dtype=torch.float32, **c)
+              for i, c in enumerate(ZOO2_F32_CASES)]
+    bwd = [_bwd_case(card, seed=1720 + i, **c)
+           for i, c in enumerate(ZOO2_F32_CASES)]
+    _free_card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    card_vs_cpu = [_zoo2_card_vs_cpu(card, *c) for c in _zoo2_cases_a()]
+    full = [_zoo2_full(card, "hubert_xlarge"),
+            _zoo2_full(card, "internvl2_26b", max_len=4096 + 64),
+            _zoo2_full(card, "grok_1_314b", n_layers=4, lens=(4096, 1024)),
+            _zoo2_full(card, "deepseek_v3_671b", n_layers=4,
+                       lens=(4096, 1024))]
+    secs = time.perf_counter() - t0
+    log(f"[zoo2] phase 17 in {secs:.1f} s  [{card}]")
+    return {"flash_cases": flash, "bwd_cases": bwd,
+            "card_vs_cpu": card_vs_cpu, "full": full, "seconds": secs}
+
+
 # -- A/B against an earlier tree -------------------------------------------------
 
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
@@ -3853,11 +4444,12 @@ def main(argv) -> None:
             card, argv[3:] or AB_PARTS, tf32=tree.resolve() == ROOT),
             indent=1))
         return
-    if argv[:1] == ["--lm"]:  # phases 15 and 16 alone; prints no result
+    if argv[:1] == ["--lm"]:  # phases 15, 16 and 17 alone; no result
         card = phase_device()
         phase_build()
         phase_lm(card)
         phase_zoo(card)
+        phase_zoo2(card)
         return
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     # and compiles in this process: no pool of compile workers to outlive it
@@ -3890,6 +4482,7 @@ def main(argv) -> None:
     gemma_b = phase_gemma_full(card)
     lm = phase_lm(card)
     zoo = phase_zoo(card)
+    zoo2 = phase_zoo2(card)
     phase_flex_yardstick(card, flash_rows)
     for row in lm["bwd_cases"]:
         if row["softcap"] is not None:
@@ -3904,7 +4497,8 @@ def main(argv) -> None:
              *fig4["full"].values(), *runtime["runs"].values(),
              runtime["checkpoint"], gemma_a, gemma_b,
              *lm["smoke"].values(), lm["full"], lm["topk"],
-             *zoo["card_vs_cpu"], *zoo["full"]]
+             *zoo["card_vs_cpu"], *zoo["full"], *zoo2["card_vs_cpu"],
+             *zoo2["full"]]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -3968,6 +4562,7 @@ def main(argv) -> None:
         "gemma_full": gemma_b,
         "lm_training": lm,
         "zoo": zoo,
+        "zoo2": zoo2,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

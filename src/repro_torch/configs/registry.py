@@ -1,13 +1,13 @@
 """Architecture registry: ``get(name)`` -> full ArchConfig, ``get_smoke(name)``
 -> the reduced same-family variant the CPU tests use.
 
-The counterpart of :mod:`repro.configs.registry` for the architectures the
-port runs: the dense-GQA models (stablelm, mistral-nemo, gemma2, phi3), the
-RG-LRU + local-attention hybrid recurrentgemma and the Mamba2 SSD model.
-The reference's other four raise ``NotImplementedError``: grok-1 (its MoE
-block) and deepseek-v3 (MoE and MLA attention) need blocks the port lacks,
-hubert (audio) and internvl2 (vision) their front ends -- and hubert's head
-dim of 80 is not one the flash kernels take.
+The counterpart of :mod:`repro.configs.registry`, with all ten of its
+architectures: the dense-GQA models (stablelm, mistral-nemo, gemma2, phi3),
+the RG-LRU + local-attention hybrid recurrentgemma, the Mamba2 SSD model,
+the MoE models grok-1 (GQA + MoE) and deepseek-v3 (MLA attention, dense
+prefix layers, MoE with a shared expert), the audio encoder hubert and the
+vision-language model internvl2 (their front ends take precomputed
+features and patch embeddings, as the reference's).
 """
 from __future__ import annotations
 
@@ -27,9 +27,8 @@ ARCH_IDS = [
     "hubert_xlarge",
 ]
 
-#: the ones ported so far
-PORTED = ["stablelm_1_6b", "mistral_nemo_12b", "gemma2_9b",
-          "phi3_medium_14b", "recurrentgemma_9b", "mamba2_130m"]
+#: the ones the port runs: all of them
+PORTED = list(ARCH_IDS)
 
 # CLI aliases with dashes
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -39,9 +38,6 @@ def _module(name: str):
     name = ALIASES.get(name, name)
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch '{name}'; known: {sorted(ALIASES)}")
-    if name not in PORTED:
-        raise NotImplementedError(f"arch '{name}' is not ported yet; "
-                                  f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

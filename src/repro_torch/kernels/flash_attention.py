@@ -30,6 +30,16 @@ backward: the reference differentiates its jnp attention).  The
 that folds the mapped (client) axis into B, so ``torch.func.vmap`` over
 ``torch.func.grad_and_value`` makes one launch of each for all clients.
 
+Head dims: the kernels are built at D = 64, 128 and 256 (``HEAD_DIMS``),
+with v as wide as q and k.  Any other head dims up to 256 -- hubert's 80,
+MLA's Dk 192 with Dv 128, the smoke configs' 24 to 40 -- run at the next
+of those widths: the wrapper zero-pads q, k and v to it
+(:func:`kernel_width`), launches with the true ``1/sqrt(Dk)`` scale and
+slices the output (and, backward, dq and dk to Dk, dv to Dv).  The zero
+columns add nothing to a logit, and the padded output and gradient
+columns are zero, so the result is the unpadded attention's; the pad costs
+its copies and the wider products.
+
 The kernel accumulates in float32 and keeps the running softmax statistics
 in float32; bfloat16 and float16 run on the tensor cores (``wgmma``, TMA
 loads, a producer warp feeding two consumer warpgroups) with the
@@ -46,7 +56,10 @@ tests hold to it.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -220,6 +233,8 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
 
 
 def _check(q, k, v, window):
+    """q (B, S, H, Dk), k (B, S, K, Dk) and v (B, S, K, Dv), one device and
+    dtype."""
     ts = (q, k, v)
     if any(not isinstance(t, torch.Tensor) for t in ts):
         raise TypeError("flash_attention takes tensors")
@@ -229,14 +244,15 @@ def _check(q, k, v, window):
     if len({t.dtype for t in ts}) != 1:
         raise ValueError(f"flash_attention: inputs of different dtypes: "
                          f"{[str(t.dtype) for t in ts]}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention takes (B, S, H, D) q and equal "
-                         f"(B, S, K, D) k, v; got {tuple(q.shape)}, "
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention takes (B, S, H, Dk) q, (B, S, K, "
+                         f"Dk) k and (B, S, K, Dv) v; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
     if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d):
-        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not "
-                         f"match q {tuple(q.shape)} in B, S or D")
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)} in B, S or Dk")
     if h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} query heads are not a "
                          f"multiple of {k.shape[2]} kv heads")
@@ -244,16 +260,39 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
 
 
+def kernel_width(dk: int, dv: int) -> int:
+    """The head dim a (Dk, Dv) attention launches at: the smallest of
+    :data:`HEAD_DIMS` that holds both.  Wider raises."""
+    for w in HEAD_DIMS:
+        if max(dk, dv) <= w:
+            return w
+    raise ValueError(f"flash_attention kernel: head dim must be at most "
+                     f"{HEAD_DIMS[-1]}, got Dk {dk}, Dv {dv}")
+
+
+def to_kernel_width(*ts):
+    """``(padded tensors, width)``: each of ``ts`` (q, k, v and, backward,
+    out and dout) with its head dim zero-padded to :func:`kernel_width` of
+    q's and v's head dims (the third tensor is v); a tensor at that width
+    already is passed on as it is.  What the launches take; on CPU tensors
+    the tests call it through the plain versions."""
+    width = kernel_width(ts[0].shape[-1], ts[2].shape[-1])
+    return tuple(t if t.shape[-1] == width
+                 else F.pad(t, (0, width - t.shape[-1])) for t in ts), width
+
+
 def _check_kernel_layout(q, k, v):
-    """What the kernel takes: float32/bfloat16/float16, D in HEAD_DIMS, the
-    head dim contiguous and every other stride and the base address at a
-    16-byte boundary.  Anything else raises: there is no fallback."""
+    """What the kernel takes: float32/bfloat16/float16, q, k and v at one
+    head dim of HEAD_DIMS, the head dim contiguous and every other stride
+    and the base address at a 16-byte boundary.  Anything else raises:
+    there is no fallback."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention kernel: dtype must be one of "
                          f"{sorted(map(str, _DTYPE_CODES))}, got {q.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
+    if q.shape[3] not in HEAD_DIMS or v.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention kernel: head dim must be one of "
-                         f"{HEAD_DIMS}, got {q.shape[3]}")
+                         f"{HEAD_DIMS} for q, k and v, got {q.shape[3]}, "
+                         f"{v.shape[3]}")
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(st % per16 for st in t.stride()[:3]) \
@@ -263,38 +302,42 @@ def _check_kernel_layout(q, k, v):
                 f"and 16-byte aligned rows; got strides {t.stride()}")
 
 
-def _grouped_logits(q, k, causal, window, softcap, f):
+def _grouped_logits(q, k, causal, window, softcap, f, scale=None):
     """The logits in ``f`` on the grouped layout: q (B, S, H, D) as
     (B, S, K, H/K, D) against k (B, S, K, D) -> (B, K, H/K, S, S), after
-    the scale and the softcap; with the mask (or None)."""
+    the scale (default ``1/sqrt(D)``) and the softcap; with the mask (or
+    None)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     qg = q.to(f).reshape(b, s, kh, h // kh, d)
-    r = torch.einsum("bskrd,btkd->bkrst", qg, k.to(f)) / (d ** 0.5)
+    r = torch.einsum("bskrd,btkd->bkrst", qg, k.to(f))
+    r = r * scale if scale is not None else r / (d ** 0.5)
     x = softcap * torch.tanh(r / softcap) if softcap is not None else r
     return x, _mask(s, causal, window, q.device)
 
 
-def lse_plain(q, k, *, causal=True, window=None, softcap=None):
+def lse_plain(q, k, *, causal=True, window=None, softcap=None, scale=None):
     """Each query row's log-sum-exp of its admitted logits, ``(B, H, S)``,
     float64 for float64 inputs, else float32 (what the kernel's float32
     forward hands the backward)."""
     b, s, h, _ = q.shape
     f = torch.float64 if q.dtype == torch.float64 else torch.float32
-    x, mask = _grouped_logits(q, k, causal, window, softcap, f)
+    x, mask = _grouped_logits(q, k, causal, window, softcap, f, scale)
     if mask is not None:
         x = torch.where(mask, x, torch.full((), -torch.inf, device=x.device))
     return torch.logsumexp(x, dim=-1).reshape(b, h, s)
 
 
 def flash_attention_backward_plain(q, k, v, out, dout, lse=None, *,
-                                   causal=True, window=None, softcap=None):
+                                   causal=True, window=None, softcap=None,
+                                   scale=None):
     """The gradient of :func:`flash_attention_bshd` in PyTorch: ``(dq, dk,
-    dv)`` of ``(B, S, H, D)`` queries and ``(B, S, K, D)`` keys and values,
-    given the output ``out``, its gradient ``dout`` and the rows'
-    log-sum-exp ``lse`` (``(B, H, S)``; computed here when None).  With
-    ``x`` the scaled, softcapped logits, ``p = exp(x - lse)`` where the mask
-    admits the pair (else 0)::
+    dv)`` of ``(B, S, H, Dk)`` queries, ``(B, S, K, Dk)`` keys and ``(B, S,
+    K, Dv)`` values, given the output ``out``, its gradient ``dout`` and the
+    rows' log-sum-exp ``lse`` (``(B, H, S)``; computed here when None).
+    With ``x`` the logits scaled by ``scale`` (default ``1/sqrt(Dk)``) and
+    softcapped, ``p = exp(x - lse)`` where the mask admits the pair (else
+    0)::
 
         dv = p^T dout,  dp = dout v^T,  ds = p (dp - rowsum(dout * out)),
         dr = ds (1 - (x / softcap)^2),  dq = scale dr k,  dk = scale dr^T q
@@ -303,25 +346,26 @@ def flash_attention_backward_plain(q, k, v, out, dout, lse=None, *,
     float64 for float64 inputs, else in float32; returns the inputs'
     dtypes."""
     b, s, h, d = q.shape
-    kh = k.shape[2]
+    kh, dv = k.shape[2], v.shape[3]
     rep = h // kh
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
     f = torch.float64 if q.dtype == torch.float64 else torch.float32
-    x, mask = _grouped_logits(q, k, causal, window, softcap, f)
+    x, mask = _grouped_logits(q, k, causal, window, softcap, f, scale)
     if lse is None:
-        lse = lse_plain(q, k, causal=causal, window=window, softcap=softcap)
+        lse = lse_plain(q, k, causal=causal, window=window, softcap=softcap,
+                        scale=scale)
     p = torch.exp(x - lse.to(f).reshape(b, kh, rep, s)[..., None])
     if mask is not None:
         p = torch.where(mask, p, torch.zeros((), dtype=f, device=p.device))
     qg = q.to(f).reshape(b, s, kh, rep, d)
-    og = out.to(f).reshape(b, s, kh, rep, d)
-    dog = dout.to(f).reshape(b, s, kh, rep, d)
+    og = out.to(f).reshape(b, s, kh, rep, dv)
+    dog = dout.to(f).reshape(b, s, kh, rep, dv)
     dv = torch.einsum("bkrst,bskrd->btkd", p, dog)
     dp = torch.einsum("bskrd,btkd->bkrst", dog, v.to(f))
     delta = (dog * og).sum(-1).permute(0, 2, 3, 1)  # (B, K, H/K, S)
     ds = p * (dp - delta[..., None])
     if softcap is not None:
         ds = ds * (1 - (x / softcap) ** 2)
-    scale = 1.0 / (d ** 0.5)
     dq = torch.einsum("bkrst,btkd->bskrd", ds, k.to(f)) * scale
     dk = torch.einsum("bkrst,bskrd->btkd", ds, qg) * scale
     return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
@@ -330,18 +374,21 @@ def flash_attention_backward_plain(q, k, v, out, dout, lse=None, *,
 
 def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None,
                          with_lse=False):
-    """Attention of ``(B, S, H, D)`` queries over ``(B, S, K, D)`` keys and
-    values; returns ``(B, S, H, D)`` in the input dtype, and with
-    ``with_lse`` also the rows' log-sum-exp ``(B, H, S)`` float32 (float32
-    inputs only: the tensor-core kernel writes none).
+    """Attention of ``(B, S, H, Dk)`` queries over ``(B, S, K, Dk)`` keys and
+    ``(B, S, K, Dv)`` values, scaled by ``1/sqrt(Dk)``; returns ``(B, S, H,
+    Dv)`` in the input dtype, and with ``with_lse`` also the rows'
+    log-sum-exp ``(B, H, S)`` float32 (float32 inputs only: the tensor-core
+    kernel writes none).
 
     CPU tensors take :func:`flash_attention_plain` after repeating the kv
     heads (and :func:`lse_plain`).  CUDA tensors launch the kernel (counted
-    in ``flash_attention_bshd.launches``) or raise; nothing falls back.
+    in ``flash_attention_bshd.launches``), at :func:`kernel_width` when the
+    head dims are not one of its own, or raise; nothing falls back.
     """
     _check(q, k, v, window)
-    b, s, h, d = q.shape
-    kh = k.shape[2]
+    b, s, h, dk = q.shape
+    kh, dv = k.shape[2], v.shape[3]
+    scale = 1.0 / math.sqrt(dk)
     if with_lse and q.dtype != torch.float32:
         raise NotImplementedError(
             f"flash_attention: the row log-sum-exp (the backward's input) is "
@@ -357,6 +404,7 @@ def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None,
             return out, lse_plain(q, k, causal=causal, window=window,
                                   softcap=softcap)
         return out
+    (q, k, v), d = to_kernel_width(q, k, v)
     _check_kernel_layout(q, k, v)
     lib = _build.load_library()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -368,11 +416,12 @@ def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr() if with_lse else None,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], b, s, h, kh, d, int(causal), win, 1.0 / (d ** 0.5),
+        *out.stride()[:3], b, s, h, kh, d, int(causal), win, scale,
         float(softcap) if softcap is not None else 0.0,
         errors={_ENCODE_FAILED: "cuTensorMapEncodeTiled refused an "
                                 "operand's layout"})
     flash_attention_bshd.launches += 1
+    out = out[..., :dv] if d != dv else out
     return (out, lse) if with_lse else out
 
 
@@ -388,7 +437,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     CPU tensors take :func:`flash_attention_backward_plain`.  CUDA tensors
     launch the backward kernel (``csrc/flash_attention_bwd.cu``; counted in
     ``flash_attention_bwd.launches``), float32 only, the operands made
-    contiguous and 16-byte aligned first; anything else raises.
+    contiguous and 16-byte aligned first and padded to :func:`kernel_width`
+    (dq and dk sliced back to Dk, dv to Dv); anything else raises.
     """
     _check(q, k, v, window)
     if not _build.on_card("flash_attention backward", q):
@@ -398,17 +448,17 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     if q.dtype != torch.float32:
         raise NotImplementedError(f"flash_attention backward kernel: "
                                   f"float32 only, got {q.dtype}")
-    b, s, h, d = q.shape
-    kh = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention backward kernel: head dim must "
-                         f"be one of {HEAD_DIMS}, got {d}")
-    if out.shape != q.shape or dout.shape != q.shape \
+    b, s, h, d_k = q.shape
+    kh, d_v = k.shape[2], v.shape[3]
+    scale = 1.0 / math.sqrt(d_k)
+    ov = (b, s, h, d_v)
+    if out.shape != ov or dout.shape != ov \
             or lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention backward: out {tuple(out.shape)}, "
-                         f"dout {tuple(dout.shape)} must be {tuple(q.shape)} "
+                         f"dout {tuple(dout.shape)} must be {ov} "
                          f"and lse {tuple(lse.shape)} {lse.dtype} float32 "
                          f"{(b, h, s)}")
+    (q, k, v, out, dout), d = to_kernel_width(q, k, v, out, dout)
     lib = _build.load_library()
     # contiguous, and at a 16-byte boundary: the kernels read rows with
     # 16-byte copies (a contiguous view can start anywhere in its storage)
@@ -426,9 +476,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, h, kh, d, int(causal), win,
-        1.0 / (d ** 0.5), float(softcap) if softcap is not None else 0.0)
+        scale, float(softcap) if softcap is not None else 0.0)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    if d != d_k:
+        dq, dk = dq[..., :d_k], dk[..., :d_k]
+    return dq, dk, dv[..., :d_v] if d != d_v else dv
 
 
 flash_attention_bwd.launches = 0

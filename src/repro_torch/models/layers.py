@@ -1,13 +1,14 @@
-"""Model layers: the dense-GQA, RG-LRU and Mamba2 parts of
-:mod:`repro.models.layers`.
+"""Model layers: the port of :mod:`repro.models.layers`.
 
-What the dense attention models (gemma2, stablelm, mistral-nemo, phi3), the
-hybrid recurrentgemma and the state-space mamba2 run: init helpers, RMS
-norm, rotary embedding, softcap, the gated MLPs, GQA attention with an
-optional sliding window and tanh logit softcap -- full-sequence (prefill)
-and one token against a linear or ring-buffer KV cache (decode) -- the
-RG-LRU recurrent block (Griffin) and the Mamba2 SSD block, each
-full-sequence and one token against its state cache.
+What the ten architectures run: init helpers, RMS norm, rotary embedding,
+softcap, the gated MLPs, GQA attention with an optional sliding window,
+tanh logit softcap and a bidirectional (not causal) mode -- full-sequence
+(prefill) and one token against a linear or ring-buffer KV cache (decode)
+-- MLA latent attention (deepseek-v3: materialised for the full sequence,
+absorbed against the latent cache for decode), the capacity-based top-k
+MoE block with an optional shared expert, the RG-LRU recurrent block
+(Griffin) and the Mamba2 SSD block, each full-sequence and one token
+against its state cache.
 
 Every ``init_*`` returns the params alone (the reference's logical-axis
 specs serve its sharding, which one card does not need); the draws come
@@ -16,13 +17,24 @@ at the reference's scales, so they differ from ``jax.random``'s: the tests
 carry the reference's params across through :mod:`repro_torch.interop`.
 
 Full-sequence attention on CUDA tensors always goes through the flash
-kernel (``kernels/ops.gqa_flash_attention``); on CPU tensors it keeps the
-reference's ``impl`` switch (``naive``: :func:`_sdpa`, ``blocked``:
-:func:`_blocked_sdpa`), so each formulation is held against its JAX twin.
+kernel (``kernels/ops.gqa_flash_attention``), MLA's too (Dk 192 against Dv
+128 at full width: the wrapper pads both to the kernel's 256); on CPU
+tensors it keeps the reference's ``impl`` switch (``naive``: :func:`_sdpa`,
+``blocked``: :func:`_blocked_sdpa`), so each formulation is held against
+its JAX twin.
 
-Decode writes the new token's K/V into the cache buffers in place
-(:func:`_write_slot`) instead of returning fresh copies: a functional copy
-of a multi-GB cache per token would cost more than the decode.
+Decode writes the new token's K/V (MLA: its latent and rope key) into the
+cache buffers in place (:func:`_write_slot`) instead of returning fresh
+copies: a functional copy of a multi-GB cache per token would cost more
+than the decode.
+
+The MoE's dispatch and combine are plain PyTorch, as the reference's are
+``jnp`` (no Pallas kernel), with a static capacity and no data-dependent
+shape or host sync, so ``torch.func.vmap`` over ``grad_and_value``
+composes.  The combine adds each token's K expert outputs in order k = 0..K-1
+from zero with no atomics: the reference's scatter-add order, bitwise on
+the CPU and deterministic on the card.  The expert products are
+``torch.einsum`` (batched matmuls), as the reference's.
 
 The RG-LRU and SSD recurrences are ``jnp`` in the reference (no Pallas
 kernel) and plain PyTorch on tensors here, on the card too: the linear
@@ -35,9 +47,6 @@ reference to float32 rounding, not bitwise.  ``F.softplus`` returns x
 above 20 where ``jax.nn.softplus`` is ``logaddexp(x, 0)``; the two differ
 there by at most log1p(exp(-20)) ~ 2.1e-9, below float32's spacing at 20
 (1.9e-6), so they round alike.
-
-MLA, MoE and the encoder/VLM front ends are not ported yet and raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,10 +60,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +134,7 @@ def gelu_mul(gate, up):
 
 @dataclasses.dataclass(frozen=True)
 class AttnCfg:
-    kind: str = "gqa"  # gqa | mla (not ported)
+    kind: str = "gqa"  # gqa | mla
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 64
@@ -137,6 +142,11 @@ class AttnCfg:
     window: Optional[int] = None  # sliding window size (None = full)
     logit_softcap: Optional[float] = None
     causal: bool = True
+    # MLA only:
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
     # CPU formulation (set from ArchConfig by transformer._mixer_cfg); CUDA
     # tensors always take the flash kernel
     impl: str = "naive"  # naive (S^2 logits) | blocked (query-block loop)
@@ -144,9 +154,19 @@ class AttnCfg:
 
 
 def init_attention(gen, cfg: AttnCfg, d_model: int, dtype):
+    h = cfg.num_heads
+    if cfg.kind == "mla":
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        r = cfg.kv_lora_rank
+        return {"wq": init_dense(gen, (d_model, h, qk), dtype),
+                "w_dkv": init_dense(gen, (d_model, r + cfg.qk_rope_dim),
+                                    dtype),
+                "w_uk": init_dense(gen, (r, h, cfg.qk_nope_dim), dtype),
+                "w_uv": init_dense(gen, (r, h, cfg.v_dim), dtype),
+                "wo": init_dense(gen, (h, cfg.v_dim, d_model), dtype)}
     if cfg.kind != "gqa":
-        raise _not_ported(f"{cfg.kind!r} attention")
-    hd, h, kh = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        raise ValueError(cfg.kind)
+    hd, kh = cfg.head_dim, cfg.num_kv_heads
     return {"wq": init_dense(gen, (d_model, h, hd), dtype),
             "wk": init_dense(gen, (d_model, kh, hd), dtype),
             "wv": init_dense(gen, (d_model, kh, hd), dtype),
@@ -227,28 +247,66 @@ def _qkv(p, x):
     return q, k, v
 
 
+def _attend(cfg: AttnCfg, q, k, v, causal: bool, scale: float):
+    """Full-sequence attention of q (B,S,H,Dk) over k (B,S,K,Dk), v
+    (B,S,K,Dv): the flash kernel on CUDA tensors (its scale is
+    ``1/sqrt(Dk)``, which is ``scale`` for every caller), else the
+    reference's ``impl``."""
+    if q.device.type == "cuda":
+        return ops.gqa_flash_attention(q, k, v, causal=causal,
+                                       window=cfg.window,
+                                       softcap=cfg.logit_softcap)
+    if cfg.impl == "blocked":
+        return _blocked_sdpa(q, k, v, causal=causal, window=cfg.window,
+                             cap=cfg.logit_softcap, scale=scale,
+                             block_q=cfg.block_q)
+    sq = q.shape[1]
+    mask = (causal_mask(sq, sq, window=cfg.window,
+                        device=q.device)[None, None] if causal else None)
+    return _sdpa(q, k, v, mask, scale, cfg.logit_softcap)
+
+
 def attention_train(p, cfg: AttnCfg, x, positions):
     """Full-sequence attention (training / prefill compute path)."""
-    if cfg.kind != "gqa":
-        raise _not_ported(f"{cfg.kind!r} attention")
+    if cfg.kind == "mla":
+        return _mla_train(p, cfg, x, positions)
     q, k, v = _qkv(p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    sq = x.shape[1]
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    if x.device.type == "cuda":
-        out = ops.gqa_flash_attention(q, k, v, causal=cfg.causal,
-                                      window=cfg.window,
-                                      softcap=cfg.logit_softcap)
-    elif cfg.impl == "blocked":
-        out = _blocked_sdpa(q, k, v, causal=cfg.causal, window=cfg.window,
-                            cap=cfg.logit_softcap, scale=scale,
-                            block_q=cfg.block_q)
-    else:
-        mask = (causal_mask(sq, sq, window=cfg.window,
-                            device=x.device)[None, None]
-                if cfg.causal else None)
-        out = _sdpa(q, k, v, mask, scale, cfg.logit_softcap)
+    out = _attend(cfg, q, k, v, cfg.causal, 1.0 / math.sqrt(cfg.head_dim))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mla_latent(p, cfg: AttnCfg, x, positions):
+    """The latent ``ckv`` (B,S,r) and the rotated rope key (B,S,1,rope) of
+    ``x``: what MLA's cache holds."""
+    dkv = x @ p["w_dkv"]
+    r = cfg.kv_lora_rank
+    ckv, k_rope = dkv[..., :r], dkv[..., r:]
+    return ckv, rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+
+def _mla_query(p, cfg: AttnCfg, x, positions):
+    """(q_nope (B,S,H,nope), rotated q_rope (B,S,H,rope))."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_train(p, cfg: AttnCfg, x, positions):
+    """MLA in the materialised (training / prefill) form: keys and values
+    up-projected from the latent for every head, always causal, as the
+    reference's."""
+    q_nope, q_rope = _mla_query(p, cfg, x, positions)
+    ckv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    h = cfg.num_heads
+    k = torch.cat([k_nope, k_rope.expand(k_rope.shape[0], k_rope.shape[1], h,
+                                         cfg.qk_rope_dim)], dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    out = _attend(cfg, qfull, k, v, True, scale)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -265,8 +323,8 @@ def attention_decode(p, cfg: AttnCfg, x, cache, cache_len):
     lengths (continuous batching).  The new token's K/V are written into
     ``cache``'s buffers in place; the returned dict holds those buffers.
     """
-    if cfg.kind != "gqa":
-        raise _not_ported(f"{cfg.kind!r} attention")
+    if cfg.kind == "mla":
+        return _mla_decode(p, cfg, x, cache, cache_len)
     pos = cache_len[..., None]  # (B,1) or (1,)
     q, k_new, v_new = _qkv(p, x)
     q = rope(q, pos, cfg.rope_theta)
@@ -325,21 +383,58 @@ def _sdpa_masked_flat(q, k, v, mask, scale, cap=None):
     return out.reshape(b, sq, h, dv)
 
 
+def _mla_decode(p, cfg: AttnCfg, x, cache, cache_len):
+    """Absorbed MLA decode: the cache holds the latent and the rope key
+    only; the key up-projection is absorbed into the query and the value
+    up-projection applied after the softmax, as the reference's.  Writes
+    the new token's latent and rope key in place; returns (out, cache)."""
+    pos = cache_len[..., None]
+    q_nope, q_rope = _mla_query(p, cfg, x, pos)
+    ckv_new, krope_new = _mla_latent(p, cfg, x, pos)
+    T = cache["ckv"].shape[1]
+    slot = cache_len % T
+    ckv = _write_slot(cache["ckv"], ckv_new, slot)
+    krope = _write_slot(cache["k_rope"], krope_new[:, :, 0, :], slot)
+    # absorb k_up into the query: (B,1,H,nope) x (r,H,nope) -> (B,1,H,r)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, krope)).float()
+    logits = logits * (1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim))
+    if cfg.logit_softcap is not None:
+        logits = softcap(logits, cfg.logit_softcap)
+    idx = torch.arange(T, device=x.device)
+    if cache_len.ndim:  # per-slot lengths: (B,T) mask over (B,H,S,T)
+        valid = (idx[None, :] <= cache_len[:, None])[:, None, None, :]
+    else:
+        valid = (idx <= cache_len)[None, None, None, :]
+    probs = torch.softmax(_masked(logits, valid), dim=-1).to(ckv.dtype)
+    out_lat = torch.einsum("bhst,btr->bshr", probs, ckv)  # (B,1,H,r)
+    out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"])  # (B,1,H,v)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, {"ckv": ckv, "k_rope": krope}
+
+
 def init_attn_cache(cfg: AttnCfg, batch, max_len, dtype, device=None,
                     lead=()):
-    """Zeroed k/v cache buffers for one attention layer, ``(*lead, batch,
-    T, kv_heads, head_dim)`` with T the window for a sliding window (a ring
-    buffer) and ``max_len`` otherwise."""
-    if cfg.kind != "gqa":
-        raise _not_ported(f"{cfg.kind!r} attention cache")
+    """Zeroed cache buffers for one attention layer: k/v ``(*lead, batch,
+    T, kv_heads, head_dim)``, or for MLA the latent ``ckv`` ``(*lead,
+    batch, T, kv_lora_rank)`` and ``k_rope`` ``(*lead, batch, T,
+    qk_rope_dim)``; T is the window for a sliding window (a ring buffer)
+    and ``max_len`` otherwise."""
     T = min(max_len, cfg.window) if cfg.window is not None else max_len
-    shape = tuple(lead) + (batch, T, cfg.num_kv_heads, cfg.head_dim)
+    lead = tuple(lead)
+    if cfg.kind == "mla":
+        return {"ckv": torch.zeros(lead + (batch, T, cfg.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "k_rope": torch.zeros(lead + (batch, T, cfg.qk_rope_dim),
+                                      dtype=dtype, device=device)}
+    shape = lead + (batch, T, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
-# MLPs
+# MLPs and MoE
 # ---------------------------------------------------------------------------
 
 
@@ -353,6 +448,117 @@ def mlp(p, x, act="swiglu"):
     actfn = swiglu if act == "swiglu" else gelu_mul
     h = actfn(x @ p["w_gate"], x @ p["w_up"])
     return h @ p["w_down"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 1024
+    num_shared: int = 0          # deepseek-v3 style shared expert(s)
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+
+
+def init_moe(gen, cfg: MoECfg, d_model, dtype):
+    E, F_ = cfg.num_experts, cfg.d_ff_expert
+    p = {"router": init_dense(gen, (d_model, E), dtype),
+         "w_gate": init_dense(gen, (E, d_model, F_), dtype,
+                              scale=1.0 / math.sqrt(d_model)),
+         "w_up": init_dense(gen, (E, d_model, F_), dtype,
+                            scale=1.0 / math.sqrt(d_model)),
+         "w_down": init_dense(gen, (E, F_, d_model), dtype,
+                              scale=1.0 / math.sqrt(F_))}
+    if cfg.num_shared:
+        p["shared"] = init_mlp(gen, d_model, cfg.d_ff_shared, dtype)
+    return p
+
+
+def moe_capacity(cfg: MoECfg, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens: ``max(int(T K / E cf), 1)``,
+    static."""
+    return max(int(tokens * cfg.top_k / cfg.num_experts
+                   * cfg.capacity_factor), 1)
+
+
+def moe_route(p, cfg: MoECfg, xf):
+    """The router over ``xf`` (T, d): (probs (T,E) float32, gates (T,K)
+    renormalised over the top k, expert index (T,K))."""
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    return probs, gate_vals / gate_vals.sum(-1, keepdim=True), expert_idx
+
+
+def moe_dispatch(cfg: MoECfg, xf, expert_idx):
+    """The dispatch: each (token, k) pair takes the next free slot of its
+    expert's queue in token order, a pair past the capacity C is dropped,
+    and each kept pair's row is added into its (expert, slot) --
+    ``index_put`` with ``accumulate``, out of place: a slot holds one pair,
+    the dropped ones add zeros to slot 0.  Returns (disp (E, C, d), flat
+    expert index, slot, keep), the last three per pair (T*K,)."""
+    T, d = xf.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = moe_capacity(cfg, T)
+    flat_e = expert_idx.reshape(-1)  # (T*K,)
+    onehot = (flat_e[:, None] == torch.arange(E, device=xf.device)).long()
+    pos_in_e = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    keep = (pos_in_e < C) & (pos_in_e >= 0)
+    slot = torch.where(keep, pos_in_e, torch.zeros_like(pos_in_e))
+    tok_idx = torch.arange(T, device=xf.device).repeat_interleave(K)
+    contrib = torch.where(keep[:, None], xf[tok_idx],
+                          torch.zeros((), dtype=xf.dtype, device=xf.device))
+    disp = xf.new_zeros((E, C, d)).index_put((flat_e, slot), contrib,
+                                             accumulate=True)
+    return disp, flat_e, slot, keep
+
+
+def moe_experts(p, disp, act="swiglu"):
+    """Every expert's gated MLP over its (C, d) slots: batched matmuls."""
+    actfn = swiglu if act == "swiglu" else gelu_mul
+    h = actfn(torch.einsum("ecd,edf->ecf", disp, p["w_gate"]),
+              torch.einsum("ecd,edf->ecf", disp, p["w_up"]))
+    return torch.einsum("ecf,efd->ecd", h, p["w_down"])  # (E,C,d)
+
+
+def moe_combine(eout, flat_e, slot, keep, gate_vals):
+    """The combine: each (token, k) pair's slot output gathered back (0 for
+    a dropped pair), weighted by its gate, and a token's K weighted outputs
+    added in order k = 0..K-1 from zero.  Returns (T, d)."""
+    T, K = gate_vals.shape
+    gathered = torch.where(keep[:, None], eout[flat_e, slot],
+                           torch.zeros((), dtype=eout.dtype,
+                                       device=eout.device))
+    w = gate_vals.reshape(-1)[:, None].to(gathered.dtype)
+    weighted = (gathered * w).reshape(T, K, -1)
+    out = torch.zeros_like(weighted[:, 0])
+    for k in range(K):
+        out = out + weighted[:, k]
+    return out
+
+
+def moe(p, cfg: MoECfg, x, act="swiglu"):
+    """Capacity-based top-k MoE with scatter dispatch / gather combine, as
+    the reference's: :func:`moe_route`, :func:`moe_dispatch`,
+    :func:`moe_experts`, :func:`moe_combine`, plus the shared expert.
+    Returns (out, aux_loss), aux_loss the load-balance loss ``E * sum_e
+    frac_tokens_e * mean_router_prob_e``."""
+    b, sq, d = x.shape
+    xf = x.reshape(b * sq, d)
+    probs, gate_vals, expert_idx = moe_route(p, cfg, xf)
+    disp, flat_e, slot, keep = moe_dispatch(cfg, xf, expert_idx)
+    eout = moe_experts(p, disp, act)
+    out = moe_combine(eout, flat_e, slot, keep, gate_vals)
+    out = out.reshape(b, sq, d).to(x.dtype)
+    if cfg.num_shared:
+        out = out + mlp(p["shared"], x, act)
+
+    # load-balance auxiliary loss
+    E = cfg.num_experts
+    frac = (expert_idx[..., None] == torch.arange(E, device=x.device)
+            ).float().sum(1).mean(0) / cfg.top_k
+    aux = E * torch.sum(frac * probs.mean(0))
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

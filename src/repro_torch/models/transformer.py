@@ -1,22 +1,28 @@
-"""Config-driven model stack: the serving part of
-:mod:`repro.models.transformer`.
+"""Config-driven model stack covering the reference's ten architectures:
+the port of :mod:`repro.models.transformer`.
 
 A model is a sequence of blocks, each ``norm -> mixer -> residual [-> norm
--> mlp -> residual]`` (gemma2's post-norms included).  Ported mixers:
-``attn`` (full causal GQA attention), ``local`` (sliding-window attention,
-``window = cfg.window_local``), ``rec`` (the RG-LRU block of
-recurrentgemma) and ``ssm`` (the Mamba2 SSD block), with a dense MLP or
-none (``mlp_kind="none"``: mamba2's block is its mixer).  The layer stack
-is ``prefix_blocks`` + a repeating ``block_pattern`` with its params
-stacked ``n_periods`` times (the reference's ``lax.scan`` over periods is
-a Python loop over views of the stacked params and caches here) +
-``suffix_blocks``.
+-> mlp/moe -> residual]`` (gemma2's post-norms included).  Mixers:
+``attn`` (full attention: causal or bidirectional GQA, or MLA), ``local``
+(sliding-window attention, ``window = cfg.window_local``), ``rec`` (the
+RG-LRU block of recurrentgemma) and ``ssm`` (the Mamba2 SSD block), with a
+dense MLP, the MoE block (whose load-balance loss the stack sums) or none
+(``mlp_kind="none"``: mamba2's block is its mixer).  The layer stack is
+``prefix_blocks`` (deepseek-v3's dense layers) + a repeating
+``block_pattern`` with its params stacked ``n_periods`` times (the
+reference's ``lax.scan`` over periods is a Python loop over views of the
+stacked params and caches here) + ``suffix_blocks``.
+
+Front ends, as the reference's stubs: ``audio`` (hubert) projects
+precomputed frame features (``batch["features"]``) into the model width;
+``vision`` (internvl2) projects precomputed patch embeddings
+(``batch["patches"]``) and prepends them to the embedded text tokens.
 
 Entry points: ``forward``, ``loss_fn`` and ``make_grad_fn`` (training:
-next-token cross-entropy, gradients through ``torch.func``, so ``vmap``
+next-token cross-entropy, hubert's masked prediction, internvl2's text
+loss, plus the MoE aux loss; gradients through ``torch.func``, so ``vmap``
 over clients composes), ``prefill`` (logits + cache) and ``decode_step``
-(one token against the cache, which is updated in place).  The MoE block,
-MLA and the audio and vision front ends are not ported yet.
+(one token against the cache, which is updated in place).
 
 On the card, attention's forward and backward are the flash kernels
 (``kernels/flash_attention.py``); the loss and its gradient run with TF32
@@ -40,10 +46,10 @@ from repro_torch.utils import tree as tu
 class ArchConfig:
     """The reference's ``ArchConfig``, its long-context fields
     (``long_mode``, ``long_window``, :meth:`long_context_variant`)
-    included.  Not yet here: ``moe``, ``causal`` and ``frontend_dim``
-    (their blocks and front ends are not ported), ``fed_plan`` (a mesh
-    sharding tag that only the reference's TPU dry run reads) and
-    ``scan_unroll`` (an XLA cost-probe switch).
+    included.  Not here: ``fed_plan`` (a mesh sharding tag that only the
+    reference's TPU dry run reads) and ``scan_unroll`` (an XLA cost-probe
+    switch).  ``causal`` is carried as the reference's, which reads the
+    attention config's own flag (``attn.causal``) and not this one.
 
     ``remat`` is accepted and not honoured: ``torch.utils.checkpoint``
     rests on saved-tensor hooks, which ``torch.func.grad`` (the per-client
@@ -57,6 +63,7 @@ class ArchConfig:
     d_ff: int
     vocab: int
     attn: Optional[L.AttnCfg] = None
+    moe: Optional[L.MoECfg] = None
     ssm: Optional[L.SSMCfg] = None
     rglru: Optional[L.RGLRUCfg] = None
     block_pattern: tuple = ("attn",)
@@ -65,12 +72,14 @@ class ArchConfig:
     mlp_kind: str = "dense"  # mlp of the pattern: dense | moe | none
     prefix_mlp_kind: str = "dense"
     act: str = "swiglu"
+    causal: bool = True
     tie_embeddings: bool = True
     scale_embed: bool = False  # gemma convention: embed * sqrt(d)
     final_softcap: Optional[float] = None
     post_norm: bool = False  # gemma2: extra norm after mixer/mlp outputs
     window_local: Optional[int] = None
-    frontend: Optional[str] = None  # None | "audio" | "vision" (not ported)
+    frontend: Optional[str] = None  # None | "audio" | "vision"
+    frontend_dim: int = 0
     param_dtype: torch.dtype = torch.bfloat16
     norm_eps: float = 1e-6
     attn_impl: str = "naive"  # CPU formulation: naive | blocked
@@ -131,14 +140,7 @@ def _mixer_cfg(cfg: ArchConfig, kind: str):
     raise ValueError(kind)
 
 
-def _check_mlp(mlp_kind: str):
-    if mlp_kind == "moe":
-        raise L._not_ported("the MoE block")
-
-
 def init_block(gen, cfg: ArchConfig, kind: str, mlp_kind: str):
-    _check_mlp(mlp_kind)
-
     def norm():
         return L.init_norm(cfg.d_model, torch.float32, gen.device)
 
@@ -152,6 +154,9 @@ def init_block(gen, cfg: ArchConfig, kind: str, mlp_kind: str):
     if mlp_kind == "dense":
         p["norm2"] = norm()
         p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+    elif mlp_kind == "moe":
+        p["norm2"] = norm()
+        p["moe"] = L.init_moe(gen, cfg.moe, cfg.d_model, cfg.param_dtype)
     if cfg.post_norm and mlp_kind != "none":
         p["post_norm2"] = norm()
     return p
@@ -161,7 +166,6 @@ def apply_block(p, cfg: ArchConfig, kind: str, mlp_kind: str, x, positions,
                 mode: str, cache, cache_len):
     """Returns (x, cache, aux_loss); in decode and prefill mode ``cache``'s
     buffers are written in place."""
-    _check_mlp(mlp_kind)
     mcfg = _mixer_cfg(cfg, kind)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = cache
@@ -186,13 +190,17 @@ def apply_block(p, cfg: ArchConfig, kind: str, mlp_kind: str, x, positions,
     if cfg.post_norm:
         y = L.rms_norm(y, p["post_norm1"], cfg.norm_eps)
     x = x + y
+    aux = 0.0
     if mlp_kind != "none":
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        y = L.mlp(p["mlp"], h, cfg.act)
+        if mlp_kind == "dense":
+            y = L.mlp(p["mlp"], h, cfg.act)
+        else:
+            y, aux = L.moe(p["moe"], cfg.moe, h, cfg.act)
         if cfg.post_norm:
             y = L.rms_norm(y, p["post_norm2"], cfg.norm_eps)
         x = x + y
-    return x, new_cache, 0.0
+    return x, new_cache, aux
 
 
 # --- prefill cache fillers ---------------------------------------------------
@@ -216,7 +224,15 @@ def _ring_scatter(full, T):
 
 
 def _fill_attn_cache(p, mcfg: L.AttnCfg, h, positions, cache):
-    """The prompt's K/V written into ``cache``'s buffers in place."""
+    """The prompt's K/V (MLA: its latent and rope key) written into
+    ``cache``'s buffers in place."""
+    if mcfg.kind == "mla":
+        ckv, k_rope = L._mla_latent(p, mcfg, h, positions)
+        T = cache["ckv"].shape[1]
+        cache["ckv"].copy_(_ring_scatter(ckv.to(cache["ckv"].dtype), T))
+        cache["k_rope"].copy_(_ring_scatter(
+            k_rope[:, :, 0].to(cache["k_rope"].dtype), T))
+        return cache
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     k = L.rope(k, positions, mcfg.rope_theta)
@@ -267,20 +283,18 @@ def _block_sequence(cfg: ArchConfig):
     return prefix, pattern, suffix
 
 
-def _check_frontend(cfg: ArchConfig):
-    if cfg.frontend is not None:
-        raise L._not_ported(f"the {cfg.frontend!r} front end")
-
-
 def init_model(gen: torch.Generator, cfg: ArchConfig):
     """Seeded random params on ``gen``'s device, in the reference's layout
     (``embed``, ``prefix``/``suffix`` block lists, the ``stack`` of
     ``n_periods`` periods on a leading axis, ``final_norm``, ``unembed``
-    when untied).  The stacked periods are filled in place one period at a
-    time, so the peak is the model plus one period."""
-    _check_frontend(cfg)
+    when untied, ``frontend_proj`` with a front end).  The stacked periods
+    are filled in place one period at a time, so the peak is the model plus
+    one period."""
     prefix, pattern, suffix = _block_sequence(cfg)
     p = {"embed": L.init_embed(gen, cfg.vocab, cfg.d_model, cfg.param_dtype)}
+    if cfg.frontend is not None:
+        p["frontend_proj"] = L.init_dense(gen, (cfg.frontend_dim,
+                                                cfg.d_model), cfg.param_dtype)
     for name, blocks in (("prefix", prefix), ("suffix", suffix)):
         if blocks:
             p[name] = [init_block(gen, cfg, kind, mk) for kind, mk in blocks]
@@ -304,8 +318,8 @@ def init_model(gen: torch.Generator, cfg: ArchConfig):
     return p
 
 
-def _embed(p, cfg: ArchConfig, tokens):
-    x = p["embed"][tokens]
+def _scaled(cfg: ArchConfig, x):
+    """``x`` times sqrt(d_model) under ``scale_embed`` (gemma)."""
     if cfg.scale_embed:
         # sqrt(d) rounded to the embedding's dtype first, as the reference's
         # jnp.asarray(sqrt(d), x.dtype); a Python scalar, so no host-device
@@ -315,10 +329,23 @@ def _embed(p, cfg: ArchConfig, tokens):
     return x
 
 
+def _embed(p, cfg: ArchConfig, tokens):
+    return _scaled(cfg, p["embed"][tokens])
+
+
 def _embed_inputs(p, cfg: ArchConfig, batch):
-    """Returns (x (B,S,d), positions (1,S))."""
-    _check_frontend(cfg)
-    x = _embed(p, cfg, batch["tokens"])
+    """Returns (x (B,S,d), positions (1,S)): the tokens' embeddings, or the
+    front end's -- audio: the projected ``features`` (B,T,frontend_dim);
+    vision: the projected ``patches`` (B,S_img,frontend_dim) followed by
+    the embedded ``tokens``."""
+    if cfg.frontend == "audio":
+        x = batch["features"].to(cfg.param_dtype) @ p["frontend_proj"]
+    elif cfg.frontend == "vision":
+        img = batch["patches"].to(cfg.param_dtype) @ p["frontend_proj"]
+        x = torch.cat([img, p["embed"][batch["tokens"]]], dim=1)
+    else:
+        x = p["embed"][batch["tokens"]]
+    x = _scaled(cfg, x)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     return x, positions
 
@@ -390,20 +417,34 @@ def forward(p, cfg: ArchConfig, batch, mode="train", caches=None,
 # --- losses ------------------------------------------------------------------
 
 
-def _ce(logits, targets):
+def _ce(logits, targets, mask=None):
+    """Mean cross-entropy; with a float ``mask``, ``sum(nll * mask) /
+    max(sum(mask), 1)``."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.mean(torch.gather(logp, -1, targets.long()[..., None]))
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def loss_fn(p, cfg: ArchConfig, batch):
-    """The composite-FL smooth part f_i: next-token cross-entropy over
-    ``batch["tokens"]`` (B, S) plus ``aux_loss_coef`` times the blocks' aux
-    loss (0 for every block ported: no MoE yet).  The non-smooth
-    regularizer g is the federated algorithm's prox, not part of it.  The
-    reference's audio and vision branches raise with their front ends."""
+    """The composite-FL smooth part f_i: the cross-entropy plus
+    ``aux_loss_coef`` times the MoE blocks' load-balance loss (summed over
+    the layers; 0 without MoE).  The cross-entropy is next-token over
+    ``batch["tokens"]`` (B, S); for the audio front end, the prediction of
+    ``batch["targets"]`` at the frames ``batch["mask"]`` marks (every frame
+    without a mask); for the vision front end, next-token over the text
+    positions only.  The non-smooth regularizer g is the federated
+    algorithm's prox, not part of it."""
     with full_fp32():
         logits, _, aux = forward(p, cfg, batch, mode="train")
-        loss = _ce(logits[:, :-1], batch["tokens"][:, 1:])
+        if cfg.frontend == "audio":
+            loss = _ce(logits, batch["targets"], batch.get("mask"))
+        elif cfg.frontend == "vision":
+            s_img = batch["patches"].shape[1]
+            loss = _ce(logits[:, s_img:-1], batch["tokens"][:, 1:])
+        else:
+            loss = _ce(logits[:, :-1], batch["tokens"][:, 1:])
     return loss + cfg.aux_loss_coef * aux
 
 
@@ -451,8 +492,15 @@ def prefill(p, cfg: ArchConfig, batch, max_len=None, last_only=False):
     """Forward over the prompt; returns (logits, caches, cache_len).
 
     ``last_only`` emits logits for the final position only (what a serving
-    engine samples from)."""
-    B, S = batch["tokens"].shape
+    engine samples from).  The prompt's length S counts the image patches
+    of a vision batch and the frames of an audio one."""
+    if cfg.frontend == "audio":
+        B, S = batch["features"].shape[:2]
+    elif cfg.frontend == "vision":
+        B = batch["tokens"].shape[0]
+        S = batch["patches"].shape[1] + batch["tokens"].shape[1]
+    else:
+        B, S = batch["tokens"].shape
     caches = init_cache(cfg, B, max_len or S, device_of(p))
     logits, new_caches, _ = forward(p, cfg, batch, mode="prefill",
                                     caches=caches, cache_len=None,
@@ -472,3 +520,18 @@ def decode_step(p, cfg: ArchConfig, caches, token, cache_len):
 
 def count_params(params) -> int:
     return sum(int(x.numel()) for x in tu.tree_leaves(params))
+
+
+def active_param_fraction(cfg: ArchConfig) -> float:
+    """Fraction of MoE expert params active per token (for 6*N_active*D),
+    the reference's per-layer approximation."""
+    if cfg.moe is None:
+        return 1.0
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    expert_p = 3 * cfg.d_model * cfg.moe.d_ff_expert  # per expert
+    attn_p = 4 * cfg.d_model * cfg.d_model if cfg.attn else 0
+    shared = (3 * cfg.d_model * cfg.moe.d_ff_shared) if cfg.moe.num_shared \
+        else 0
+    per_layer_total = attn_p + E * expert_p + shared
+    per_layer_active = attn_p + K * expert_p + shared
+    return per_layer_active / max(per_layer_total, 1)

@@ -20,6 +20,13 @@ Algorithm 1).  Two decode surfaces:
 The reference's ``generate_loop`` (its per-token baseline for the jitted
 scan) is not ported: here :meth:`ServingEngine.generate` is that loop.
 
+A vision model's prompts carry their image patches: :meth:`generate` takes
+them as ``extra_inputs`` (``{"patches": (B, S_img, frontend_dim)}``), as
+the reference's.  :meth:`serve` takes token prompts alone, as the
+reference's, so it refuses a model with a front end (where the reference
+would fail on the missing key); an encoder-only model (hubert) has no
+decode step and the engine refuses it at construction.
+
 Prefill runs the prompt through the flash-attention kernel on the card
 (``kernels/ops.gqa_flash_attention``: every attention layer, one launch
 each).  Caches are written in place: decode steps write their slot, and a
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.interop import params_to_torch
 from repro_torch.models import transformer as T
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as _trace
@@ -167,31 +175,41 @@ class ServingEngine:
 
     # -- one-shot batched generation --------------------------------------
 
-    def _tokens(self, prompts) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(prompts, np.int32),
-                               device=self.device)
+    def _batch(self, prompts, extra_inputs=None) -> dict:
+        """The prefill batch: the prompts' tokens (int32) and
+        ``extra_inputs`` (arrays or tensors; bfloat16 numpy arrays bitwise)
+        on the engine's device."""
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                           device=self.device)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = (v.to(self.device) if isinstance(v, torch.Tensor)
+                        else params_to_torch(v, self.device))
+        return batch
 
-    def _prefill(self, params, tokens):
+    def _prefill(self, params, batch):
         # last_only: only the final position is sampled from, and the norm
         # and unembed act per position, so its logits are those of the full
         # prefill's last position without the (B, S, vocab) float32 logits
         # (4.7 GB at S = 4,608 for gemma2-9b); the reference engine
         # prefills in full and samples logits[:, -1]
-        return T.prefill(params, self.cfg, {"tokens": tokens},
-                         max_len=self.max_len, last_only=True)
+        return T.prefill(params, self.cfg, batch, max_len=self.max_len,
+                         last_only=True)
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
+                 extra_inputs: Optional[dict] = None,
                  draws=None) -> GenerationResult:
-        """prompts: (B, S) int32.  The decode is one segment; a single host
-        sync at the end.  ``draws``: the Gumbel draw source for
-        ``temperature > 0`` (default: seeded with ``seed``)."""
+        """prompts: (B, S) int32.  ``extra_inputs`` carries VLM patches
+        etc.  The decode is one segment; a single host sync at the end.
+        ``draws``: the Gumbel draw source for ``temperature > 0`` (default:
+        seeded with ``seed``)."""
         params = self.refresh()
-        tokens = self._tokens(prompts)
+        batch = self._batch(prompts, extra_inputs)
         if draws is None and temperature > 0.0:
             draws = _default_draws(seed)
-        with _trace.span("serve/prefill", "serve", batch=int(tokens.shape[0])):
-            logits, caches, cache_len = self._prefill(params, tokens)
+        with _trace.span("serve/prefill", "serve",
+                         batch=int(batch["tokens"].shape[0])):
+            logits, caches, cache_len = self._prefill(params, batch)
         tok = self._sample(logits[:, -1], temperature, draws)
         with _trace.span("serve/decode_scan", "serve",
                          steps=int(max_new_tokens)):
@@ -222,6 +240,11 @@ class ServingEngine:
         """
         if slots < 1 or segment < 1:
             raise ValueError("slots and segment must be >= 1")
+        if self.cfg.frontend is not None:
+            raise ValueError(
+                f"{self.cfg.name}: serve takes token prompts only, and its "
+                f"{self.cfg.frontend} front end needs its inputs with each "
+                f"prompt: use generate(..., extra_inputs=...)")
         if draws_for is None:
             draws_for = lambda rid: _default_draws(seed + rid)  # noqa: E731
         params = self.refresh()
@@ -243,8 +266,8 @@ class ServingEngine:
                                  request=req.id,
                                  prompt_len=int(np.size(req.prompt))):
                     draws = draws_for(req.id) if temperature > 0.0 else None
-                    prompt = self._tokens(req.prompt)[None, :]
-                    logits, c1, cl1 = self._prefill(params, prompt)
+                    logits, c1, cl1 = self._prefill(
+                        params, self._batch(np.asarray(req.prompt)[None, :]))
                     first = self._sample(logits[:, -1], temperature, draws)
                     _splice_caches(caches, c1, j)
                     del c1

@@ -587,7 +587,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention.flash_attention_bshd(q, q, q)
-    q = torch.zeros(1, 16, 2, 96, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 16, 2, 320, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention_bshd(q, q, q)
     base = torch.zeros(1, 16, 2, 65, device=cuda, dtype=torch.bfloat16)
@@ -932,7 +932,7 @@ def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
     lse = torch.zeros(1, 2, 16, device=cuda)
     with pytest.raises(NotImplementedError, match="float32"):
         flash_attention.flash_attention_bwd(q, q, q, q, q, lse)
-    q = torch.zeros(1, 16, 2, 96, device=cuda)
+    q = torch.zeros(1, 16, 2, 320, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention_bwd(q, q, q, q, q, lse)
     q = torch.zeros(1, 16, 2, 64, device=cuda)
@@ -1012,3 +1012,150 @@ def test_lm_rounds_on_card_match_the_cpu(cuda):
     xmax = max(float(x.abs().max()) for x in res["cpu"][1])
     for a, b in zip(*(res[d][1] for d in ("cuda", "cpu"))):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * xmax
+
+
+# -- kernels 5 and 5b at the head dims the kernels are not built at -------------
+# hubert's 80 (bidirectional), MLA's Dk 192 with Dv 128 (causal), the smoke
+# configs' 24 / 16 and 40: the wrapper pads q, k and v to the next kernel
+# width (128, 256, 64) with the true 1/sqrt(Dk) scale and slices the output
+# and gradients back.  One launch a call, and the tolerances of the kernel's
+# own head dims.
+_NEW_DIMS = [(80, 80, 4, 2, False), (80, 80, 4, 4, True),
+             (192, 128, 4, 4, True), (24, 16, 4, 4, True),
+             (40, 40, 4, 2, True)]
+
+
+def _new_dim_inputs(cuda, s, h, kh, dk, dv, dtype, sd, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [(torch.randn((2, s, n, d), generator=gen, device=cuda) * f)
+            .to(dtype) for n, d, f in ((h, dk, sd), (kh, dk, sd), (kh, dv, 1.0))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("s", [129, 200])
+@pytest.mark.parametrize("dk,dv,h,kh,causal", _NEW_DIMS)
+def test_flash_kernel_at_new_head_dims_matches_plain_on_card(
+        cuda, dtype, s, dk, dv, h, kh, causal):
+    """The reference's check (inputs x 0.5, max abs error) and the sharp one
+    (logits of std 16, each row against its own size, a softcap of 20 that
+    bends them), with the causal flag flipped as the control."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _new_dim_inputs(cuda, s, h, kh, dk, dv, dtype, 0.5, s + dk)
+    kw = dict(causal=causal)
+    before = flash_attention.flash_attention_bshd.launches
+    got = flash_attention.flash_attention_bshd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, s, h, dv)
+    exp = _flash_plain(q, k, v, **kw)
+    assert float((got.float() - exp.float()).abs().max()) <= _FLASH_TOL[dtype]
+    q, k, v = _new_dim_inputs(cuda, s, h, kh, dk, dv, dtype, 4.0, s + dk + 1)
+    kw = dict(causal=causal, softcap=20.0)
+    got = flash_attention.flash_attention_bshd(q, k, v, **kw)
+    q, k, v = q.float(), k.float(), v.float()
+    exp = _flash_plain(q, k, v, **kw)
+    assert _row_rel_err(got, exp) <= _ROW_TOL[dtype]
+    for ckw in (dict(kw, causal=not causal), dict(kw, softcap=None)):
+        diff = _row_rel_err(_flash_plain(q, k, v, **ckw), exp)
+        assert diff >= 10 * _ROW_TOL[dtype], (ckw, diff)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dk,dv,h,kh,causal,window", [
+    c + (w,) for c in _NEW_DIMS for w in ((None, 63, 64, 65) if c[-1]
+                                          else (None,))])
+def test_flash_f32_kernels_at_new_head_dims_on_card(cuda, dk, dv, h, kh,
+                                                    causal, window):
+    """Kernel 5 in float32 with the row log-sum-exp and kernel 5b at a
+    ragged S of 200, windows at the 64-key tile edges (causal only),
+    against the plain versions in float64; one launch of each."""
+    gen = torch.Generator(device=cuda).manual_seed(dk + (window or 0))
+    q, k, v = (torch.randn((2, 200, n, d), generator=gen, device=cuda) * f
+               for n, d, f in ((h, dk, 2.0), (kh, dk, 2.0), (kh, dv, 1.0)))
+    kw = dict(causal=causal, window=window, softcap=30.0)
+    before = (flash_attention.flash_attention_bshd.launches,
+              flash_attention.flash_attention_bwd.launches)
+    out, lse = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
+                                                    **kw)
+    f64 = [t.double() for t in (q, k, v)]
+    assert _row_rel_err(out, _flash_plain(*f64, **kw)) <= _ROW_TOL[
+        torch.float32]
+    exp_lse = flash_attention.lse_plain(*f64[:2], **kw)
+    assert float((lse.double() - exp_lse).abs().max()
+                 / exp_lse.abs().max()) <= _LSE_RTOL
+    do = torch.randn(out.shape, generator=gen, device=cuda)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_bshd.launches,
+            flash_attention.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape) for t in
+                                             (q, k, v)]
+    exp = flash_attention.flash_attention_backward_plain(
+        *f64, out.double(), do.double(), **kw)
+    assert _bwd_rel(got, exp) <= _BWD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dk,dv", [(80, 80), (192, 128)])
+def test_flash_f32_kernels_at_new_head_dims_are_deterministic(cuda, dk, dv):
+    gen = torch.Generator(device=cuda).manual_seed(dk)
+    q, k, v = (torch.randn((2, 333, n, d), generator=gen, device=cuda)
+               for n, d in ((8, dk), (2, dk), (2, dv)))
+    kw = dict(causal=True, window=100, softcap=30.0)
+    first = flash_attention.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    second = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
+                                                  **kw)
+    assert all(_bits_equal(x.contiguous(), y.contiguous())
+               for x, y in zip(first, second))
+    do = torch.randn(first[0].shape, generator=gen, device=cuda)
+    grads = [flash_attention.flash_attention_bwd(q, k, v, first[0], do,
+                                                 first[1], **kw)
+             for _ in range(2)]
+    assert all(_bits_equal(x.contiguous(), y.contiguous())
+               for x, y in zip(*grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "internvl2_26b",
+                                  "grok_1_314b", "deepseek_v3_671b"])
+def test_zoo_smoke_models_on_card_match_the_cpu(cuda, arch):
+    """The four smoke configs at their own head dims (32; MLA 24 / 16) in
+    float32: the card's prefill logits (hubert: the encoder's, every
+    frame) within 1e-4 x max |logit| of the CPU port's, one launch of
+    kernel 5 per attention layer; then one vmapped gradient over two
+    clients, kernel 5b once per attention layer, the loss at rtol 1e-5."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.device import full_fp32
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree as tu
+
+    cfg = registry.get_smoke(arch).with_overrides(param_dtype=torch.float32)
+    params = T.init_model(torch.Generator().manual_seed(0), cfg)
+    n_attn = cfg.n_layers
+    batch = specs.example(cfg, 2, 40, seed=1, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = tu.tree_map(lambda x: x.to(device), params)
+        b = tu.tree_map(lambda x: x.to(device), batch)
+        before = flash_attention.flash_attention_bshd.launches
+        with full_fp32():
+            logits, _, _ = T.prefill(p, cfg, b)
+        moved = flash_attention.flash_attention_bshd.launches - before
+        assert moved == (n_attn if device == "cuda" else 0)
+        two = tu.tree_map(lambda x: torch.stack([x, x.flip(0)]), b)
+        before = flash_attention.flash_attention_bwd.launches
+        loss, _ = torch.func.vmap(T.make_grad_fn(cfg), in_dims=(None, 0))(
+            p, two)
+        moved = flash_attention.flash_attention_bwd.launches - before
+        assert moved == (n_attn if device == "cuda" else 0)
+        out[device] = (logits.float().cpu(), loss.cpu())
+    tol = 1e-4 * float(out["cpu"][0].abs().max())
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= tol
+    np.testing.assert_allclose(out["cuda"][1].numpy(), out["cpu"][1].numpy(),
+                               rtol=1e-5)

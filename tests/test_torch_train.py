@@ -4,7 +4,11 @@ DProx round, the round engine over the token streams, and the trainer's
 command line (``python -m repro_torch.launch.train``).
 
 Params come from the reference's ``init_model`` (float32) through
-:mod:`repro_torch.interop`; tokens from numpy.  Attention takes the
+:mod:`repro_torch.interop`; tokens from numpy, and for the audio and
+vision front ends (hubert, internvl2) the reference's
+``specs._example`` batches (features, targets and mask; patches and
+tokens), carried across bitwise.  Every arch of ``registry.PORTED`` (all
+ten) takes the loss, gradient and DProx-round checks.  Attention takes the
 reference's CPU formulations (``naive`` and ``blocked``).  Tolerances:
 
   * token streams: bitwise (the same numpy code);
@@ -42,6 +46,7 @@ from repro.exec import ArraySupplier as JArraySupplier
 from repro.exec import EngineConfig as JEngineConfig
 from repro.exec import RoundEngine as JRoundEngine
 from repro.fed.simulator import DProxAlgorithm as JDProxAlgorithm
+from repro.launch import specs as jspecs
 from repro.models import transformer as JT
 from repro_torch import interop
 from repro_torch.checkpoint import ckpt
@@ -148,17 +153,39 @@ def _tokens(vocab, b=2, s=32, seed=0):
                                                 dtype=np.int32)
 
 
+def _np_batch(cfg, shape=(2, 32), seed=0):
+    """A numpy batch of ``shape`` = (*lead, b, s) for ``cfg``: token ids, or
+    for a front end the reference's ``specs._example`` (features, targets
+    and mask; patches and tokens) drawn over ``prod(lead) * b`` rows and
+    split over the leading axes."""
+    *lead, b, s = shape
+    rng = np.random.default_rng(seed)
+    if cfg.frontend is None:
+        return {"tokens": rng.integers(0, cfg.vocab, shape, dtype=np.int32)}
+    n = int(np.prod(lead, dtype=int)) * b
+    with jax.enable_x64(False):
+        ex = jspecs._example(cfg, n, s, False, rng)
+    return {k: np.asarray(v).reshape(tuple(lead) + (b,) + v.shape[1:])
+            for k, v in ex.items()}
+
+
+def _both(batch):
+    """(the reference's batch, the port's): the same numbers, bf16
+    bitwise."""
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            interop.params_to_torch(batch, "cpu"))
+
+
 @pytest.mark.parametrize("impl", ["naive", "blocked"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_jax_value_and_grad(lms, arch, impl):
     jcfg, jp, cfg, tp = lms[arch]
     jcfg = jcfg.with_overrides(attn_impl=impl, attn_block_q=8)
     cfg = cfg.with_overrides(attn_impl=impl, attn_block_q=8)
-    toks = _tokens(cfg.vocab)
+    jbatch, batch = _both(_np_batch(jcfg))
     with jax.enable_x64(False):
         jl, jg = jax.value_and_grad(lambda p, b: JT.loss_fn(p, jcfg, b))(
-            jp, {"tokens": jnp.asarray(toks)})
-    batch = {"tokens": torch.as_tensor(toks)}
+            jp, jbatch)
     loss, grads = T.make_grad_fn(cfg)(tp, batch)
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     np.testing.assert_allclose(float(T.loss_fn(tp, cfg, batch)), float(jl),
@@ -185,11 +212,17 @@ def test_training_fields_are_the_references():
 
 
 @pytest.mark.parametrize("frontend", ["audio", "vision"])
-def test_front_end_losses_raise(frontend):
-    cfg = registry.get_smoke("stablelm_1_6b").with_overrides(
-        frontend=frontend)
-    with pytest.raises(NotImplementedError, match="front end"):
-        T.loss_fn({}, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+def test_front_end_losses_raise(lms, frontend):
+    """A front end's loss raises on a batch of tokens alone, missing its
+    features (audio) or patches (vision), in both packages."""
+    arch, key = {"audio": ("hubert_xlarge", "features"),
+                 "vision": ("internvl2_26b", "patches")}[frontend]
+    jcfg, jp, cfg, tp = lms[arch]
+    toks = _tokens(cfg.vocab, 1, 4)
+    with pytest.raises(KeyError, match=key):
+        T.loss_fn(tp, cfg, {"tokens": torch.as_tensor(toks)})
+    with pytest.raises(KeyError, match=key), jax.enable_x64(False):
+        JT.loss_fn(jp, jcfg, {"tokens": jnp.asarray(toks)})
 
 
 def test_grads_of_a_client_batch_need_no_copy_before_the_fused_update(lms):
@@ -197,10 +230,10 @@ def test_grads_of_a_client_batch_need_no_copy_before_the_fused_update(lms):
     is contiguous on every ported arch: no copy is made before the fused
     update (``fused_local_update_2d.copies``)."""
     for arch in ARCHS:
-        _, _, cfg, tp = lms[arch]
-        toks = np.stack([_tokens(cfg.vocab, seed=i) for i in range(2)])
+        jcfg, _, cfg, tp = lms[arch]
+        _, batch = _both(_np_batch(jcfg, (2, 2, 32)))
         _, grads = torch.func.vmap(T.make_grad_fn(cfg), in_dims=(None, 0))(
-            tp, {"tokens": torch.as_tensor(toks)})
+            tp, batch)
         z = tu.tree_broadcast_axis0(tp, 2)
         before = fused_prox.fused_local_update_2d.copies
         fused_prox.fused_local_update(z, grads, tu.tree_zeros_like(z), 1e-3,
@@ -217,17 +250,15 @@ def test_grads_of_a_client_batch_need_no_copy_before_the_fused_update(lms):
 def test_one_dprox_round_matches_the_reference(lms, arch):
     jcfg, jp, cfg, tp = lms[arch]
     tau, n = 2, 2
-    toks = np.random.default_rng(1).integers(
-        0, cfg.vocab, (n, tau, 4, 64), dtype=np.int32)
+    jbatch, batch = _both(_np_batch(jcfg, (n, tau, 4, 64), seed=1))
     with jax.enable_x64(False):
         jfn = jax.jit(jalg.make_round_fn(
             jalg.DProxConfig(tau=tau, eta=1e-3, eta_g=2.0), JL1(lam=1e-5),
             JT.make_grad_fn(jcfg)))
-        jstate, jinfo = jfn(jalg.init_state(jp, n),
-                            {"tokens": jnp.asarray(toks)})
+        jstate, jinfo = jfn(jalg.init_state(jp, n), jbatch)
     fn = talg.make_round_fn(talg.DProxConfig(tau=tau, eta=1e-3, eta_g=2.0),
                             L1(lam=1e-5), T.make_grad_fn(cfg))
-    state, info = fn(talg.init_state(tp, n), {"tokens": torch.as_tensor(toks)})
+    state, info = fn(talg.init_state(tp, n), batch)
     np.testing.assert_allclose(float(info["train_loss"]),
                                float(jinfo["train_loss"]), rtol=1e-5)
     _assert_tree_close(state.x_bar, jstate.x_bar, 1e-6,
