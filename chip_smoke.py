@@ -7,6 +7,7 @@
                                    # tree) and this one, alternated
     python3 chip_smoke.py --lm     # phases 0, 1, 15, 16 and 17 alone
                                    # (no result)
+    python3 chip_smoke.py --tune   # phases 0, 1 and 18 alone (no result)
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
@@ -165,7 +166,12 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   import, compile or first call it is logged and carries on,
                   as "not measured": the port never calls it.  It runs last
                   so that no torch.compile precedes the serving phase's
-                  host-clock timings.
+                  host-clock timings.  The same at grok-1's softcap shape
+                  (phase 17), and for kernel 5b's softcap cases the
+                  compiled backward's device time: a CUDA-graph replay of
+                  forward + backward less one of the forward.  (SDPA's
+                  device time, where the profiler keeps no record of its
+                  kernels, is a CUDA-graph replay too.)
 
  15. LM training -- run after phase 11, before 12: (a) the flash-attention
                   backward kernel (5b) against its plain version computed
@@ -283,6 +289,32 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   one profiled prefill (busy, idle share, kernel 5's share,
                   the MoE's route / dispatch / expert GEMMs / combine inside
                   profiler ranges) and one profiled decode step.
+ 18. tuning    -- run after phase 14, before 10: the autotuner
+                  (repro_torch.tune) on the card, every record in a
+                  temporary directory and every subprocess in a temporary
+                  working directory.  (a) tune(Workload(), budget 6, 16
+                  rounds a trial, device "cuda"): each trial's counters
+                  set to 0 before it and held after it to what its point
+                  implies (kernel 1 tau per round of the warm chunk and the
+                  timed repetitions; top-k's select and the quantizer once
+                  a round per compressed leaf; the commit once a plane
+                  commit under asynchrony), then the same call again: a
+                  cache hit, no trial, the same best; (b) top-k 0.25 on
+                  the plane and per-leaf quantize measured on the card and
+                  on the CPU: bytes per client and round equal; (c) the
+                  straggler workload with every sampled point on the plane,
+                  budget 4: the commit kernel launched, the winner's
+                  staleness (and, where it is zero, the first aged
+                  trial's) equal to the CPU's within one float32 ulp; (d)
+                  one multi-process trial (a worker process, overlapped):
+                  hidden fraction in [0, 1], then ``python -m
+                  repro_torch.obs.report TRACE --bw 1e9`` on its trace
+                  prints the roofline block; (e) ``python -m
+                  repro_torch.launch.train --autotune 3 --arch
+                  stablelm_1_6b --scale smoke --rounds 2`` in a subprocess
+                  (run as ``__main__`` by a wrapper that prints the
+                  counters): it adopts the winner, and kernels 5 and 5b
+                  launch once per attention layer and local step.
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
@@ -314,7 +346,7 @@ trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
 the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11, 13-17 and read just after; no
+before each path of phases 3-9, 11, 13-18 and read just after; no
 path may copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -2441,9 +2473,12 @@ def _flash_case(card: str, b, s, h, kh, d, dtype, causal=True, window=None,
             check(lib_err <= FLASH_TOL[wname], f"SDPA disagrees with the "
                   f"kernel at {where} by {lib_err:.3e}")
             backend = _sdpa_backend(lib, lib_out)
-            del lib_out
             library_ms = _time_ms(lib, 5, 3)
-            library_device_ms = _device_ms(lib, 5) or None
+            # the profiler now and then keeps no record of SDPA's kernels:
+            # then a CUDA-graph replay of the call
+            library_device_ms = (_device_ms(lib, 5)
+                                 or _graph_replay_ms(lib, lib_out))
+            del lib_out
         del qt, kt, vt, got
     pairs = _admitted_pairs(s, causal, window)
     flops = 2 * (d + dv) * h * b * pairs
@@ -2530,7 +2565,7 @@ def _flex_yardstick(q, k, v, got, causal, window, softcap, tol,
 
         t0 = time.perf_counter()
         mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
-        fn = torch.compile(flex_attention)
+        fn = _compile_static(flex_attention)
 
         def call():
             return fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
@@ -2561,13 +2596,26 @@ def _flex_yardstick(q, k, v, got, causal, window, softcap, tol,
     return out
 
 
-def _graph_replay_ms(call, expect, replays: int = 20):
+def _compile_static(fn):
+    """``torch.compile(fn)`` for one shape: the caches are reset first and
+    the shapes kept static.  After a few shapes in one process the compiler
+    otherwise marks dims dynamic, and flex_attention then failed to lower
+    ("unbacked_bindings") or to build its C++ wrapper."""
+    import torch
+
+    torch._dynamo.reset()
+    return torch.compile(fn, dynamic=False)
+
+
+def _graph_replay_ms(call, expect, replays: int = 20, check_out=None):
     """Device time of one ``call()`` without the host's launch gaps: the
     call captured once in a CUDA graph (after warm-up calls on a side
     stream), then timed over ``replays`` replays between CUDA events; the
-    replay's output must equal ``expect`` bitwise.  (``torch.profiler``
-    recorded no kernel of the compiled flex_attention once earlier phases
-    had profiled in the same process, though it does in a fresh one.)
+    replay's output (a tensor or a tuple of them) must equal ``expect``
+    bitwise (or pass ``check_out(out)``, where one is given).
+    (``torch.profiler`` recorded no kernel of the compiled
+    flex_attention once earlier phases had profiled in the same process,
+    though it does in a fresh one, and now and then none of SDPA's.)
     None, logged, when the capture fails."""
     import torch
 
@@ -2586,8 +2634,11 @@ def _graph_replay_ms(call, expect, replays: int = 20):
     except RuntimeError as e:
         log(f"[flex] CUDA-graph capture failed: {str(e)[:200]}")
         return None
-    check(_bit_diff(out, expect) == 0,
-          "flex_attention: the graph replay differs from the eager call")
+    if check_out is not None:
+        check_out(out)
+    else:
+        check(_bit_diff(out, expect) == 0,
+              "the graph replay differs from the eager call")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(replays):
@@ -2675,9 +2726,13 @@ def _flex_bwd_yardstick(card: str, row: dict) -> None:
         # and then refuses the retain_graph the timing loop needs; the
         # setting is read at every backward call, so it spans the timing
         with torch._functorch.config.patch(donated_buffer=False):
-            lib_out = torch.compile(flex_attention)(
-                qt, kt, vt, score_mod=score_mod, block_mask=mask,
-                enable_gqa=h != kh)
+            compiled = _compile_static(flex_attention)
+
+            def fwd(*xs):
+                return compiled(*(xs or (qt, kt, vt)), score_mod=score_mod,
+                                block_mask=mask, enable_gqa=h != kh)
+
+            lib_out = fwd()
 
             def lib():
                 return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
@@ -2690,18 +2745,59 @@ def _flex_bwd_yardstick(card: str, row: dict) -> None:
             check(err <= LIB_BWD_TOL, f"flex_attention's backward disagrees "
                   f"with kernel 5b at {where} by {err:.3e} > {LIB_BWD_TOL}")
             ms = _time_ms(lib, 5, 3)
+            device_ms = _flex_bwd_device_ms(fwd, (qt, kt, vt), dot, got,
+                                            where)
     except Exception as e:  # noqa: BLE001 -- the import, compile, calls
         row["flex_bwd_error"] = f"{type(e).__name__}: {str(e)[:300]}"
         log(f"[flex] {where}: flex_attention backward not measured: "
             f"{row['flex_bwd_error']}")
         return
     row.update(library="flex_attention", library_err=err, library_ms=ms,
-               library_compile_s=compile_s)
+               library_device_ms=device_ms, library_compile_s=compile_s)
+    dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
     log(f"[flex] {where}: flex_attention backward (compiled in "
-        f"{compile_s:.1f} s) {ms:.4f} ms (CUDA events), {err:.3e} of max "
-        f"|grad| from the kernel; kernel 5b {row['ms']:.4f} ms  [{card}]")
+        f"{compile_s:.1f} s) {ms:.4f} ms (CUDA events), device {dev}, "
+        f"{err:.3e} of max |grad| from the kernel; kernel 5b "
+        f"{row['ms']:.4f} ms  [{card}]")
     del q, k, v, qt, kt, vt, out, lse, do, dot, got, res, lib_out
     torch.cuda.empty_cache()
+
+
+def _flex_bwd_device_ms(fwd, inputs, dot, got, where: str):
+    """Device ms of the compiled flex_attention's backward: the profiler
+    records none of its Triton kernels after the earlier phases'
+    profiling, and a backward captured alone would run on the forward's
+    stream, outside the capture.  So forward + backward and the forward
+    alone are each captured in a CUDA graph and replayed (the replayed
+    gradients held to kernel 5b at LIB_BWD_TOL, fatal), and the backward's
+    time is their difference.  The inputs are fresh leaves, so no autograd
+    node of an earlier graph (on another stream) is kept alive into the
+    capture.  None, logged, when a capture fails."""
+    import torch
+
+    ins = tuple(x.detach().clone().requires_grad_() for x in inputs)
+
+    def fwd_ins():
+        return fwd(*ins)
+
+    def both():
+        return torch.autograd.grad(fwd_ins(), ins, dot)
+
+    def check_grads(res):
+        err = _bwd_grads_err([x.transpose(1, 2) for x in res], got)
+        check(err <= LIB_BWD_TOL, f"flex_attention's replayed backward "
+              f"disagrees with kernel 5b at {where} by {err:.3e}")
+
+    try:
+        t_both = _graph_replay_ms(both, None, check_out=check_grads)
+        t_fwd = _graph_replay_ms(fwd_ins, fwd_ins().detach())
+    except Exception as e:  # noqa: BLE001 -- a capture the stream refuses
+        log(f"[flex] {where}: backward device time not measured: "
+            f"{type(e).__name__}: {str(e)[:200]}")
+        return None
+    if t_both is None or t_fwd is None:
+        return None
+    return t_both - t_fwd
 
 
 def phase_flex_yardstick(card: str, rows: list) -> None:
@@ -4306,6 +4402,289 @@ def phase_zoo2(card: str) -> dict:
             "card_vs_cpu": card_vs_cpu, "full": full, "seconds": secs}
 
 
+# -- phase 18 -----------------------------------------------------------------
+
+TUNE_ROUNDS = 16  # measured rounds of a trial (a halving re-measure: 32)
+
+
+def _tune_expect(point, workload, rounds: int) -> dict:
+    """Launches of one in-process trial of ``point`` that runs ``rounds``
+    rounds in all (the warm chunk and the timed repetitions): kernel 1 once
+    a local step; top-k's select once a round per compressed leaf of the
+    logreg message (w of width d and b of width 1: a fixed ratio keeps the
+    1-wide leaf whole without a launch, the scheduled ratio selects it too;
+    global granularity: one plane); the quantizer once a round per leaf
+    (global: once); the weighted commit once a commit on the plane under
+    asynchrony (phases 5-7)."""
+    from repro_torch.comm.transport import _k_of
+
+    widths = (workload.dim, 1)
+    if point.granularity == "global":
+        widths = (sum(widths),)
+    exp = {"fused_local_update": rounds * workload.tau}
+    if point.transport == "topk":
+        exp["threshold_select"] = rounds * (
+            len(widths) if point.schedule != "constant"
+            else sum(_k_of(point.ratio, w) < w for w in widths))
+    elif point.transport == "quantize":
+        exp["quantize"] = rounds * len(widths)
+    if workload.is_async and point.plane:
+        exp["weighted_commit"] = rounds
+    return _expect(**exp)
+
+
+def _counting_runner(workload, **kw):
+    """A :class:`repro_torch.tune.TrialRunner` that sets the counters to 0
+    before each measured trial, reads them after it and holds them to
+    :func:`_tune_expect`; ``runner.trials`` keeps each trial's point,
+    rounds, launches and result."""
+    from repro_torch.tune import TrialRunner
+
+    class CountingRunner(TrialRunner):
+        def measure(self, point):
+            reset_counts()
+            res = super().measure(point)
+            counts = read_counts()
+            ran = point.chunk_rounds + self.reps * self.rounds
+            expect = _tune_expect(point, self.workload, ran)
+            check(counts == expect, f"tune trial {point.describe()} "
+                  f"({ran} rounds): launches {counts}, expected {expect}")
+            self.trials.append({"point": point, "rounds": self.rounds,
+                                "launches": counts, "result": res})
+            return res
+
+    runner = CountingRunner(workload, **kw)
+    runner.trials = []
+    return runner
+
+
+def _sum_launches(trials) -> dict:
+    return {k: sum(t["launches"][k] for t in trials) for k in _expect()}
+
+
+def _tune_search(card: str, tag: str, workload, space, budget: int,
+                 cache: str) -> dict:
+    """(a) / (c): one search on the card with every trial's launches held
+    to its point, then the same call again: a cache hit, no trial.
+    Returns the summary and the runner (its ``trials``)."""
+    import torch
+
+    from repro_torch.tune import TrialPoint, tune
+
+    runner = _counting_runner(workload, rounds=TUNE_ROUNDS, device="cuda")
+    t0 = time.perf_counter()
+    rec = tune(workload, space=space, budget=budget, rounds=TUNE_ROUNDS,
+               runner=runner, device="cuda", cache_dir=cache)
+    secs = time.perf_counter() - t0
+    check(rec["measured_trials"] == len(runner.trials) > 0
+          and not rec["cached"], f"tune ({tag}): {rec['measured_trials']} "
+          f"measured trials, {len(runner.trials)} run")
+    check(rec["host"]["backend"] == "cuda"
+          and rec["host"]["device_kind"] == torch.cuda.get_device_name(0),
+          f"tune ({tag}): host signature {rec['host']}")
+    reset_counts()
+    again = tune(workload, space=space, budget=budget, rounds=TUNE_ROUNDS,
+                 device="cuda", cache_dir=cache)
+    check(again["cached"] and again["measured_trials"] == 0
+          and again["best"] == rec["best"] and read_counts() == _expect(),
+          f"tune ({tag}): the second call was no cache hit: "
+          f"{again['measured_trials']} trials, best {again['best']}")
+    best = TrialPoint.from_dict(rec["best"]["point"])
+    trials = [{"point": t["point"].describe(), "rounds": t["rounds"],
+               "round_us": t["result"].round_us,
+               "bytes_per_client_round":
+                   t["result"].bytes_per_client_round,
+               "staleness_mean": t["result"].staleness_mean,
+               "objective": t["result"].objective,
+               "launches": {k: v for k, v in t["launches"].items() if v}}
+              for t in runner.trials]
+    for t in trials:
+        log(f"[tune-{tag}] {t['point']:<40} {t['rounds']:>3} rounds: "
+            f"{t['round_us']:.1f} us/round, {t['bytes_per_client_round']:g}"
+            f" B/client/round, staleness {t['staleness_mean']:.4f}, "
+            f"launches {t['launches']}  [{card}]")
+    log(f"[tune-{tag}] winner {best.describe()} ({rec['best']['round_us']:.1f}"
+        f" us/round, objective {rec['best']['objective']:.1f}; default "
+        f"point {trials[0]['point']} {trials[0]['round_us']:.1f} us/round) "
+        f"from {len(trials)} trials in {secs:.1f} s; the second call: cache "
+        f"hit, 0 trials  [{card}]")
+    return {"record": rec, "trials": trials, "seconds": secs,
+            "launches": _sum_launches(runner.trials)}, runner
+
+
+def _tune_card_vs_cpu(card: str) -> dict:
+    """(b): top-k 0.25 on the plane, then quantize, measured on the card
+    and on the CPU: the same bytes per client and round."""
+    from repro_torch.tune import TrialPoint, TrialRunner, Workload
+
+    out, launches = {}, []
+    for name, point in (
+            ("topk_plane", TrialPoint(transport="topk", ratio=0.25,
+                                      granularity="global", plane=True)),
+            ("quantize", TrialPoint(transport="quantize"))):
+        runner = _counting_runner(Workload(), rounds=TUNE_ROUNDS,
+                                  device="cuda")
+        card_res = runner.measure(point)
+        launches += runner.trials
+        cpu_res = _cpu_run(lambda: TrialRunner(
+            Workload(), rounds=TUNE_ROUNDS, device="cpu").measure(point))
+        check(card_res.bytes_per_client_round
+              == cpu_res.bytes_per_client_round > 0,
+              f"tune (b) {name}: bytes/client/round card "
+              f"{card_res.bytes_per_client_round} cpu "
+              f"{cpu_res.bytes_per_client_round}")
+        log(f"[tune-b] {point.describe()}: {card_res.bytes_per_client_round:g}"
+            f" B/client/round on both; card {card_res.round_us:.1f} "
+            f"us/round, cpu (1 thread) {cpu_res.round_us:.1f} us/round; "
+            f"card launches { {k: v for k, v in runner.trials[0]['launches'].items() if v} }"
+            f"  [{card}]")
+        out[name] = {"bytes_per_client_round":
+                     card_res.bytes_per_client_round,
+                     "round_us": card_res.round_us,
+                     "cpu_round_us": cpu_res.round_us}
+    out["launches"] = _sum_launches(launches)
+    return out
+
+
+def _tune_async(card: str, cache: str) -> dict:
+    """(c): the straggler workload, every sampled point on the plane: the
+    commit kernel launches, and the winner's staleness equals the CPU's."""
+    import numpy as np
+
+    from repro_torch.tune import (SearchSpace, TrialPoint, TrialRunner,
+                                  Workload)
+
+    w = Workload(clock="straggler")
+    res, runner = _tune_search(card, "c", w, SearchSpace(plane=(True,)), 4,
+                               cache)
+    check(res["launches"]["weighted_commit"] > 0,
+          f"tune (c): the commit kernel never launched: {res['launches']}")
+    best = res["record"]["best"]
+    trials = runner.trials
+    winner = next(t for t in trials
+                  if t["point"] == TrialPoint.from_dict(best["point"])
+                  and t["rounds"] == best["rounds"])
+    held = [winner]
+    if winner["result"].staleness_mean == 0.0:
+        # the zero-delay regime (full buffer, one slot): also hold the
+        # first trial whose reports aged
+        held += [t for t in trials if t["result"].staleness_mean > 0][:1]
+    pairs = []
+    for t in held:
+        a = t["result"].staleness_mean
+        b = _cpu_run(lambda: TrialRunner(
+            w, rounds=t["rounds"], device="cpu").measure(
+                t["point"])).staleness_mean
+        ulp = float(np.spacing(np.float32(max(abs(a), abs(b)))))
+        check(abs(a - b) <= ulp, f"tune (c) {t['point'].describe()}: "
+              f"staleness card {a!r} cpu {b!r}")
+        log(f"[tune-c] {t['point'].describe()} ({t['rounds']} rounds): "
+            f"staleness_mean card {a!r}, cpu {b!r} (one float32 ulp "
+            f"{ulp:.3g})  [{card}]")
+        pairs.append({"point": t["point"].describe(), "rounds": t["rounds"],
+                      "card": a, "cpu": b})
+    res["staleness_card_vs_cpu"] = pairs
+    return res
+
+
+def _tune_processes(card: str, tmp: str) -> dict:
+    """(d): one multi-process trial (overlapped), its hidden fraction, and
+    ``obs.report --bw`` on its trace."""
+    from repro_torch.tune import TrialPoint, TrialRunner, Workload
+
+    w = Workload()
+    runner = TrialRunner(w, rounds=TUNE_ROUNDS, processes=1, device="cuda")
+    point = TrialPoint(chunk_rounds=4)
+    reset_counts()
+    res = runner.measure(point)
+    counts = read_counts()
+    # rank 0 runs here: kernel 1 once a local step (a dense uplink)
+    expect = _expect(fused_local_update=TUNE_ROUNDS * w.tau)
+    check(counts == expect, f"tune (d): rank 0 launches {counts}, expected "
+          f"{expect}")
+    hidden = res.snapshot["gauges"]["tune/hidden_fraction"]
+    check(0.0 <= hidden <= 1.0, f"tune (d): hidden fraction {hidden}")
+    path = Path(tmp) / "trial_trace.json"
+    path.write_text(json.dumps(runner.last_trace))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                           str(path), "--bw", "1e9"], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=120)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith("roofline: predicted hidden="),
+          f"tune (d): obs.report --bw exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    log(f"[tune-d] {point.describe()} across 1 worker process (overlapped):"
+        f" {res.round_us:.1f} us/round, {res.bytes_per_client_round:g} "
+        f"B/client/round on the socket, hidden fraction {hidden:.3f}, "
+        f"launches {counts}; obs.report --bw 1e9: {lines[-1]}  [{card}]")
+    return {"round_us": res.round_us, "hidden_fraction": hidden,
+            "bytes_per_client_round": res.bytes_per_client_round,
+            "report_roofline": lines[-1], "launches": counts}
+
+
+def _tune_train_cli(card: str, tmp: str) -> dict:
+    """(e): ``python -m repro_torch.launch.train --autotune 3`` in a
+    subprocess on the card (run as ``__main__`` by a wrapper that prints
+    the counters after it): it adopts the winner and trains through
+    kernels 5 and 5b."""
+    from repro_torch.configs import registry
+
+    args = ["--autotune", "3", "--arch", "stablelm_1_6b", "--scale", "smoke",
+            "--rounds", "2"]
+    code = ("import json, runpy, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke\n"
+            "runpy.run_module('repro_torch.launch.train', "
+            "run_name='__main__', alter_sys=True)\n"
+            "print('LAUNCHES ' + json.dumps(chip_smoke.read_counts()))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=tmp,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines and lines[-1].startswith("LAUNCHES"),
+          f"tune (e): train {' '.join(args)} exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    adopt = [x for x in lines if x.startswith("autotune: adopting ")]
+    check(len(adopt) == 1, f"tune (e): no adoption line in {lines[-12:]}")
+    counts = json.loads(lines[-1][len("LAUNCHES "):])
+    tau, rounds = 4, 2  # the trainer's default tau, --rounds
+    n = _attn_layers(registry.get_smoke("stablelm_1_6b")) * tau * rounds
+    check(counts["flash_attention"] == counts["flash_attention_bwd"] == n
+          and counts["fused_local_update"] >= tau * rounds
+          and counts["copies"] == 0,
+          f"tune (e): launches {counts}, expected {n} of kernels 5 and 5b")
+    log(f"[tune-e] python -m repro_torch.launch.train {' '.join(args)}: exit "
+        f"0 in {secs:.1f} s; {adopt[0]}; launches {counts} (the search's "
+        f"trials and the training)  [{card}]")
+    return {"cmd": args, "seconds": secs, "adopted": adopt[0],
+            "launches": counts}
+
+
+def phase_tune(card: str) -> dict:
+    """Phase 18: tuning on the card (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.tune import Workload
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        search, _ = _tune_search(card, "a", Workload(), None, 6,
+                                 str(Path(tmp) / "records"))
+        card_vs_cpu = _tune_card_vs_cpu(card)
+        asyn = _tune_async(card, str(Path(tmp) / "records"))
+        procs = _tune_processes(card, tmp)
+        cli = _tune_train_cli(card, tmp)
+    secs = time.perf_counter() - t0
+    log(f"[tune] phase 18 in {secs:.1f} s  [{card}]")
+    return {"search": search, "card_vs_cpu": card_vs_cpu, "async": asyn,
+            "processes": procs, "train_cli": cli, "seconds": secs}
+
+
 # -- A/B against an earlier tree -------------------------------------------------
 
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
@@ -4444,6 +4823,11 @@ def main(argv) -> None:
             card, argv[3:] or AB_PARTS, tf32=tree.resolve() == ROOT),
             indent=1))
         return
+    if argv[:1] == ["--tune"]:  # phase 18 alone; no result
+        card = phase_device()
+        phase_build()
+        phase_tune(card)
+        return
     if argv[:1] == ["--lm"]:  # phases 15, 16 and 17 alone; no result
         card = phase_device()
         phase_build()
@@ -4477,13 +4861,15 @@ def main(argv) -> None:
     cohort = phase_cohort(card)
     fig4 = phase_fig4(card)
     runtime = phase_runtime(card)
+    tuning = phase_tune(card)
     flash_rows = phase_flash_kernel(card)
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
     lm = phase_lm(card)
     zoo = phase_zoo(card)
     zoo2 = phase_zoo2(card)
-    phase_flex_yardstick(card, flash_rows)
+    # phase 10's softcap shapes and grok-1's (phase 17)
+    phase_flex_yardstick(card, flash_rows + zoo2["flash_cases"])
     for row in lm["bwd_cases"]:
         if row["softcap"] is not None:
             _flex_bwd_yardstick(card, row)
@@ -4495,7 +4881,9 @@ def main(argv) -> None:
              asyn["a"], asyn["b"], wide_async, cohort,
              *fig4["card_vs_cpu"]["runs"].values(), *fig4["gate"].values(),
              *fig4["full"].values(), *runtime["runs"].values(),
-             runtime["checkpoint"], gemma_a, gemma_b,
+             runtime["checkpoint"], tuning["search"], tuning["card_vs_cpu"],
+             tuning["async"], tuning["processes"], tuning["train_cli"],
+             gemma_a, gemma_b,
              *lm["smoke"].values(), lm["full"], lm["topk"],
              *zoo["card_vs_cpu"], *zoo["full"], *zoo2["card_vs_cpu"],
              *zoo2["full"]]
@@ -4557,6 +4945,7 @@ def main(argv) -> None:
         "cohort": cohort,
         "fig4": fig4,
         "runtime": runtime,
+        "tuning": tuning,
         "flash_kernel_cases": flash_rows,
         "gemma_card_vs_cpu": gemma_a,
         "gemma_full": gemma_b,

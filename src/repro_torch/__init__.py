@@ -19,7 +19,10 @@ kernel (``weighted_commit`` in ``kernels/csrc/plane_ops.cu``); the paper's
 experiments in full: the six baselines (``repro_torch.core.baselines``),
 the Fig. 4 CNN (``repro_torch.models.cnn``) on the procedural MNIST split
 (``repro_torch.data.mnist_like``), the literal protocol form of Algorithm 1
-and every regularizer of the reference.
+and every regularizer of the reference; and the single-chip tooling: the
+autotuner of the engine's configuration (``repro_torch.tune``) and the
+roofline's wire model and model-FLOP yardstick
+(``repro_torch.roofline.analysis``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present they raise instead of carrying on quietly on the CPU.

@@ -15,8 +15,12 @@ reference stacks with every other: ``--chunk``, ``--participation``,
 
 It runs on the card unless ``--device cpu`` is given; on the card the
 transformer's attention runs the flash kernels forward and backward and
-DProx's local step the fused update kernel.  ``--autotune`` raises:
-``repro.tune`` is not ported.
+DProx's local step the fused update kernel.  ``--autotune BUDGET`` first
+searches the engine configuration on the same device
+(:func:`repro_torch.tune.tune`, the synthetic logreg workload, cache-first)
+and adopts the winner's chunk, plane, transport, ratio, granularity and
+ratio schedule -- under asynchrony also its buffer, queue depth and
+staleness weighting.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \\
         --scale smoke --rounds 50 --tau 4 --clients 4 --ckpt out/ck.npz
@@ -150,7 +154,9 @@ def parser() -> argparse.ArgumentParser:
                          "--transport topk (repro_torch.comm.schedule); "
                          "constant is the fixed-ratio transport")
     ap.add_argument("--autotune", type=int, default=None, metavar="BUDGET",
-                    help="not ported: raises NotImplementedError")
+                    help="tune the engine config on --device with "
+                         "repro_torch.tune (BUDGET measured trials, "
+                         "cache-first) and adopt the winner")
     ap.add_argument("--downlink", default=None,
                     choices=["dense", "topk", "randk", "quantize"],
                     help="compress the broadcast direction too "
@@ -256,16 +262,37 @@ def _comm(args):
             make(args.downlink) if args.downlink else None)
 
 
+def autotune(args: argparse.Namespace, run_async: bool, device) -> None:
+    """``--autotune BUDGET``: tune the engine on ``device`` (or recall a
+    record) and set the engine flags of ``args`` to the winning point."""
+    from repro_torch.tune import TrialPoint, Workload, tune
+
+    record = tune(Workload(clock="straggler" if run_async else "none"),
+                  budget=args.autotune, log=print, device=device)
+    point = TrialPoint.from_dict(record["best"]["point"])
+    print(f"autotune: adopting {point.describe()} "
+          f"({record['measured_trials']} measured trials"
+          f"{', cached' if record.get('cached') else ''})")
+    args.chunk = point.chunk_rounds
+    args.plane = point.plane
+    args.transport = (None if point.transport == "dense"
+                      else point.transport)
+    args.compress_ratio = point.ratio
+    args.granularity = point.granularity
+    args.ratio_schedule = point.schedule
+    if run_async:
+        args.buffer_size = max(1, int(round(point.buffer_frac
+                                            * args.clients)))
+        args.queue_depth = point.queue_depth or None
+        args.staleness = point.staleness
+
+
 def build(args: argparse.Namespace, *, cfg=None, params=None) -> Run:
     """The trainer's set-up from parsed flags: the config (``cfg`` if
     given, else ``--arch`` / ``--scale``, float32 params), the params
     (``params`` if given, else drawn on the CPU from ``--seed``, so the
     card and the CPU start from the same model, then moved), the token
     streams, the algorithm, the engine on ``--device`` and its supplier."""
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune: repro.tune is not ported yet (ROADMAP.md, Queue 1 "
-            "item 15)")
     device = resolve_device(args.device)
     if cfg is None:
         base = (registry.get_smoke(args.arch) if args.scale == "smoke"
@@ -289,6 +316,8 @@ def build(args: argparse.Namespace, *, cfg=None, params=None) -> Run:
                  or args.staleness is not None or args.staleness_correct
                  or args.queue_depth is not None or args.upload is not None
                  or args.edges is not None)
+    if args.autotune:
+        autotune(args, run_async, device)
     transport, downlink = _comm(args)
     clock = staleness = None
     if run_async:

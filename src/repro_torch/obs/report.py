@@ -1,5 +1,5 @@
 """Overlap attribution: measured compute/wire occupancy per chunk, from a
-trace.
+trace, diffed against the roofline wire model.
 
 The counterpart of :mod:`repro.obs.report`, computed from the spans every
 traced runtime run emits (``exec/chunk`` on the compute thread,
@@ -17,17 +17,18 @@ traced runtime run emits (``exec/chunk`` on the compute thread,
 
     clamped to [0, 1] -- the share of wire time that did NOT extend the
     wall clock.  ``steady`` drops each worker's first chunk (which carries
-    the warm-up) before aggregating.
-
-The reference also diffs the measurement against its roofline wire model
-(``model=`` / ``--bw``); the port's roofline comes with the tooling slice,
-so until then that argument raises and names it (:data:`_ROOFLINE`).
+    the warm-up) before aggregating;
+  * model diff: with a :class:`repro_torch.roofline.analysis.WireModel`,
+    each chunk's measured wire seconds sit next to ``model.seconds(nbytes)``
+    and the aggregate next to ``roofline.chunk_times`` -- measurement vs
+    prediction in one table.
 
 Input is a merged Chrome trace-event document (what
 :func:`repro_torch.obs.trace.to_chrome` writes); chunk and ship spans pair
-up by their ``start_round`` arg.  stdlib only.
+up by their ``start_round`` arg.  stdlib only (the roofline import is lazy).
 
-CLI: ``python -m repro_torch.obs.report trace.json [--compute-ref S]``.
+CLI: ``python -m repro_torch.obs.report trace.json [--bw B/s] [--latency S]
+[--compute-ref S]``.
 """
 from __future__ import annotations
 
@@ -36,10 +37,6 @@ from typing import Optional
 
 __all__ = ["spans_of", "overlap_report", "hidden_fraction",
            "format_report"]
-
-# the reference's roofline wire model, which the port does not have yet, and
-# the slice of ROADMAP Queue 1 that brings it
-_ROOFLINE = "roofline wire model (Queue 1 item 15, roofline/analysis)"
 
 CHUNK_NAME = "exec/chunk"
 SHIP_NAME = "uplink/ship"
@@ -101,10 +98,10 @@ def overlap_report(doc: dict, *, model=None,
                    compute_ref_s: Optional[float] = None) -> dict:
     """Per-chunk + aggregate overlap attribution from a merged trace.
 
-    ``model`` (the reference's roofline wire model) is not ported yet:
-    passing one raises (:data:`_ROOFLINE`).  Only worker pids contribute
-    (the pids owning ``exec/chunk`` spans); multiple workers aggregate
-    jointly.
+    ``model`` (a ``roofline.analysis.WireModel``) adds predicted wire
+    seconds per chunk and a roofline ``chunk_times`` comparison on the
+    steady aggregate.  Only worker pids contribute (the pids owning
+    ``exec/chunk`` spans); multiple workers aggregate jointly.
 
     ``compute_ref_s`` is an UNCONTENDED per-chunk compute reference (e.g.
     from a wire-free run of the same problem).  Concurrent uplink work --
@@ -116,10 +113,6 @@ def overlap_report(doc: dict, *, model=None,
 
         hidden_ref = (n_chunks * ref + wire - wall) / wire.
     """
-    if model is not None:
-        raise NotImplementedError(
-            f"overlap_report(model=...) is not ported yet: it comes with the "
-            f"{_ROOFLINE}")
     chunk_spans = spans_of(doc, CHUNK_NAME)
     ships = spans_of(doc, SHIP_NAME)
     waits = spans_of(doc, WAIT_NAME)
@@ -149,6 +142,8 @@ def overlap_report(doc: dict, *, model=None,
                "nbytes": ship["args"].get("nbytes") if ship else None}
         if ship:
             row["ship_t1"] = ship["t1"]
+            if model is not None and row["nbytes"] is not None:
+                row["wire_model_s"] = model.seconds(row["nbytes"])
         rows.append(row)
 
     totals = _totals(rows)
@@ -166,7 +161,22 @@ def overlap_report(doc: dict, *, model=None,
             steady["compute_ref_s"] + steady["wire_s"] - steady["wall_s"])
             / steady["wire_s"]))
 
-    return {"chunks": rows, "totals": totals, "steady": steady}
+    out = {"chunks": rows, "totals": totals, "steady": steady}
+    if model is not None and steady["chunks"]:
+        from repro_torch.roofline.analysis import chunk_times
+
+        per_compute = steady["compute_s"] / steady["chunks"]
+        per_wire = steady["wire_s"] / steady["chunks"]
+        pred = chunk_times(per_compute, per_wire)
+        out["roofline"] = {
+            "per_chunk_compute_s": per_compute,
+            "per_chunk_wire_s": per_wire,
+            "predicted": pred,
+            "measured_wall_per_chunk_s": steady["wall_s"] / steady["chunks"],
+            "predicted_wire_s_total": sum(
+                r.get("wire_model_s", 0.0) for r in steady_rows),
+        }
+    return out
 
 
 def hidden_fraction(doc: dict) -> float:
@@ -189,7 +199,9 @@ def format_report(rep: dict) -> str:
         lines.append(
             f"{str(r['start_round']):>6} {str(r['rounds']):>6} "
             f"{r['compute_s']:>10.4f} {r['wire_s']:>10.4f} "
-            f"{str(r['nbytes']):>10} {'-':>9}")
+            f"{str(r['nbytes']):>10} "
+            + (f"{r['wire_model_s']:>9.4f}" if "wire_model_s" in r
+               else f"{'-':>9}"))
     for key in ("totals", "steady"):
         t = rep[key]
         h = ("n/a" if t["hidden_fraction"] is None
@@ -199,6 +211,13 @@ def format_report(rep: dict) -> str:
         if "hidden_fraction_ref" in t:
             line += f" hidden_ref={t['hidden_fraction_ref']:.1%}"
         lines.append(line)
+    if "roofline" in rep:
+        rf = rep["roofline"]
+        lines.append(
+            f"roofline: predicted hidden="
+            f"{rf['predicted']['hidden_fraction']:.1%} "
+            f"overlapped={rf['predicted']['overlapped']:.4f}s/chunk "
+            f"measured wall={rf['measured_wall_per_chunk_s']:.4f}s/chunk")
     return "\n".join(lines)
 
 
@@ -209,19 +228,21 @@ def main(argv=None) -> int:
         description="overlap attribution from a merged trace")
     ap.add_argument("path")
     ap.add_argument("--bw", type=float, default=None,
-                    help="wire bandwidth (B/s) for the roofline diff (not "
-                         "ported yet: raises)")
+                    help="wire bandwidth (B/s) for the roofline diff")
     ap.add_argument("--latency", type=float, default=0.0)
     ap.add_argument("--compute-ref", type=float, default=None,
                     help="uncontended compute seconds per chunk (adds "
                          "hidden_fraction_ref to the steady aggregate)")
     ns = ap.parse_args(argv)
-    if ns.bw:
-        raise NotImplementedError(
-            f"--bw is not ported yet: it comes with the {_ROOFLINE}")
     with open(ns.path) as f:
         doc = json.load(f)
-    print(format_report(overlap_report(doc, compute_ref_s=ns.compute_ref)))
+    model = None
+    if ns.bw:
+        from repro_torch.roofline.analysis import WireModel
+
+        model = WireModel(bw=ns.bw, latency_s=ns.latency)
+    print(format_report(overlap_report(doc, model=model,
+                                       compute_ref_s=ns.compute_ref)))
     return 0
 
 

@@ -51,6 +51,8 @@ def test_package_imports_with_jax_blocked():
             "import repro_torch.comm.wire, repro_torch.checkpoint.ckpt\n"
             "import repro_torch.obs.report, repro_torch.obs.trace\n"
             "import repro_torch.serving.delta, repro_torch.fed.runtime\n"
+            "import repro_torch.tune, repro_torch.tune.__main__\n"
+            "import repro_torch.roofline.analysis\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -93,6 +95,15 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cnn.init_params(0)
+    from repro_torch import tune
+    from repro_torch.tune import __main__ as tune_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune_main.main(["--budget", "1", "--dry"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.TrialRunner(tune.Workload()).measure(tune.TrialPoint())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.tune(tune.Workload(), budget=1, save=False)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

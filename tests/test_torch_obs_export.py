@@ -104,14 +104,25 @@ def test_overlap_report_gives_the_references_numbers():
     assert report.format_report(got) == jreport.format_report(ref)
 
 
-def test_the_roofline_diff_raises_and_names_its_item(tmp_path):
+def test_the_roofline_diff_raises_and_names_its_item(tmp_path, capsys):
+    """The roofline wire model is ported: ``overlap_report(model=)`` and
+    ``--bw`` give the reference's report, its roofline block included."""
+    from repro.roofline.analysis import WireModel as JWireModel
+    from repro_torch.roofline.analysis import WireModel
+
     doc = trace.to_chrome([_bundle("worker0")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        report.overlap_report(doc, model=object())
+    got = report.overlap_report(doc, model=WireModel(bw=2e4, latency_s=1e-3))
+    ref = jreport.overlap_report(doc, model=JWireModel(bw=2e4,
+                                                       latency_s=1e-3))
+    assert got == ref and "roofline" in got
+    assert all("wire_model_s" in r for r in got["chunks"])
     p = tmp_path / "t.json"
     trace.write_chrome(doc, str(p))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        report.main([str(p), "--bw", "1e9"])
+    assert report.main([str(p), "--bw", "1e9"]) == 0
+    assert jreport.main([str(p), "--bw", "1e9"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[:len(out) // 2] == out[len(out) // 2:]
+    assert out[len(out) // 2 - 1].startswith("roofline: predicted hidden=")
 
 
 def test_clis(tmp_path, capsys):

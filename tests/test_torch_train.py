@@ -352,9 +352,34 @@ def test_cli_trace_and_metrics(tmp_path, capsys):
     assert json.load(open(trace))["traceEvents"]
 
 
-def test_cli_autotune_raises_and_default_device_is_the_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        TR.main(CLI + ["--autotune", "4"])
+def test_cli_autotune_raises_and_default_device_is_the_card(monkeypatch,
+                                                            capsys):
+    """``--autotune`` adopts the tuner's winner (a stubbed search here) on
+    the trainer's device; without ``--device`` the trainer wants the card."""
+    import repro_torch.tune as tune_pkg
+
+    point = {"chunk_rounds": 2, "transport": "topk", "ratio": 0.25,
+             "granularity": "global", "plane": True, "buffer_frac": 1.0,
+             "queue_depth": 0, "staleness": "uniform",
+             "schedule": "constant", "workers": 0,
+             "wire_mode": "overlapped"}
+    calls = []
+
+    def fake_tune(workload, *, budget, log, device):
+        calls.append((workload.clock, budget, str(device)))
+        return {"best": {"point": point}, "measured_trials": 0,
+                "cached": True}
+
+    monkeypatch.setattr(tune_pkg, "tune", fake_tune)
+    run = TR.build(TR.parser().parse_args(CLI + ["--autotune", "4"]))
+    assert calls == [("none", 4, "cpu")]
+    assert "autotune: adopting chunk2+topk+r0.25/global+plane" in \
+        capsys.readouterr().out
+    cfg = run.engine.config
+    assert (cfg.chunk_rounds, cfg.plane) == (2, True)
+    assert (cfg.transport.ratio, cfg.transport.granularity) == (0.25,
+                                                                "global")
+    run.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TR.main([a for a in CLI if a not in ("--device", "cpu")])
