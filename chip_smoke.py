@@ -8,6 +8,7 @@
     python3 chip_smoke.py --lm     # phases 0, 1, 15, 16 and 17 alone
                                    # (no result)
     python3 chip_smoke.py --tune   # phases 0, 1 and 18 alone (no result)
+    python3 chip_smoke.py --mesh   # phases 0, 1, 4 and 19 alone (no result)
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
@@ -315,6 +316,30 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   (run as ``__main__`` by a wrapper that prints the
                   counters): it adopts the winner, and kernels 5 and 5b
                   launch once per attention layer and local step.
+ 19. the mesh  -- (a) run after phase 8, on its wide problem: the placed
+                  engine (EngineConfig(mesh=...), repro_torch.launch) on a
+                  one-rank NCCL (1, 1) CUDA mesh, plan A, d = 112,394, n 30,
+                  tau 10, float64, 20 rounds: x_bar and c bitwise the
+                  unplaced engine's, kernel 1 launched 200 times in each;
+                  then the Fig. 2 problem placed with quickstart (b)'s
+                  top-k + asynchrony on the plane, 40 commits: every state
+                  leaf bitwise the unplaced run's and kernels 1, 2 and 4
+                  launched as often as unplaced (each > 0); s/round placed
+                  and unplaced.  (b) run after phase 17: the expert-parallel
+                  MoE (repro_torch.models.moe_ep, two all-to-alls on the
+                  one-rank mesh) against layers.moe on the same weights at
+                  lossless capacity: full width in bf16 at grok-1's layer
+                  (d 6,144, 8 experts, top-2, d_ff 32,768; 4,096 tokens)
+                  and deepseek-v3's (d 7,168, 256 experts, top-8, d_ff
+                  2,048; 2,048 tokens: the lossless buffers are E x T x d),
+                  error over max |out| printed with the times, then an f32
+                  cut held to 1e-4 on out and aux.  (c) the dry run
+                  (python -m repro_torch.launch.dryrun) in subprocesses on
+                  a fake 512-rank world: stablelm-1.6b x train_4k x single
+                  with probes and deepseek-v3-671b x decode_32k x multi
+                  with --no-probes, each exiting 0 with a report whose
+                  FLOPs are > 0 (useful ratio, dominant term and seconds
+                  printed).
 
 Phase 2 also holds the two plane kernels (global top-k's threshold select,
 the stochastic quantizer) against their plain versions, bit for bit, at
@@ -346,7 +371,7 @@ trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
 the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11, 13-18 and read just after; no
+before each path of phases 3-9, 11, 13-19 and read just after; no
 path may copy.  The line before the last is the kernels' JSON summary;
 the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -4685,6 +4710,235 @@ def phase_tune(card: str) -> dict:
             "processes": procs, "train_cli": cli, "seconds": secs}
 
 
+# -- phase 19 -----------------------------------------------------------------
+
+MESH_PSPECS = {"w": ("mlp",), "b": ()}  # the logreg params' logical axes
+
+
+def _placed_pair(tag: str, make_engine, params0, supplier, rounds: int,
+                 **run_kw) -> dict:
+    """The same run unplaced and placed on the one-rank mesh: every state
+    leaf bitwise, the launches equal; each run's counters read just after
+    it."""
+    import torch
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.utils import tree as tu
+
+    out = {}
+    for name in ("unplaced", "placed"):
+        eng = make_engine(name == "placed")
+        state = eng.init(params0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = eng.run(state, supplier, rounds, **run_kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = {"launches": read_counts(), "s_per_round": secs / rounds,
+                     "stages": list(eng.stack.names()),
+                     "state": shd.gather_tree(state)}
+    a, b = out["unplaced"], out["placed"]
+    leaves = list(zip(tu.tree_leaves(a.pop("state")),
+                      tu.tree_leaves(b.pop("state"))))
+    check(all(torch.equal(x, y) for x, y in leaves),
+          f"{tag}: placed state differs from the unplaced run")
+    check(a["launches"] == b["launches"],
+          f"{tag}: launches placed {b['launches']} vs unplaced "
+          f"{a['launches']}")
+    log(f"[mesh] {tag}: placed == unplaced bitwise ({len(leaves)} leaves), "
+        f"launches {b['launches']}, s/round unplaced "
+        f"{a['s_per_round']:.4f} placed {b['s_per_round']:.4f} "
+        f"(stages {b['stages']})")
+    return out
+
+
+def phase_placed(card: str, ctx: dict) -> dict:
+    """Phase 19a: the placed engine on a one-rank CUDA mesh."""
+    from repro_torch.comm import GeneratorDraws
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.data.synthetic import make_round_batches
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import problems, simulator
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    mesh = M.make_mesh((1, 1), ("data", "model"), "cuda")
+    rounds = 20
+
+    def wide_engine(placed):
+        kw = dict(mesh=mesh, param_specs=MESH_PSPECS, plan="A") if placed \
+            else {}
+        return RoundEngine(ctx["alg"], ctx["grad_fn"], 30,
+                           EngineConfig(chunk_rounds=4, **kw), device="cuda")
+
+    wide = _placed_pair("wide dense", wide_engine, ctx["params0"],
+                        ctx["supplier"], rounds, seed=0)
+    exp = _expect(fused_local_update=rounds * WIDE_TAU)
+    check(wide["placed"]["launches"] == exp,
+          f"mesh wide: launches {wide['placed']['launches']}, expected {exp}")
+
+    tau, commits = 10, 40
+    data, reg, grad_fn, _, params0, L = problems.logreg_problem(
+        device="cuda")
+    eta_g, eta_tilde = 15.0, 0.5 / L
+    alg = simulator.DProxAlgorithm(reg, DProxConfig(
+        tau=tau, eta=eta_tilde / (eta_g * tau), eta_g=eta_g))
+
+    def async_engine(placed):
+        cfg = _async_config(plane=True)
+        if placed:
+            import dataclasses
+
+            cfg = dataclasses.replace(cfg, mesh=mesh,
+                                      param_specs=MESH_PSPECS)
+        return RoundEngine(alg, grad_fn, 30, cfg, device="cuda",
+                           clock_draws=GeneratorDraws(21, "cpu"),
+                           draws=GeneratorDraws(22, "cpu"))
+
+    paper = _placed_pair(
+        "paper top-k + async on the plane", async_engine, params0,
+        lambda r, g: make_round_batches(data, tau, None, g), commits,
+        seed=0)
+    got = paper["placed"]["launches"]
+    check(all(got[k] > 0 for k in ("fused_local_update", "threshold_select",
+                                   "weighted_commit"))
+          and got["fused_local_update"] == commits * tau
+          and got["weighted_commit"] == commits,
+          f"mesh paper async: launches {got}")
+    secs = time.perf_counter() - t0
+    log(f"[mesh] phase 19a in {secs:.1f} s  [{card}]")
+    return {"wide": wide, "paper_async": paper, "seconds": secs,
+            "paths": [wide["unplaced"], wide["placed"], paper["unplaced"],
+                      paper["placed"]]}
+
+
+def _moe_ep_case(card: str, mesh, arch: str, tokens: int, dtype, cut=None):
+    """moe_expert_parallel on the one-rank mesh against layers.moe on the
+    same weights at lossless capacity (capacity factor E / K: no pair
+    dropped); returns the errors and the times (CUDA events, ms)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe_ep import moe_expert_parallel
+
+    arch_cfg = registry.get(arch)
+    mcfg = dataclasses.replace(
+        arch_cfg.moe, num_shared=0,
+        capacity_factor=arch_cfg.moe.num_experts / arch_cfg.moe.top_k)
+    d = arch_cfg.d_model
+    if cut is not None:
+        d, F = cut
+        mcfg = dataclasses.replace(mcfg, d_ff_expert=F)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = L.init_moe(gen, mcfg, d, dtype)
+    x = (torch.randn((tokens, d), generator=gen, device="cuda") * 0.5).to(
+        dtype)
+    reset_counts()
+
+    def timed(fn, reps=3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / reps
+
+    (ref, aux_ref), dense_ms = timed(lambda: L.moe(p, mcfg, x[None]))
+    ref = ref[0]
+    (out, aux), ep_ms = timed(lambda: moe_expert_parallel(p, mcfg, x, mesh))
+    out = out.full_tensor()
+    counts = read_counts()
+    check(counts == _expect(), f"moe ep {arch}: kernels launched {counts}")
+    scale = float(ref.float().abs().max())
+    err = float((out.float() - ref.float()).abs().max())
+    aux_err = abs(float(aux) - float(aux_ref))
+    check(math.isfinite(err) and scale > 0, f"moe ep {arch}: non-finite")
+    row = {"arch": arch, "tokens": tokens, "dtype": str(dtype), "d": d,
+           "experts": mcfg.num_experts, "top_k": mcfg.top_k,
+           "d_ff_expert": mcfg.d_ff_expert, "max_abs_err": err,
+           "err_over_max_out": err / scale, "aux_err": aux_err,
+           "dense_ms": dense_ms, "ep_ms": ep_ms, "launches": counts}
+    log(f"[moe-ep] {arch} {tuple(x.shape)} {dtype}: max |err| / max |out| "
+        f"{err / scale:.3e}, aux err {aux_err:.3e}; layers.moe "
+        f"{dense_ms:.3f} ms, expert-parallel {ep_ms:.3f} ms  [{card}]")
+    del p, x, ref, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe_ep(card: str) -> dict:
+    """Phase 19b: the expert-parallel MoE on the one-rank mesh."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    mesh = M.make_mesh((1,), ("model",), "cuda")
+    rows = [_moe_ep_case(card, mesh, "grok_1_314b", 4096, torch.bfloat16),
+            _moe_ep_case(card, mesh, "deepseek_v3_671b", 2048,
+                         torch.bfloat16)]
+    for row in rows:
+        check(row["err_over_max_out"] < 2e-2,
+              f"moe ep {row['arch']} bf16: error {row['err_over_max_out']}")
+    cuts = [_moe_ep_case(card, mesh, "grok_1_314b", 512, torch.float32,
+                         cut=(512, 1024)),
+            _moe_ep_case(card, mesh, "deepseek_v3_671b", 512, torch.float32,
+                         cut=(512, 256))]
+    for row in cuts:
+        check(row["max_abs_err"] < 1e-4 and row["aux_err"] < 1e-4,
+              f"moe ep {row['arch']} f32: {row['max_abs_err']}, "
+              f"{row['aux_err']}")
+    secs = time.perf_counter() - t0
+    log(f"[moe-ep] phase 19b in {secs:.1f} s  [{card}]")
+    return {"full": rows, "f32_cut": cuts, "seconds": secs}
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 19c: the dry run in subprocesses (a fake 512-rank world: it
+    owns its process, and never touches the card)."""
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = [("stablelm_1_6b", "train_4k", "single", []),
+            ("deepseek_v3_671b", "decode_32k", "multi", ["--no-probes"])]
+    t0 = time.perf_counter()
+    rows = []
+    for arch, shape, mesh, extra in runs:
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--outdir",
+             str(out_dir), *extra], env=env, cwd=str(ROOT),
+            capture_output=True, text=True, timeout=400)
+        secs = time.perf_counter() - t1
+        check(proc.returncode == 0,
+              f"dry run {arch} x {shape} x {mesh}: exit {proc.returncode}\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        rep = json.loads((out_dir / f"{arch}_{shape}_{mesh}.json")
+                         .read_text())
+        check(rep["flops_per_dev"] > 0, f"dry run {arch}: no FLOPs")
+        rows.append({"arch": arch, "shape": shape, "mesh": mesh,
+                     "seconds": secs, "flops_per_dev": rep["flops_per_dev"],
+                     "bytes_per_dev": rep["bytes_per_dev"],
+                     "coll_bytes_per_dev": rep["coll_bytes_per_dev"],
+                     "useful_ratio": rep["useful_ratio"],
+                     "dominant": rep["dominant"],
+                     "replicated_ops": rep.get("replicated_ops")})
+        log(f"[dryrun] {arch} x {shape} x {mesh}: {secs:.1f} s, "
+            f"{rep['flops_per_dev']:.4e} FLOPs/dev, useful "
+            f"{rep['useful_ratio']:.4f}, dominant {rep['dominant']}, "
+            f"collectives {rep['n_collectives']}")
+    secs = time.perf_counter() - t0
+    log(f"[dryrun] phase 19c in {secs:.1f} s  [{card}]")
+    return {"runs": rows, "seconds": secs}
+
+
 # -- A/B against an earlier tree -------------------------------------------------
 
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
@@ -4828,6 +5082,19 @@ def main(argv) -> None:
         phase_build()
         phase_tune(card)
         return
+    if argv[:1] == ["--mesh"]:  # phase 19 alone (on phase 4's problem)
+        card = phase_device()
+        phase_build()
+        from repro_torch.launch import mesh as mesh_lib
+
+        mesh_lib.real_world("cuda")
+        _, ctx = phase_wide(card, 0.0)
+        phase_placed(card, ctx)
+        del ctx
+        phase_moe_ep(card)
+        mesh_lib.close_world()
+        phase_dryrun(card)
+        return
     if argv[:1] == ["--lm"]:  # phases 15, 16 and 17 alone; no result
         card = phase_device()
         phase_build()
@@ -4857,6 +5124,10 @@ def main(argv) -> None:
     wide_comp = phase_wide_compressed(card, ctx)
     asyn = phase_async_paper(card)
     wide_async = phase_wide_async(card, ctx)
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.real_world("cuda")  # one NCCL rank: phase 19's mesh
+    placed = phase_placed(card, ctx)
     del ctx  # the wide problem's features on the card (5.4 GB)
     cohort = phase_cohort(card)
     fig4 = phase_fig4(card)
@@ -4868,6 +5139,9 @@ def main(argv) -> None:
     lm = phase_lm(card)
     zoo = phase_zoo(card)
     zoo2 = phase_zoo2(card)
+    moe_ep = phase_moe_ep(card)
+    mesh_lib.close_world()
+    dryrun = phase_dryrun(card)
     # phase 10's softcap shapes and grok-1's (phase 17)
     phase_flex_yardstick(card, flash_rows + zoo2["flash_cases"])
     for row in lm["bwd_cases"]:
@@ -4886,7 +5160,8 @@ def main(argv) -> None:
              gemma_a, gemma_b,
              *lm["smoke"].values(), lm["full"], lm["topk"],
              *zoo["card_vs_cpu"], *zoo["full"], *zoo2["card_vs_cpu"],
-             *zoo2["full"]]
+             *zoo2["full"], *placed["paths"], *moe_ep["full"],
+             *moe_ep["f32_cut"]]
     launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
 
     def entry(name, source, replaces, row):
@@ -4952,6 +5227,9 @@ def main(argv) -> None:
         "lm_training": lm,
         "zoo": zoo,
         "zoo2": zoo2,
+        "placed": placed,
+        "moe_ep": moe_ep,
+        "dryrun": dryrun,
         "seconds": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -22,7 +22,10 @@ the Fig. 4 CNN (``repro_torch.models.cnn``) on the procedural MNIST split
 and every regularizer of the reference; and the single-chip tooling: the
 autotuner of the engine's configuration (``repro_torch.tune``) and the
 roofline's wire model and model-FLOP yardstick
-(``repro_torch.roofline.analysis``).
+(``repro_torch.roofline.analysis``); and the mesh: device meshes and the
+sharding rules on ``torch.distributed`` DTensors (``repro_torch.launch``),
+the engine's placement stage, the multi-pod dry run with the roofline's
+traced half and the expert-parallel MoE (``repro_torch.models.moe_ep``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU present they raise instead of carrying on quietly on the CPU.

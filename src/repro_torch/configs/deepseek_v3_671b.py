@@ -30,6 +30,7 @@ CONFIG = ArchConfig(
     mlp_kind="moe",
     act="swiglu",
     tie_embeddings=False,
+    fed_plan="B",  # fully-sharded federated state, client=pod
     long_mode="native",  # MLA latent cache
     citation="arXiv:2412.19437",
 )

@@ -22,6 +22,7 @@ CONFIG = ArchConfig(
     act="gelu",
     tie_embeddings=True,
     final_softcap=30.0,
+    fed_plan="B",  # fully-sharded federated state, client=pod
     long_mode="sliding",
     long_window=8192,
     citation="hf:xai-org/grok-1",

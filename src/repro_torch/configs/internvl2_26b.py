@@ -25,6 +25,7 @@ CONFIG = ArchConfig(
     tie_embeddings=False,
     frontend="vision",
     frontend_dim=3200,  # InternViT-6B hidden size
+    fed_plan="B",  # fully-sharded federated state, client=pod
     long_mode="sliding",
     long_window=8192,
     citation="arXiv:2404.16821",

@@ -1,9 +1,8 @@
 """The round-execution engine.
 
-The counterpart of :class:`repro.exec.RoundEngine` with its communication,
-asynchrony and cohort stages (:mod:`repro_torch.exec.stages`); placement is
-not ported yet.  It runs one (algorithm, grad_fn, n_clients) triple round
-after round.
+The counterpart of :class:`repro.exec.RoundEngine` with its placement,
+communication, asynchrony and cohort stages (:mod:`repro_torch.exec.stages`).
+It runs one (algorithm, grad_fn, n_clients) triple round after round.
 
   * A *chunk* of ``chunk_rounds`` rounds is a Python loop; the per-round
     metrics stay on the device and are fetched with ONE host sync per chunk.
@@ -39,6 +38,30 @@ of the weighted-commit kernel on the delivered plane.
 With the Cohort stage (``population=``, ``cohort=``) the per-client state is
 cohort-wide on the device and swapped against a host
 :class:`repro_torch.sched.PopulationStore` at chunk boundaries.
+
+With the Placement stage (``mesh=``, ``param_specs=``, ``plan=``) the state
+and the stages' state live as DTensors on the mesh, placed by the rule
+tables of :mod:`repro_torch.launch.sharding` (clients over 'data', params
+over 'model' in plan A) and the round is one SPMD program over the mesh's
+ranks, with its collectives explicit:
+
+  * the downlink -- each field is gathered to full on every rank (an
+    all-gather over the axes that shard it);
+  * the local half -- each rank runs the algorithm's local half on ITS
+    clients only (the rows the client placement gives it) and the batches'
+    same rows, with the kernels on plain local tensors;
+  * the uplink -- the clients' messages and aux are all-gathered over the
+    client axes, so every rank holds every client's report;
+  * the rest of the round (compression, the async buffer, the server
+    half, the downlink broadcast) runs on the full client axis, the same on
+    every rank, and the new state is placed again (each rank keeps its
+    block: a slice, no communication).
+
+Every algorithm runs its local and server halves under placement (all seven
+have them), so a placed round is the unplaced round's arithmetic op for
+op: on one rank bitwise, on several in the same order too.  Placement
+composes with every stage but the cohort (the reference refuses that too)
+and the uplink sink.
 
 ``protocol=True`` runs the algorithm's literal per-client message-passing
 round (``make_protocol_round_fn``; DProx has one) and composes with no
@@ -77,16 +100,12 @@ import torch
 from repro_torch.core import plane as pln
 from repro_torch.device import eval_shape, resolve_device, to_device
 from repro_torch.exec.stages import (Asynchrony, Cohort, DownlinkComm,
-                                     StageStack, UplinkComm, sink_blockers)
+                                     Placement, StageStack, UplinkComm,
+                                     sink_blockers)
 from repro_torch.exec.suppliers import (as_supplier, has_chunk_path,
                                         supports_client_ids)
 from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree as tu
-
-# the reference's placement field, which the port does not run yet, and
-# the slice of ROADMAP Queue 1 that brings it
-_PLACEMENT = "placement stage (Queue 1 item 15, launch/mesh + sharding)"
-
 
 def server_state_fields(algorithm, state) -> dict:
     """The 'server'-role fields of an algorithm's state: the broadcast
@@ -141,12 +160,16 @@ class EngineConfig:
                      engine, bitwise).
     cohort_seed    : seed of the per-chunk cohort id draws.
 
+    Placement stage (active when ``mesh`` is set):
+    mesh/param_specs/plan : the device mesh
+                     (:mod:`repro_torch.launch.mesh`), the logical-axis spec
+                     tree of the parameters and the federated placement
+                     plan ("A", "A_dp" or "B").  The engine's device must be
+                     the mesh's device type.
+
     protocol       : the literal per-client message-passing form of
                      Algorithm 1 (equivalence testing); composes with no
                      stages.
-
-    The reference's placement field ``mesh`` must stay ``None``: setting it
-    raises and names the slice that ports it.
     """
 
     chunk_rounds: int = 1
@@ -156,6 +179,8 @@ class EngineConfig:
     comm_seed: int = 0
     downlink: Any = None
     mesh: Any = None
+    param_specs: Any = None
+    plan: str = "A"
     clock: Any = None
     buffer_size: Optional[int] = None
     staleness: Any = None
@@ -176,10 +201,7 @@ class EngineConfig:
                 0.0 < self.participation <= 1.0):
             raise ValueError(
                 f"participation must be in (0, 1], got {self.participation}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"EngineConfig(mesh=...) is not ported yet: it comes with the "
-                f"{_PLACEMENT}")
+        placement_on = self.mesh is not None
         async_on = (self.clock is not None or self.buffer_size is not None
                     or self.staleness is not None
                     or self.queue_depth is not None or self.edges is not None)
@@ -198,6 +220,11 @@ class EngineConfig:
                     "sampled cohort IS the participating subset (set "
                     "cohort < population instead of a participation "
                     "fraction)")
+            if placement_on:
+                raise ValueError(
+                    "cohort-resident state does not compose with the "
+                    "placement stage (the reference refuses it too); drop "
+                    "mesh= or run the dense engine")
             if self.population is not None and self.population < 1:
                 raise ValueError(f"population must be >= 1, got "
                                  f"{self.population}")
@@ -218,13 +245,19 @@ class EngineConfig:
             if self.plane:
                 raise ValueError("plane mode does not apply to the protocol "
                                  "mode (literal per-client message passing)")
-            if uplink_on:
+            if placement_on or uplink_on:
                 raise ValueError(
                     "the protocol mode (literal per-client message passing) "
                     "composes with no stages; drop the "
-                    "transport/downlink/clock options or run them on the "
-                    "staged engine")
+                    "mesh/transport/downlink/clock options or run them on "
+                    "the staged engine")
             return StageStack(protocol=True)
+        if placement_on and self.param_specs is None:
+            raise ValueError(
+                "the placement stage requires param_specs: the logical-axis "
+                "spec tree of the parameters, matching the params tree leaf "
+                "for leaf (e.g. {'w': ('mlp',), 'b': ()}; "
+                "repro_torch.models.axes.param_specs gives a model's)")
         if self.transport is not None and not hasattr(self.transport,
                                                       "compress"):
             raise ValueError(
@@ -242,6 +275,8 @@ class EngineConfig:
             raise ValueError(f"queue_depth must be >= 1, got "
                              f"{self.queue_depth}")
         return StageStack(
+            placement=(Placement(self.mesh, self.param_specs, self.plan)
+                       if placement_on else None),
             uplink=UplinkComm(self.transport) if uplink_on else None,
             downlink=(DownlinkComm.coerce(self.downlink)
                       if downlink_on else None),
@@ -342,6 +377,13 @@ class RoundEngine:
         self.config = config
         self.stack = stack
         self.device = resolve_device(device)
+        if stack.placement is not None:
+            mesh_type = stack.placement.mesh.device_type
+            if self.device.type != mesh_type:
+                raise ValueError(
+                    f"the engine runs on {self.device} but its mesh is over "
+                    f"{mesh_type} ranks; pass device={mesh_type!r}")
+        self._state_shardings = None
         self.transport = None
         self.downlink = None
         self._cohort = None
@@ -373,15 +415,8 @@ class RoundEngine:
             self._round_fn = algorithm.make_protocol_round_fn(grad_fn)
             self._accepts_active = False
         elif stack.split:
-            try:
-                self._local_fn = algorithm.make_local_fn(grad_fn)
-                self._server_fn = algorithm.make_server_fn()
-            except NotImplementedError as e:
-                raise ValueError(
-                    f"algorithm {algorithm.name!r} has no local/server split "
-                    "(make_local_fn/make_server_fn); run it without "
-                    "communication/asynchrony stages") from e
-            self._round_fn = None
+            self._set_halves(algorithm, grad_fn,
+                             "communication/asynchrony stages")
             self._accepts_active = (
                 "active" in inspect.signature(self._server_fn).parameters)
             self.transport = stack.uplink.resolve_transport()
@@ -395,6 +430,11 @@ class RoundEngine:
             self._local_eff = self._local_fn
             self._server_eff = self._server_fn
             self._transport_eff = self.transport
+        elif stack.placement is not None:
+            # a placed round runs the halves, with the uplink between them
+            self._set_halves(algorithm, grad_fn, "the placement stage")
+            self._accepts_active = (
+                "active" in inspect.signature(self._server_fn).parameters)
         else:
             self._round_fn = algorithm.make_round_fn(grad_fn)
             self._accepts_active = (
@@ -420,6 +460,59 @@ class RoundEngine:
             from repro_torch.comm import GeneratorDraws
 
             self.clock_draws = GeneratorDraws(config.clock_seed, self.device)
+
+    def _set_halves(self, algorithm, grad_fn, needs: str) -> None:
+        """The algorithm's local and server halves (the local one wrapped
+        by :meth:`_placed_local` under placement)."""
+        try:
+            self._local_fn = algorithm.make_local_fn(grad_fn)
+            self._server_fn = algorithm.make_server_fn()
+        except NotImplementedError as e:
+            raise ValueError(
+                f"algorithm {algorithm.name!r} has no local/server split "
+                f"(make_local_fn/make_server_fn); run it without {needs}"
+            ) from e
+        self._round_fn = None
+        self._local_raw = self._local_fn
+        if self.stack.placement is not None:
+            self._local_fn = self._placed_local(self._local_fn)
+
+    def _placed_local(self, local_fn):
+        """``local_fn`` on this rank's clients: the client-role fields and
+        the batches cut to the rank's rows, the message and aux gathered
+        back to every client over the client axes (the uplink)."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.launch import sharding as shd
+
+        pl = self.stack.placement
+        n = self.n_clients
+        sh = pl.client_sharding(n)
+        (n_loc,), (lo,) = shd.local_block((n,), sh)
+        roles = self.algorithm.state_roles()
+        client = [f for f, r in roles.items() if r == "client"]
+
+        def rows(x):
+            return x[lo:lo + n_loc]
+
+        def gather(x):
+            shape = (n,) + tuple(x.shape[1:])
+            spec = shd.PartitionSpec(*(tuple(sh.spec)
+                                       + (None,) * (x.ndim - 1)))
+            return DTensor.from_local(
+                x.contiguous(), pl.mesh, shd.placements(spec, pl.mesh),
+                run_check=False, shape=shape,
+                stride=shd._contiguous_stride(shape)).full_tensor()
+
+        def local(state, batches):
+            if n_loc == n:
+                return local_fn(state, batches)
+            state = state._replace(**{f: tu.tree_map(rows, getattr(state, f))
+                                      for f in client})
+            msg, aux = local_fn(state, tu.tree_map(rows, batches))
+            return tu.tree_map(gather, msg), tu.tree_map(gather, aux)
+
+        return local
 
     def _setup_async(self) -> None:
         """Resolve and validate clock, staleness, buffer and queue; the step
@@ -454,9 +547,55 @@ class RoundEngine:
         return None if self._extras is None else self._extras.get("sched")
 
     def init(self, params0):
-        """Algorithm state on the engine's device (working width)."""
-        return self.algorithm.init(to_device(params0, self.device),
-                                   self.n_clients)
+        """Algorithm state on the engine's device (working width), placed
+        on the mesh under the placement stage."""
+        state = self.algorithm.init(to_device(params0, self.device),
+                                    self.n_clients)
+        if self.stack.placement is not None:
+            from repro_torch.launch import sharding as shd
+
+            state = shd.place_tree(state, self.state_shardings(state))
+        return state
+
+    def set_state_shardings(self, shardings) -> None:
+        """Install precomputed state shardings (placement stage)."""
+        self._state_shardings = shardings
+
+    def state_shardings(self, state):
+        """Mesh shardings of the federated state (placement stage), from
+        the algorithm's :meth:`state_roles` and the plan's rule tables."""
+        if self._state_shardings is None:
+            self._state_shardings = self.stack.placement.state_shardings(
+                self.algorithm, state)
+        return self._state_shardings
+
+    def _placed_round(self, state, batches, active):
+        """One placed round (see the module docstring): gather, the round on
+        the full client axis with the local half on this rank's clients,
+        place again."""
+        from repro_torch.launch import sharding as shd
+
+        pl = self.stack.placement
+        full = shd.gather_tree(state)
+        if self.stack.split:
+            if self._extras is None:
+                self._extras = self._init_extras(full, batches)
+            else:
+                self._extras = shd.gather_tree(self._extras)
+            if self.stack.asynchrony is not None:
+                new, info = self._async_step(full, batches)
+            else:
+                new, info = self._split_round(full, batches, active)
+            self._extras = shd.place_tree(
+                self._extras, pl.carry_shardings(self._extras,
+                                                 self.n_clients))
+        else:
+            msg, aux = self._local_fn(full, batches)
+            if active is None:
+                new, info = self._server_fn(full, msg, aux)
+            else:
+                new, info = self._server_fn(full, msg, aux, active=active)
+        return shd.place_tree(new, self.state_shardings(new)), info
 
     def _init_extras(self, state, batches) -> dict:
         """The stages' state from the message's shapes (a shape-only pass
@@ -465,7 +604,7 @@ class RoundEngine:
         :meth:`_install_plane` has wrapped the halves around it), the
         downlink shadow, the async report buffer or queue; and the wire
         bytes, a property of the message, not of the carried layout."""
-        msg_t, aux_t = eval_shape(self._local_fn, state, batches)
+        msg_t, aux_t = eval_shape(self._local_raw, state, batches)
         self.uplink_bytes_per_client_round = self.transport.uplink_bytes(
             msg_t)
         ex: dict = {}
@@ -552,6 +691,8 @@ class RoundEngine:
         batches = to_device(batches, self.device)
         if active is not None:
             active = torch.as_tensor(active, device=self.device)
+        if self.stack.placement is not None:
+            return self._placed_round(state, batches, active)
         if not self.stack.split:
             if active is None:
                 return self._round_fn(state, batches)
@@ -893,4 +1034,10 @@ class RoundEngine:
         return state, _host_metrics([info])[0]
 
     def global_params(self, state):
+        """The deployable global model, gathered to full tensors under the
+        placement stage."""
+        if self.stack.placement is not None:
+            from repro_torch.launch import sharding as shd
+
+            state = shd.gather_tree(state)
         return self.algorithm.global_params(state)

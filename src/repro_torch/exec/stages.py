@@ -1,10 +1,14 @@
 """Composable execution stages of the round engine.
 
-The counterpart of :mod:`repro.exec.stages`, without the placement stage:
+The counterpart of :mod:`repro.exec.stages`:
 
   ============ =========================================================
   stage        concern (and its slice of the engine's carried state)
   ============ =========================================================
+  Placement    device-mesh placement: state and stage-state shardings
+               from ``FedAlgorithm.state_roles`` and the plan rule tables
+               of :mod:`repro_torch.launch.sharding` (no state of its own
+               -- it places everyone else's)
   UplinkComm   the client->server message through a
                :mod:`repro_torch.comm` Transport (error-feedback residuals)
   DownlinkComm the server->client broadcast through a
@@ -20,13 +24,102 @@ The counterpart of :mod:`repro.exec.stages`, without the placement stage:
   ============ =========================================================
 
 :meth:`repro_torch.exec.EngineConfig.resolve` builds a :class:`StageStack`
-from the config's stage fields.  The reference's Placement stage is not
-ported yet: ``mesh=`` raises, naming the slice that brings it.
+from the config's stage fields.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Mesh placement of the federated state and the other stages' state.
+
+    ``param_specs`` is the logical-axis spec tree of the parameters
+    (:mod:`repro_torch.models.axes` gives the model's); ``plan`` is a
+    federated placement plan of :mod:`repro_torch.launch.sharding` ("A",
+    "A_dp" or "B").  Placement never changes the math -- it composes with
+    every other stage but the cohort by placing their state too
+    (compressor residuals and report buffers are client-axis trees, so the
+    client placement rules already know where they go).
+    """
+
+    mesh: Any
+    param_specs: Any = None
+    plan: str = "A"
+    name: str = "placement"
+
+    def state_shardings(self, algorithm, state):
+        """NamedShardings for an algorithm's state from its declared
+        roles."""
+        from repro_torch.launch import sharding as shd
+
+        try:
+            roles = algorithm.state_roles()
+        except NotImplementedError as e:
+            raise ValueError(
+                f"algorithm {algorithm.name!r} declares no state placement "
+                "(implement FedAlgorithm.state_roles to run under the "
+                "placement stage)") from e
+        return shd.fed_state_shardings_from_roles(
+            self.mesh, roles, state, self.param_specs, self.plan)
+
+    def client_sharding(self, n_clients: int):
+        """The sharding of a ``(n_clients,)`` client axis: where each
+        rank's clients are."""
+        from repro_torch.launch import sharding as shd
+
+        return shd.carry_slice_shardings(
+            self.mesh, torch.empty((n_clients,), device="meta"), self.plan,
+            n_clients, client_axis=0)
+
+    def carry_shardings(self, extras: dict, n_clients: int):
+        """Placement for the other stages' state slices.
+
+        Each slice's client axis is declared structurally: compressor state
+        is message-shaped (client axis 0), the one-slot report buffer is
+        client-major, the queued buffer stacks a leading queue-depth axis
+        (client axis 1) -- except its per-client residual/ledger fields --
+        and the downlink shadow replicates.  Under the flat layout
+        (``EngineConfig(plane=True)``) the message-shaped slices are
+        ``(n_clients, d_pad)`` planes (queued: ``(depth, n_clients,
+        d_pad)``): one spec per slice.
+        """
+        from repro_torch.launch import sharding as shd
+
+        def place(tree, axis):
+            return shd.carry_slice_shardings(self.mesh, tree, self.plan,
+                                             n_clients, client_axis=axis)
+
+        axes = {"comm": 0, "key": None, "dl": None}
+        out = {}
+        for name, slice_ in extras.items():
+            if name == "sched":
+                out[name] = self._sched_shardings(slice_, place)
+            else:
+                out[name] = place(slice_, axes.get(name, None))
+        return out
+
+    def _sched_shardings(self, sched, place):
+        from repro_torch.sched import QueueState
+
+        queued = isinstance(sched, QueueState)
+        per_field = {
+            # message/aux buffers gain a leading queue axis when queued
+            "pending_msg": 1 if queued else 0,
+            "pending_aux": 1 if queued else 0,
+            "slot_filled": 1, "deliver_time": 1 if queued else 0,
+            # per-client fields stay client-major in both layouts
+            "resid": 0, "need_refresh": 0, "last_synced": 0, "last_age": 0,
+            # scalars replicate
+            "vtime": None, "round_idx": None, "clock_key": None,
+        }
+        return type(sched)(**{
+            f: place(getattr(sched, f), per_field.get(f))
+            for f in sched._fields})
 
 
 @dataclass(frozen=True)
@@ -141,6 +234,7 @@ class StageStack:
     testing.
     """
 
+    placement: Optional[Placement] = None
     uplink: Optional[UplinkComm] = None
     downlink: Optional[DownlinkComm] = None
     asynchrony: Optional[Asynchrony] = None
@@ -157,8 +251,9 @@ class StageStack:
     def names(self) -> Tuple[str, ...]:
         if self.protocol:
             return ("protocol",)
-        return tuple(s.name for s in (self.uplink, self.downlink,
-                                      self.asynchrony, self.cohort)
+        return tuple(s.name for s in (self.placement, self.uplink,
+                                      self.downlink, self.asynchrony,
+                                      self.cohort)
                      if s is not None)
 
 
@@ -171,9 +266,7 @@ def sink_blockers(stack: StageStack, *, participation: bool, jit: bool,
     ``"uplink"`` taps the compressed uplink messages on the round's
     straight line, so anything that re-routes the uplink off it blocks
     it: asynchrony (report buffers), cohort residency, partial
-    participation, and the eager path (``jit=False``).  The port has no
-    placement stage, so the reference's ``"placement"`` blocker never
-    arises.
+    participation, placement, and the eager path (``jit=False``).
 
     ``"snapshot"`` only reads the committed post-chunk state the engine
     already holds at every chunk boundary, so it composes with every
@@ -191,6 +284,8 @@ def sink_blockers(stack: StageStack, *, participation: bool, jit: bool,
         blockers.append("cohort")
     if participation:
         blockers.append("participation")
+    if stack.placement is not None:
+        blockers.append("placement")
     if not jit:
         blockers.append("jit=False")
     return tuple(blockers)

@@ -217,13 +217,27 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed`` ``DTensor`` (without
+    importing ``torch.distributed`` when it is not loaded)."""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
 def on_card(name: str, t) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
+    (run the plain version); any other device raises, and so does a CUDA
+    ``DTensor``: the kernels launch from raw pointers, so a placed tensor
+    must be unwrapped to its local shard before it reaches one."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {t.device}")
+    if is_dtensor(t):
+        raise TypeError(f"the {name} kernel takes local tensors: unwrap the "
+                        "DTensor to its shard (to_local) first")
     return True
 
 

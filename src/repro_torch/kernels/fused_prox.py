@@ -409,6 +409,32 @@ def _rows(t, batch_dims: int, shape):
     return t.contiguous(), (expect if batch_dims else 0)
 
 
+def _update_placed(zl, gl, cl, treedef, eta, thresh, batch_dims):
+    """:func:`fused_local_update` on ``DTensor`` leaves, on local shards."""
+    from torch.distributed.tensor import DTensor
+
+    def like(t, z):
+        if not _build.is_dtensor(t):
+            raise TypeError("fused_local_update: a placed z_hat needs placed "
+                            "grads and c")
+        if t.device_mesh != z.device_mesh or t.placements != z.placements:
+            t = t.redistribute(z.device_mesh, z.placements)
+        return t.to_local()
+
+    zh_out, z_out = [], []
+    for z, g, cc in zip(zl, gl, cl):
+        # leaf by leaf: a placed tree may mix dtypes (bf16 weights, f32
+        # norms), which one plane cannot hold
+        a, b = fused_local_update(z.to_local(), like(g, z), like(cc, z), eta,
+                                  thresh, batch_dims=batch_dims)
+        for out, acc in ((a, zh_out), (b, z_out)):
+            acc.append(DTensor.from_local(
+                out, z.device_mesh, z.placements, run_check=False,
+                shape=z.shape, stride=z.stride()))
+    return (tu.tree_unflatten(treedef, zh_out),
+            tu.tree_unflatten(treedef, z_out))
+
+
 def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
                        batch_dims: int = 0):
     """Fused Algorithm-1 local update + L1 prox over a whole pytree, in one
@@ -423,6 +449,12 @@ def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
     ``grads`` and ``c`` leaves of another dtype are cast first, and a leaf
     whose per-client part is not contiguous is made so: each such copy is
     counted in ``fused_local_update_2d.copies``.
+
+    ``DTensor`` leaves (a placed tree) are updated shard by shard: the
+    update is elementwise, so each rank runs it on its local blocks (the
+    kernel on the card) once ``grads`` and ``c`` are laid out as
+    ``z_hat`` (a redistribute, whose collectives are DTensor's), and the
+    results are wrapped back with ``z_hat``'s placements.
     """
     zl, treedef = tu.tree_flatten(z_hat)
     gl, gdef = tu.tree_flatten(grads)
@@ -431,6 +463,8 @@ def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
         raise ValueError("grads and c must have z_hat's tree structure")
     if not zl:
         raise ValueError("cannot update an empty tree")
+    if _build.is_dtensor(zl[0]):
+        return _update_placed(zl, gl, cl, treedef, eta, thresh, batch_dims)
     dtype, device = zl[0].dtype, zl[0].device
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype must be one of "

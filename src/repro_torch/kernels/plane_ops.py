@@ -107,6 +107,38 @@ def _check_rows(name: str, x, per_row):
                          f"expected, got {tuple(per_row.shape)}")
 
 
+def _row_local(name, x, *per_row):
+    """A placed plane's local rows and the same rows of its per-row (or
+    plane-shaped) companions, all DTensors.  The plane kernels work
+    row by row, so each rank runs them on its rows; a plane divided over
+    its columns (a row split between ranks) is refused."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if any(isinstance(p, Shard) and p.dim != 0 for p in x.placements) or \
+            any(not isinstance(p, (Shard, Replicate)) for p in x.placements):
+        raise ValueError(f"{name}: a placed plane must keep its columns "
+                         f"whole, got placements {x.placements}")
+    out = [x.to_local()]
+    for t in per_row:
+        if not _build.is_dtensor(t):
+            raise TypeError(f"{name}: a placed plane takes placed per-row "
+                            "values")
+        want = x.placements if t.ndim == x.ndim else tuple(
+            p if isinstance(p, Shard) else Replicate() for p in x.placements)
+        if tuple(t.placements) != tuple(want):
+            t = t.redistribute(x.device_mesh, want)
+        out.append(t.to_local())
+    return out
+
+
+def _placed_like(local, x):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def threshold_select_2d(x, thresh):
     """Keep ``x[i, j]`` where ``|x[i, j]| >= thresh[i]``, else 0, over an
     ``(n_rows, d_pad)`` plane; ``thresh`` is ``(n_rows,)`` of any float
@@ -114,8 +146,12 @@ def threshold_select_2d(x, thresh):
 
     CPU tensors take :func:`threshold_select_plain`.  CUDA tensors launch
     the kernel (counted in ``threshold_select_2d.launches``) or raise;
-    nothing falls back.
+    nothing falls back.  A ``DTensor`` plane runs on each rank's rows
+    (:func:`_row_local`) and comes back placed as it was.
     """
+    if _build.is_dtensor(x):
+        return _placed_like(threshold_select_2d(
+            *_row_local("threshold_select", x, thresh)), x)
     _check_plane("threshold_select", x, thresh)
     _check_rows("threshold_select", x, thresh)
     if not _build.on_card("threshold_select", x):
@@ -143,8 +179,11 @@ def quantize_2d(x, u, scale, levels: int):
 
     CPU tensors take :func:`quantize_plain`.  CUDA tensors launch the
     kernel (counted in ``quantize_2d.launches``) or raise; nothing falls
-    back.
+    back.  A ``DTensor`` plane runs on each rank's rows.
     """
+    if _build.is_dtensor(x):
+        xl, ul, sl = _row_local("quantize", x, u, scale)
+        return _placed_like(quantize_2d(xl, ul, sl, levels), x)
     _check_plane("quantize", x, u, scale)
     _check_rows("quantize", x, scale)
     if u.dtype != x.dtype or u.shape != x.shape:
@@ -185,7 +224,22 @@ def weighted_commit_2d(x, w, *, loads: bool = False):
     ``loads=True`` reads an aligned plane with plain loads instead of the
     bulk-copy ring (``repro_weighted_commit_loads``): the same bits, a
     measured alternative that no path of the port takes.
+
+    A ``DTensor`` plane divided over its rows: each rank commits its rows
+    and the partial sums are added by an all-reduce over the row axes;
+    the result is replicated.
     """
+    if _build.is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        xl, wl = _row_local("weighted_commit", x, w)
+        part = weighted_commit_2d(xl, wl, loads=loads)
+        pl = [Partial() if p.is_shard() else Replicate()
+              for p in x.placements]
+        return DTensor.from_local(
+            part, x.device_mesh, pl, run_check=False,
+            shape=(x.shape[1],), stride=(1,)).redistribute(
+            x.device_mesh, [Replicate()] * len(pl))
     _check_plane("weighted_commit", x, w)
     _check_rows("weighted_commit", x, w)
     if x.shape[0] < 1:

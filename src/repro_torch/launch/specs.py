@@ -10,8 +10,13 @@ The arrays are drawn from ``numpy.random.default_rng(seed)`` in the
 reference's order, so they are the reference's bit for bit: token ids as
 int32; audio features and VLM patches as bfloat16 from the float64
 normals (rounded through float32, as the reference's ``jnp.asarray``);
-the audio mask as float32 0/1.  The reference's ``abstract`` branch (shape
-structs for its multi-pod dry run) is not here.
+the audio mask as float32 0/1.  With ``abstract=True`` the leaves are
+``meta`` tensors of the same shapes and dtypes instead, made with no data
+and no draws: what the multi-pod dry run
+(:mod:`repro_torch.launch.dryrun`) places and traces, as the reference's
+``jax.ShapeDtypeStruct`` leaves.  Unlike the reference's, ``abstract``
+defaults to ``False`` (real arrays), the port's behaviour before it had a
+dry run.
 
 Modality stubs, as the reference's: audio features are precomputed
 conv-extractor frames, VLM patches precomputed InternViT embeddings; both
@@ -30,6 +35,8 @@ from repro_torch.utils import tree as tu
 
 
 def _leaf(shape, dtype, rng, device, kind="tokens", vocab=None):
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if kind == "tokens":
         arr = rng.integers(0, vocab, size=shape)
     elif kind == "float":
@@ -64,15 +71,20 @@ def _example(cfg, batch, seq, rng, device):
                             cfg.vocab)}
 
 
-def example(cfg, batch: int, seq: int, seed: int = 0, device=None):
+def _device(device, abstract: bool) -> torch.device:
+    return torch.device("meta") if abstract else resolve_device(device)
+
+
+def example(cfg, batch: int, seq: int, seed: int = 0, device=None, *,
+            abstract: bool = False):
     """One forward-pass batch of ``batch`` x ``seq`` positions (the
     reference's ``_example`` with ``np.random.default_rng(seed)``)."""
     return _example(cfg, batch, seq, np.random.default_rng(seed),
-                    resolve_device(device))
+                    _device(device, abstract))
 
 
 def train_batches(cfg, shape: InputShape, n_clients: int, tau: int, seed=0,
-                  device=None):
+                  device=None, *, abstract: bool = False):
     """Federated-round batches: (n_clients, tau, b_local, ...) leaves, one
     example batch broadcast over clients and local steps (views, as the
     reference's ``broadcast_to``)."""
@@ -80,24 +92,35 @@ def train_batches(cfg, shape: InputShape, n_clients: int, tau: int, seed=0,
         f"global_batch {shape.global_batch} not divisible by {n_clients} "
         f"clients")
     ex = example(cfg, shape.global_batch // n_clients, shape.seq_len, seed,
-                 device)
+                 device, abstract=abstract)
     return tu.tree_map(lambda x: x.expand((n_clients, tau) + tuple(x.shape)),
                        ex)
 
 
-def prefill_batch(cfg, shape: InputShape, seed=0, device=None):
-    return example(cfg, shape.global_batch, shape.seq_len, seed, device)
+def prefill_batch(cfg, shape: InputShape, seed=0, device=None, *,
+                  abstract: bool = False):
+    return example(cfg, shape.global_batch, shape.seq_len, seed, device,
+                   abstract=abstract)
 
 
-def decode_inputs(cfg, shape: InputShape, seed=0, device=None):
+def decode_inputs(cfg, shape: InputShape, seed=0, device=None, *,
+                  abstract: bool = False):
     """(cfg, caches, token, cache_len) for one decode step: the config the
     shape runs (the long-context variant for ``long_500k``), zeroed caches
     of ``seq_len`` entries, a (B, 1) token and ``cache_len = seq_len - 1``
-    (the tokens before the new one)."""
-    dev = resolve_device(device)
+    (the tokens before the new one).  With ``abstract`` the caches come
+    from a shape-only pass of ``init_cache``
+    (:func:`repro_torch.device.eval_shape`)."""
+    dev = _device(device, abstract)
     lcfg = cfg.long_context_variant() if shape.name == "long_500k" else cfg
     B = shape.global_batch
-    caches = T.init_cache(lcfg, B, shape.seq_len, dev)
+    if abstract:
+        from repro_torch.device import eval_shape
+
+        caches = eval_shape(lambda: T.init_cache(lcfg, B, shape.seq_len,
+                                                 "cpu"))
+    else:
+        caches = T.init_cache(lcfg, B, shape.seq_len, dev)
     rng = np.random.default_rng(seed)
     token = _leaf((B, 1), torch.int32, rng, dev, "tokens", cfg.vocab)
     cache_len = torch.full((), shape.seq_len - 1, dtype=torch.int32,

@@ -46,9 +46,10 @@ from repro_torch.utils import tree as tu
 class ArchConfig:
     """The reference's ``ArchConfig``, its long-context fields
     (``long_mode``, ``long_window``, :meth:`long_context_variant`)
-    included.  Not here: ``fed_plan`` (a mesh sharding tag that only the
-    reference's TPU dry run reads) and ``scan_unroll`` (an XLA cost-probe
-    switch).  ``causal`` is carried as the reference's, which reads the
+    included, and ``fed_plan`` (the federated placement plan the dry run
+    shards by, :mod:`repro_torch.launch.sharding`).  Not here:
+    ``scan_unroll`` (an XLA cost-probe switch; the port's layers are never
+    scanned).  ``causal`` is carried as the reference's, which reads the
     attention config's own flag (``attn.causal``) and not this one.
 
     ``remat`` is accepted and not honoured: ``torch.utils.checkpoint``
@@ -86,6 +87,7 @@ class ArchConfig:
     attn_block_q: int = 512
     remat: bool = True  # accepted, not honoured (see the class docstring)
     aux_loss_coef: float = 0.01
+    fed_plan: str = "A"  # A: client-per-datagroup; B: fully-sharded FSDP+TP
     # deployment metadata, as the reference's
     long_mode: str = "sliding"  # native | sliding | skip
     long_window: int = 8192
@@ -355,6 +357,17 @@ def _period(tree, i):
     return tu.tree_map(lambda a: a[i], tree)
 
 
+def _periods(tree, n: int) -> list:
+    """The ``n`` periods of a stacked params tree, from one ``unbind`` a
+    leaf: its backward stacks the periods' gradients once, where indexing
+    period by period would add ``n`` stack-sized gradients (O(n^2) bytes).
+    The values are the same."""
+    leaves, spec = tu.tree_flatten(tree)
+    parts = [torch.unbind(leaf) if type(leaf) is torch.Tensor
+             else [leaf[i] for i in range(n)] for leaf in leaves]
+    return [tu.tree_unflatten(spec, [p[i] for p in parts]) for i in range(n)]
+
+
 def _apply_stack(p, cfg: ArchConfig, x, positions, mode, caches, cache_len):
     """caches: {"prefix": [..], "stack": stacked, "suffix": [..]} or None;
     in prefill and decode mode their buffers are written in place and the
@@ -374,8 +387,9 @@ def _apply_stack(p, cfg: ArchConfig, x, positions, mode, caches, cache_len):
         x, aux_total = run_blocks(prefix, p["prefix"],
                                   caches["prefix"] if caches else None,
                                   x, aux_total)
+    periods = _periods(p["stack"], cfg.n_periods)
     for i in range(cfg.n_periods):
-        pp = _period(p["stack"], i)
+        pp = periods[i]
         pc = _period(caches["stack"], i) if caches else None
         for j, (kind, mk) in enumerate(pattern):
             c = pc[f"b{j}"] if pc is not None else None

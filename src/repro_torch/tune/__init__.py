@@ -19,9 +19,9 @@ workload.  This package closes the loop on the device the trials run on
     keyed by device x workload x space signature, provenance-stamped) so a
     second invocation reuses measured trials instead of re-running them.
 
-The reference's ``tune.pairs`` (the roofline hillclimb over model-scale
-arch x shape pairs) drives the dry run; it comes with the dry-run slice
-(ROADMAP.md, Queue 1).
+  * :mod:`~repro_torch.tune.pairs`   -- the roofline hillclimb over the
+    model-scale (arch x shape) pairs, measured by the dry run
+    (:mod:`repro_torch.launch.dryrun`) instead of wall-clock trials.
 
 CLI::
 

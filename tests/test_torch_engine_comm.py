@@ -478,14 +478,16 @@ def test_config_checks_and_stage_stack():
     assert isinstance(stack.uplink.resolve_transport(), comm.Dense)
     with pytest.raises(ValueError, match="Transport"):
         EngineConfig(transport=object()).validate()
-    # the asynchrony and cohort fields resolve to their stages; only the
-    # placement field still raises, naming the slice that ports it
+    # the asynchrony, cohort and placement fields resolve to their stages
+    # (placement needs the params' logical-axis specs)
     for f, v, stage in [("clock", "straggler", "asynchrony"),
                         ("buffer_size", 3, "asynchrony"),
                         ("cohort", 2, "cohort")]:
         assert stage in EngineConfig(**{f: v}).resolve().names()
-    with pytest.raises(NotImplementedError, match="placement"):
+    with pytest.raises(ValueError, match="param_specs"):
         EngineConfig(mesh=object()).resolve()
+    assert EngineConfig(mesh=object(), param_specs={}).resolve().names() \
+        == ("placement",)
 
     class NoSplit(tsim.DProxAlgorithm):
         def make_local_fn(self, grad_fn):

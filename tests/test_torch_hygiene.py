@@ -34,6 +34,9 @@ def test_no_jax_and_no_reference_imports(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        # the port carries its own copies of what it needs from PyTorch's
+        # test helpers (the fake process group's backend, for one)
+        assert not name.startswith("torch.testing"), (path, name)
 
 
 def test_package_imports_with_jax_blocked():
@@ -53,6 +56,9 @@ def test_package_imports_with_jax_blocked():
             "import repro_torch.serving.delta, repro_torch.fed.runtime\n"
             "import repro_torch.tune, repro_torch.tune.__main__\n"
             "import repro_torch.roofline.analysis\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
+            "import repro_torch.launch.dryrun, repro_torch.tune.pairs\n"
+            "import repro_torch.models.moe_ep, repro_torch.models.axes\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -105,6 +111,35 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tune.tune(tune.Workload(), budget=1, save=False)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_entry_points_raise_without_a_gpu(no_gpu):
+    """Meshes and the placed engine default to the card: without one they
+    raise rather than building CPU ranks or running on the CPU."""
+    from repro_torch.core.algorithm import DProxConfig
+    from repro_torch.core.prox import L1
+    from repro_torch.exec import EngineConfig, RoundEngine
+    from repro_torch.fed import simulator
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import logreg
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.make_debug_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.make_production_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.real_world()
+
+    class CpuMesh:
+        device_type = "cpu"
+
+    alg = simulator.DProxAlgorithm(L1(0.1), DProxConfig(1, 0.1, 2.0))
+    cfg = EngineConfig(mesh=CpuMesh(), param_specs={"w": (), "b": ()})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RoundEngine(alg, logreg.make_grad_fn(), 2, cfg)
+    # a mesh over CPU ranks with a card-less engine device is refused too
+    with pytest.raises(ValueError, match="mesh is over cpu"):
+        RoundEngine(alg, logreg.make_grad_fn(), 2, cfg, device="meta")
 
 
 def test_runtime_entry_points_raise_without_a_gpu(no_gpu):

@@ -585,5 +585,7 @@ def test_async_config_activates_the_stage_and_validates_as_reference():
     with pytest.raises(ValueError, match="ClockModel"):
         RoundEngine(_dprox(reg), grad_fn, 6, EngineConfig(clock=object()),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="placement"):
+    with pytest.raises(ValueError, match="param_specs"):
         EngineConfig(mesh=object()).resolve()
+    assert EngineConfig(mesh=object(), param_specs={}).resolve().names() \
+        == ("placement",)
