@@ -33,6 +33,7 @@ import torch
 from repro_torch.core.prox import L1, Regularizer
 from repro_torch.device import device_of, to_device
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree as tu
 
 Params = Any
@@ -154,13 +155,16 @@ def make_local_fn(cfg: DProxConfig, reg: Regularizer, grad_fn: GradFn):
                                device=device)
         for t in range(cfg.tau):
             batch_t = tu.tree_map(lambda x: x[:, t], batches)
-            losses, grads = vgrad(z, batch_t)  # (n,)
-            # keep the federated state arithmetic in the params dtype
-            grads = tu.tree_map(lambda g, zh: g.to(zh.dtype), grads, z_hat)
-            z_hat, z = _step(reg, cfg.eta, cfg.prox_param(t), z_hat, grads,
-                             state.c, batch_dims=1)
-            gsum = tu.tree_add(gsum, grads)
-            loss_sum = loss_sum + losses.to(torch.float32)
+            with _trace.span("local/grad", "local", device=True):
+                losses, grads = vgrad(z, batch_t)  # (n,)
+            with _trace.span("local/update", "local", device=True):
+                # keep the federated state arithmetic in the params dtype
+                grads = tu.tree_map(lambda g, zh: g.to(zh.dtype), grads,
+                                    z_hat)
+                z_hat, z = _step(reg, cfg.eta, cfg.prox_param(t), z_hat,
+                                 grads, state.c, batch_dims=1)
+                gsum = tu.tree_add(gsum, grads)
+                loss_sum = loss_sum + losses.to(torch.float32)
         msg = tu.tree_map(lambda zh, pp: zh - pp[None], z_hat, p)
         aux = {
             "avg_grad": tu.tree_scale(gsum, 1.0 / cfg.tau),  # (n, ...)
@@ -237,7 +241,8 @@ def make_server_fn(cfg: DProxConfig, reg: Regularizer):
 
 def make_round_fn(cfg: DProxConfig, reg: Regularizer, grad_fn: GradFn):
     """The compact-form round function (Eq. 2): the composition of
-    :func:`make_local_fn` and :func:`make_server_fn`.
+    :func:`make_local_fn` and :func:`make_server_fn`, each in its engine
+    span (``exec/local``, ``exec/server``).
 
     Returns ``round_fn(state, batches, active=None) -> (state, metrics)``
     where ``batches`` is a pytree whose leaves have leading dims
@@ -247,8 +252,10 @@ def make_round_fn(cfg: DProxConfig, reg: Regularizer, grad_fn: GradFn):
     server_fn = make_server_fn(cfg, reg)
 
     def round_fn(state: DProxState, batches: Batch, active=None):
-        msg, aux = local_fn(state, batches)
-        return server_fn(state, msg, aux, active=active)
+        with _trace.span("exec/local", "exec", device=True):
+            msg, aux = local_fn(state, batches)
+        with _trace.span("exec/server", "exec", device=True):
+            return server_fn(state, msg, aux, active=active)
 
     return round_fn
 

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core.prox import Regularizer
 from repro_torch.device import device_of, to_device
+from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree as tu
 
 Params = Any
@@ -83,13 +84,16 @@ class FedAlgorithm:
         raise NotImplementedError
 
     def make_round_fn(self, grad_fn: GradFn):
-        """One full round: the dense composition of the two halves."""
+        """One full round: the dense composition of the two halves, each in
+        its engine span (``exec/local``, ``exec/server``)."""
         local_fn = self.make_local_fn(grad_fn)
         server_fn = self.make_server_fn()
 
         def round_fn(state, batches):
-            msg, aux = local_fn(state, batches)
-            return server_fn(state, msg, aux)
+            with _trace.span("exec/local", "exec", device=True):
+                msg, aux = local_fn(state, batches)
+            with _trace.span("exec/server", "exec", device=True):
+                return server_fn(state, msg, aux)
 
         return round_fn
 
@@ -102,6 +106,18 @@ class FedAlgorithm:
 
 
 # ---------------------------------------------------------------------------
+
+
+def _traced_vgrad(grad_fn):
+    """``vmap(grad_fn)`` over the clients, each call in a ``local/grad``
+    span."""
+    vgrad = torch.func.vmap(grad_fn)
+
+    def traced(params, batch):
+        with _trace.span("local/grad", "local", device=True):
+            return vgrad(params, batch)
+
+    return traced
 
 
 def _client_axis(batches) -> int:
@@ -167,7 +183,7 @@ def _x_local_fn(alg, grad_fn, step):
     """Local half of the x-state algorithms: ``tau`` steps
     ``z = step(z, grads, x)`` from the broadcast ``x``; uplinks
     ``z_tau - x``."""
-    vgrad = torch.func.vmap(grad_fn)
+    vgrad = _traced_vgrad(grad_fn)
 
     def local_fn(state, batches):
         batches = to_device(batches, device_of(state.x))
@@ -285,7 +301,7 @@ class FedDA(FedAlgorithm):
         return _DualState(x_bar=params0, round=_zero_round(params0))
 
     def make_local_fn(self, grad_fn):
-        vgrad = torch.func.vmap(grad_fn)
+        vgrad = _traced_vgrad(grad_fn)
 
         def local_fn(state, batches):
             batches = to_device(batches, device_of(state.x_bar))
@@ -362,7 +378,7 @@ class FastFedDA(FedAlgorithm):
                 / root.to(torch.float64)).to(torch.float32)
 
     def make_local_fn(self, grad_fn):
-        vgrad = torch.func.vmap(grad_fn)
+        vgrad = _traced_vgrad(grad_fn)
 
         def local_fn(state, batches):
             batches = to_device(batches, device_of(state.x_bar))
@@ -442,7 +458,7 @@ class Scaffold(FedAlgorithm):
                               round=_zero_round(params0))
 
     def make_local_fn(self, grad_fn):
-        vgrad = torch.func.vmap(grad_fn)
+        vgrad = _traced_vgrad(grad_fn)
 
         def local_fn(state, batches):
             batches = to_device(batches, device_of(state.x))

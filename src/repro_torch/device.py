@@ -76,9 +76,10 @@ def eval_shape(fn, *args):
     ``fn`` runs under PyTorch's fake-tensor mode on fake CPU copies of the
     array leaves of ``args``: the kernel wrappers see CPU tensors and take
     their plain versions, which compute nothing on fakes, so no kernel
-    launches and no counter moves."""
+    launches, no counter moves and no span is recorded."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.obs import trace
     from repro_torch.utils.tree import tree_map
 
     def spec(x):
@@ -94,7 +95,7 @@ def eval_shape(fn, *args):
             s, _Spec) else s
 
     specs = [tree_map(spec, a) for a in args]
-    with FakeTensorMode():
+    with FakeTensorMode(), trace.paused():
         out = tree_map(spec, fn(*(tree_map(fake, sp) for sp in specs)))
     return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
                                           device="meta"), out)

@@ -71,9 +71,33 @@ Two per-chunk sinks hand the engine's output on without a host sync of
 their own (:meth:`RoundEngine.set_uplink_sink`, the multi-process
 runtime's uplink; :meth:`RoundEngine.set_snapshot_sink`, serving
 snapshots): both fire after a chunk's rounds are enqueued and before the
-chunk's one host sync.  A chunk runs inside an ``exec/chunk`` span and its
-host sync inside ``exec/host_sync`` (:mod:`repro_torch.obs.trace`; free
-while no tracer is installed).
+chunk's one host sync.
+
+Spans (:mod:`repro_torch.obs.trace`; free while no tracer is installed).
+Those marked * also record the device interval of the work they enqueue
+(on the tracer's device track, at :meth:`Tracer.settle`, which ``run``
+calls after each chunk's host sync):
+
+  * ``exec/chunk`` -- one chunk, with the args ``start_round``, ``rounds``
+    and, on an initialised CUDA device, the chunk's counters: ``syncs``
+    (host synchronisations: the chunk's own, and any other, such as a
+    batch's copy from pageable host memory), ``mallocs`` (the caching
+    allocator's ``cudaMalloc`` + ``cudaFree`` calls, each a device sync)
+    and ``alloc_retries``;
+  * ``exec/supply`` * -- the chunk's batches (``sample_chunk``, or per
+    round ``sample_round`` and the participation mask; the cohort's), and
+    each round's move of its batches and mask to the device;
+  * ``exec/local`` * -- the local half (the algorithm's ``local/grad`` *
+    and DProx's ``local/update`` * per local step nest in it);
+  * ``exec/compress`` * -- the uplink's ``transport.compress``;
+  * ``exec/server`` * -- the server half, the commit;
+  * ``exec/broadcast`` * -- ``downlink.broadcast``;
+  * ``exec/async_round`` * -- one buffered commit of the asynchrony stage;
+  * ``exec/snapshot_publish`` -- the snapshot sink;
+  * ``exec/host_sync`` -- the chunk's one host sync.
+
+Without a split the round is the algorithm's ``round_fn``, which opens
+``exec/local`` and ``exec/server`` itself.
 
 The stages' state (``comm``: error feedback, ``dl``: the shadow, ``sched``:
 the report buffer) lives on the engine and persists across ``run``/``step``
@@ -590,11 +614,14 @@ class RoundEngine:
                 self._extras, pl.carry_shardings(self._extras,
                                                  self.n_clients))
         else:
-            msg, aux = self._local_fn(full, batches)
-            if active is None:
-                new, info = self._server_fn(full, msg, aux)
-            else:
-                new, info = self._server_fn(full, msg, aux, active=active)
+            with _trace.span("exec/local", "exec", device=True):
+                msg, aux = self._local_fn(full, batches)
+            with _trace.span("exec/server", "exec", device=True):
+                if active is None:
+                    new, info = self._server_fn(full, msg, aux)
+                else:
+                    new, info = self._server_fn(full, msg, aux,
+                                                active=active)
         return shd.place_tree(new, self.state_shardings(new)), info
 
     def _init_extras(self, state, batches) -> dict:
@@ -688,9 +715,10 @@ class RoundEngine:
         return pln.zeros(spec, self.n_clients, device=self.device)
 
     def _round(self, state, batches, active):
-        batches = to_device(batches, self.device)
-        if active is not None:
-            active = torch.as_tensor(active, device=self.device)
+        with _trace.span("exec/supply", "exec", device=True):
+            batches = to_device(batches, self.device)
+            if active is not None:
+                active = torch.as_tensor(active, device=self.device)
         if self.stack.placement is not None:
             return self._placed_round(state, batches, active)
         if not self.stack.split:
@@ -712,9 +740,12 @@ class RoundEngine:
             # actually hold); the server state stays authoritative
             state = state._replace(**tu.tree_map(lambda l: l[0],
                                                  ex["dl"]["seen"]))
-        msg, aux = self._local_eff(state, batches)
+        with _trace.span("exec/local", "exec", device=True):
+            msg, aux = self._local_eff(state, batches)
         cs = ex["comm"]
-        msg_hat, cs_new = self._transport_eff.compress(cs, msg, self.draws)
+        with _trace.span("exec/compress", "exec", device=True):
+            msg_hat, cs_new = self._transport_eff.compress(cs, msg,
+                                                           self.draws)
         if self._uplink_tap is not None:
             self._uplink_tap.append(msg_hat)
         if active is not None:
@@ -722,23 +753,27 @@ class RoundEngine:
             # residuals must not advance (the telescoping identity)
             ex["comm"] = self._transport_eff.select_clients(active, cs_new,
                                                             cs)
-            state, info = self._server_eff(state, msg_hat, aux,
-                                           active=active)
+            with _trace.span("exec/server", "exec", device=True):
+                state, info = self._server_eff(state, msg_hat, aux,
+                                               active=active)
         else:
             ex["comm"] = cs_new
-            state, info = self._server_eff(state, msg_hat, aux)
+            with _trace.span("exec/server", "exec", device=True):
+                state, info = self._server_eff(state, msg_hat, aux)
         if self.downlink is not None:
-            _, ex["dl"] = self.downlink.broadcast(
-                ex["dl"], server_state_fields(self.algorithm, state),
-                self.draws)
+            with _trace.span("exec/broadcast", "exec", device=True):
+                _, ex["dl"] = self.downlink.broadcast(
+                    ex["dl"], server_state_fields(self.algorithm, state),
+                    self.draws)
         return state, info
 
     def _async_step(self, state, batches):
         """One buffered commit (:func:`repro_torch.sched.make_async_round`)."""
         ex = self._extras
-        state, ex["sched"], ex["comm"], dl, info = self._async_round(
-            state, ex["sched"], ex["comm"], batches, ex.get("dl"),
-            draws=self.draws, clock_draws=self.clock_draws)
+        with _trace.span("exec/async_round", "exec", device=True):
+            state, ex["sched"], ex["comm"], dl, info = self._async_round(
+                state, ex["sched"], ex["comm"], batches, ex.get("dl"),
+                draws=self.draws, clock_draws=self.clock_draws)
         if dl is not None:
             ex["dl"] = dl
         return state, info
@@ -961,14 +996,18 @@ class RoundEngine:
                      and not self.stack.protocol)
         metrics: dict[str, list] = {}
         done = 0
+        tracer = _trace.get()
         while done < rounds:
             c = min(self.config.chunk_rounds, rounds - done)
             r0 = start_round + done
             infos = []
-            with _trace.span("exec/chunk", "exec", start_round=r0, rounds=c):
+            with tracer.span("exec/chunk", "exec", start_round=r0,
+                             rounds=c) as chunk_span:
+                counts = tracer.counters()
                 if self._cohort is not None:
-                    per_round = self._cohort_batches(supplier, r0, c, rng,
-                                                     use_chunk)
+                    with tracer.span("exec/supply", "exec", device=True):
+                        per_round = self._cohort_batches(supplier, r0, c,
+                                                         rng, use_chunk)
                     if self.stack.split and self._extras is None:
                         # the stages' state must exist before the first
                         # swap registers it (its init rows are the default
@@ -983,7 +1022,8 @@ class RoundEngine:
                     if self._uplink_sink is not None:
                         self._uplink_tap = []
                     if use_chunk:
-                        chunk = supplier.sample_chunk(r0, c, rng)
+                        with tracer.span("exec/supply", "exec", device=True):
+                            chunk = supplier.sample_chunk(r0, c, rng)
                         for i in range(c):
                             state, info = self._round(
                                 state, tu.tree_map(lambda x: x[i], chunk),
@@ -991,10 +1031,13 @@ class RoundEngine:
                             infos.append(info)
                     else:
                         for i in range(c):
-                            batches = supplier.sample_round(r0 + i, rng)
-                            active = (sample_active_masks(
-                                self.n_clients, 1, self.config.participation,
-                                rng)[0] if self._use_active else None)
+                            with tracer.span("exec/supply", "exec",
+                                             device=True):
+                                batches = supplier.sample_round(r0 + i, rng)
+                                active = (sample_active_masks(
+                                    self.n_clients, 1,
+                                    self.config.participation, rng)[0]
+                                    if self._use_active else None)
                             state, info = self._round(state, batches, active)
                             infos.append(info)
                     # hand the chunk's uplink to the sink BEFORE the host
@@ -1003,8 +1046,13 @@ class RoundEngine:
                     self._fire_uplink_sink(r0, state)
                 self._fire_snapshot_sink(r0 + c, state)
                 # the chunk's ONE host sync: every round's metrics in one copy
-                with _trace.span("exec/host_sync", "exec"):
+                with tracer.span("exec/host_sync", "exec"):
                     rows = _host_metrics(infos)
+                if counts is not None:
+                    chunk_span.set(**_trace.counter_deltas(
+                        counts, tracer.counters()))
+            # the device has drained: its spans' intervals go on the clock
+            tracer.settle()
             for i, row in enumerate(rows):
                 for k, v in row.items():
                     metrics.setdefault(k, []).append(v)

@@ -525,7 +525,8 @@ def run_worker(a: RuntimeArgs, rank: int) -> dict:
 
         wire.send_frame(sock, wire.T_BYE, {
             "worker": rank, "report": sender.report(),
-            "trace": tracer.export_wire() if tracer is not None else None})
+            "trace": (tracer.export_wire(device=True)
+                      if tracer is not None else None)})
         ftype, result = wire.recv_frame(sock)
         if ftype != wire.T_RESULT:
             raise wire.WireError(f"expected RESULT, got type {ftype}")
@@ -875,7 +876,7 @@ def run_server(a: RuntimeArgs, *, ready_cb=None) -> dict:
         # worker's shipped bundle, already offset onto this timebase.  The
         # server bundle goes first so merge_wire's pid dedupe keeps the
         # complete in-process bundle when a threaded worker shares it.
-        doc = obs_trace.to_chrome([tracer.export_wire()]
+        doc = obs_trace.to_chrome([tracer.export_wire(device=True)]
                                   + [traces[w] for w in sorted(traces)])
         obs_trace.write_chrome(doc, a.trace)
         out["trace_path"] = a.trace

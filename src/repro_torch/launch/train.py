@@ -435,8 +435,9 @@ def train(run: Run, log=print):
         sink.close()
         log(f"metrics -> {args.metrics_jsonl}")
     if tracer is not None:
-        obs_trace.write_chrome(obs_trace.to_chrome([tracer.export_wire()]),
-                               args.trace)
+        obs_trace.write_chrome(
+            obs_trace.to_chrome([tracer.export_wire(device=True)]),
+            args.trace)
         obs_trace.uninstall()
         log(f"trace -> {args.trace} ({tracer.n_spans} spans; open in "
             "Perfetto)")

@@ -23,7 +23,22 @@ Design constraints, in order:
     (:func:`clock_offset`) and the merge applies it;
   * **process/thread tagged** -- every span carries (pid, thread); Chrome
     trace metadata rows name both, so the sender thread, the supplier
-    staging thread and the compute thread render as separate tracks.
+    staging thread and the compute thread render as separate tracks;
+  * **device intervals on the same clock** -- ``span(..., device=True)``
+    also records a pooled CUDA timing event on the current stream at entry
+    and at exit (only while a tracer is installed, CUDA is initialised and
+    the stream is not capturing).  :meth:`Tracer.settle`, called right
+    after a host sync, maps the finished pairs onto :func:`now` through an
+    anchor event recorded there (device time = the anchor's host time less
+    the event's distance to the anchor; ``anchor_err_us``, the host time
+    around the anchor's record and wait, bounds the error) and records
+    them, under the same names, on a track of their own: the thread label
+    ``cuda:<index>`` in the same process;
+  * **per-chunk counters** -- :meth:`Tracer.counters` reads the host syncs
+    (counted under ``torch.cuda.set_sync_debug_mode("warn")``, whose
+    warnings are counted and never shown; the mode is restored on
+    :func:`uninstall`) and the caching allocator's ``cudaMalloc`` +
+    ``cudaFree`` calls and retries.
 
 Usage::
 
@@ -34,27 +49,39 @@ Usage::
     doc = trace.to_chrome([tracer.export_wire()])
     trace.write_chrome(doc, "out.json")        # -> load in Perfetto
 
+``tracer.export_wire(device=True)`` adds the device track to the bundle;
+without it the bundle holds the host spans alone.
+
 ``python -m repro_torch.obs.trace validate out.json`` checks the exported
-schema; ``summary`` adds the time per span name.
+schema; ``summary`` adds the time per span name, the host spans' and the
+device track's apart.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import threading
 import time
+import warnings
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["now", "Tracer", "NullTracer", "NULL_TRACER", "install",
-           "uninstall", "get", "span", "instant", "timed", "clock_offset",
+__all__ = ["now", "Tracer", "NullTracer", "NULL_TRACER", "CudaEvents",
+           "install", "uninstall", "get", "latest", "paused", "span",
+           "instant", "timed", "clock_offset", "counter_deltas",
            "to_chrome", "write_chrome", "merge_wire", "validate_chrome"]
 
 #: THE tracer clock: monotonic, high-resolution, per-process epoch.
 now = time.perf_counter
 
 SCHEMA = "repro.obs.trace/v1"
+
+#: thread labels of device tracks start with this
+DEVICE_TRACK = "cuda:"
 
 
 # ---------------------------------------------------------------------------
@@ -86,13 +113,19 @@ class NullTracer:
     enabled = False
     process = "off"
 
-    def span(self, name: str, cat: str = "", **args):
+    def span(self, name: str, cat: str = "", device: bool = False, **args):
         return _NULL_SPAN
 
     def instant(self, name: str, cat: str = "", **args) -> None:
         pass
 
-    def export_wire(self) -> None:
+    def counters(self) -> None:
+        return None
+
+    def settle(self) -> None:
+        pass
+
+    def export_wire(self, device: bool = False) -> None:
         return None
 
 
@@ -132,20 +165,137 @@ class _Span:
             self._args.update(kw)
 
 
+class _DeviceSpan(_Span):
+    """A span that also brackets the device work it enqueues with a pair
+    of timing events; the pair waits in the tracer until :meth:`settle`."""
+
+    __slots__ = ("_ev0",)
+
+    def __enter__(self):
+        self._t0 = now()
+        self._ev0 = self._tr._record_event()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = now()
+        tr = self._tr
+        ev1 = tr._record_event()
+        tr._record(self._name, self._cat, self._t0, t1, self._args)
+        with tr._lock:
+            tr._pending.append((self._name, self._cat, self._ev0, ev1,
+                                self._args))
+        return False
+
+
+#: the warning PyTorch gives for a synchronising call under
+#: ``set_sync_debug_mode("warn")``
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class CudaEvents:
+    """The device side of a :class:`Tracer`: CUDA timing events on the
+    current stream, the caching allocator's statistics and PyTorch's
+    sync-debug mode.  A test hands the tracer an object with these methods
+    in its place."""
+
+    def ready(self) -> bool:
+        """Whether device spans record events: CUDA initialised and the
+        current stream not capturing a graph."""
+        return (torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing())
+
+    def new(self):
+        return torch.cuda.Event(enable_timing=True)
+
+    def record(self, ev) -> None:
+        ev.record()
+
+    def done(self, ev) -> bool:
+        return ev.query()
+
+    def wait(self, ev) -> None:
+        ev.synchronize()
+
+    def ms(self, a, b) -> float:
+        """Milliseconds from event ``a`` to event ``b``."""
+        return a.elapsed_time(b)
+
+    def label(self) -> str:
+        return f"{DEVICE_TRACK}{torch.cuda.current_device()}"
+
+    def alloc_stats(self) -> dict:
+        return torch.cuda.memory_stats()
+
+    def sync_mode(self, mode=None):
+        """The sync-debug mode; with ``mode``, set it and return the old."""
+        old = torch.cuda.get_sync_debug_mode()
+        if mode is not None:
+            torch.cuda.set_sync_debug_mode(mode)
+        return old
+
+
+class _SyncCounter:
+    """Counts the host synchronisations PyTorch reports in ``warn`` mode.
+    Its warnings are counted and never shown; other warnings pass on."""
+
+    _PATTERN = re.escape(SYNC_WARNING)
+
+    def __init__(self, events):
+        self.n = 0
+        self._events = events
+        self._mode = events.sync_mode("warn")
+        self._show = warnings.showwarning
+        # "always": a sync repeated at one line is counted every time
+        warnings.filterwarnings("always", message=self._PATTERN)
+        warnings.showwarning = self._count
+
+    def _count(self, message, category, filename, lineno, file=None,
+               line=None):
+        if SYNC_WARNING in str(message):
+            self.n += 1
+            return
+        self._show(message, category, filename, lineno, file, line)
+
+    def stop(self) -> None:
+        self._events.sync_mode(self._mode)
+        if warnings.showwarning == self._count:
+            warnings.showwarning = self._show
+        for f in list(warnings.filters):
+            if f[0] == "always" and getattr(f[1], "pattern",
+                                            None) == self._PATTERN:
+                warnings.filters.remove(f)
+                getattr(warnings, "_filters_mutated", lambda: None)()
+                break
+
+
+def counter_deltas(before: dict, after: dict) -> dict:
+    """What each counter of :meth:`Tracer.counters` moved between two
+    readings (the keys both hold)."""
+    return {k: after[k] - before[k] for k in before if k in after}
+
+
 class Tracer:
     """Preallocated-ring span recorder for one process.
 
     ``capacity`` bounds memory: a span is 28 bytes of ring columns plus one
     list slot for its (usually ``None``) args dict.  When full, the oldest
-    spans are overwritten and ``dropped`` counts them.
+    spans are overwritten and ``dropped`` counts them.  At most
+    ``capacity`` device spans wait for :meth:`settle`; past that a device
+    span records its host interval only.  ``events`` is the device side
+    (:class:`CudaEvents` by default).
     """
 
     enabled = True
 
-    def __init__(self, process: str, capacity: int = 1 << 16):
+    def __init__(self, process: str, capacity: int = 1 << 16, events=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.process = process
+        self.events = CudaEvents() if events is None else events
+        self._pool: list = []      # timing events free for reuse
+        self._pending: list = []   # (name, cat, ev0, ev1, args) to settle
+        self._device_tids: set = set()
+        self._syncs: Optional[_SyncCounter] = None
         self.pid = os.getpid()
         self.capacity = capacity
         #: seconds ADDED to every timestamp at export: the estimated offset
@@ -166,10 +316,84 @@ class Tracer:
 
     # -- recording --------------------------------------------------------
 
-    def span(self, name: str, cat: str = "", **args):
+    def span(self, name: str, cat: str = "", device: bool = False, **args):
         """Context manager timing one span; ``**args`` become the Chrome
-        event's ``args`` payload (JSON-serializable values only)."""
+        event's ``args`` payload (JSON-serializable values only).  With
+        ``device=True`` the device interval of the work enqueued inside it
+        is recorded too, at the next :meth:`settle`."""
+        if (device and len(self._pending) < self.capacity
+                and self.events.ready()):
+            return _DeviceSpan(self, name, cat, args or None)
         return _Span(self, name, cat, args or None)
+
+    def _record_event(self):
+        ev = self._pool.pop() if self._pool else self.events.new()
+        self.events.record(ev)
+        return ev
+
+    def settle(self) -> None:
+        """Record the device intervals of the finished device spans.
+
+        Call it right after a host sync, when the device has drained (it
+        waits for the stream first, a no-op there): an anchor event
+        recorded on the idle device runs at once, so its host time is the
+        clock read beside it, and each event's time is the anchor's less
+        its distance to the anchor.  Anchoring anew at every call keeps the
+        drift between the two clocks to that of one call's span of time.
+        Events go back to the pool; pairs whose work has not finished wait
+        for the next call."""
+        if not self._pending:
+            return
+        ev = self.events
+        anchor = self._pool.pop() if self._pool else ev.new()
+        ev.record(anchor)
+        ev.wait(anchor)
+        h0 = now()
+        ev.record(anchor)
+        h1 = now()
+        ev.wait(anchor)
+        err = {"anchor_err_us": round((now() - h0) * 1e6, 3)}
+        label = ev.label()
+        with self._lock:
+            pending, self._pending = self._pending, []
+        keep = []
+        for item in pending:
+            name, cat, e0, e1, args = item
+            if not ev.done(e1):
+                keep.append(item)
+                continue
+            self._record(name, cat, h1 - ev.ms(e0, anchor) / 1e3,
+                         h1 - ev.ms(e1, anchor) / 1e3,
+                         {**args, **err} if args else err, track=label)
+            self._pool += (e0, e1)
+        self._pool.append(anchor)
+        if keep:
+            with self._lock:
+                self._pending[:0] = keep
+
+    def counters(self) -> Optional[dict]:
+        """Cumulative counts for a chunk's args (``None`` without an
+        initialised device): ``syncs``, the host synchronisations since the
+        first call; ``mallocs``, the caching allocator's ``cudaMalloc`` +
+        ``cudaFree`` calls; ``alloc_retries``, its retries after a failed
+        allocation.  :func:`counter_deltas` of two readings gives what
+        happened between them."""
+        if not self.events.ready():
+            return None
+        if self._syncs is None:
+            self._syncs = _SyncCounter(self.events)
+        out = {"syncs": self._syncs.n}
+        st = self.events.alloc_stats()
+        if "num_device_alloc" in st and "num_device_free" in st:
+            out["mallocs"] = st["num_device_alloc"] + st["num_device_free"]
+        if "num_alloc_retries" in st:
+            out["alloc_retries"] = st["num_alloc_retries"]
+        return out
+
+    def _stop_counters(self) -> None:
+        if self._syncs is not None:
+            self._syncs.stop()
+            self._syncs = None
 
     def instant(self, name: str, cat: str = "", **args) -> None:
         """A zero-duration marker."""
@@ -184,14 +408,18 @@ class Tracer:
             self._name_of[s] = ix
         return ix
 
-    def _record(self, name, cat, t0, t1, args) -> None:
-        th = threading.current_thread()
+    def _record(self, name, cat, t0, t1, args, track=None) -> None:
+        """One span; ``track`` names a device track (else this thread's)."""
+        th = None if track is not None else threading.current_thread()
+        key = track if th is None else th.ident
         with self._lock:
-            tid = self._tid_of.get(th.ident)
+            tid = self._tid_of.get(key)
             if tid is None:
                 tid = len(self._tids)
-                self._tids.append(th.name)
-                self._tid_of[th.ident] = tid
+                self._tids.append(track if th is None else th.name)
+                self._tid_of[key] = tid
+                if th is None:
+                    self._device_tids.add(tid)
             i = self._n % self.capacity
             self._t0[i] = t0
             self._t1[i] = t1
@@ -211,11 +439,13 @@ class Tracer:
 
     # -- export -----------------------------------------------------------
 
-    def export_wire(self) -> dict:
+    def export_wire(self, device: bool = False) -> dict:
         """This tracer's spans as a wire-able bundle (numpy arrays + string
         tables): what a worker ships in its BYE frame.  Timestamps stay in
         the local clock; ``offset`` travels alongside so the merge maps
-        them onto the reference timebase."""
+        them onto the reference timebase.  The host spans only, unless
+        ``device`` adds the device track (its records are spans like any
+        other, on their own ``tid``)."""
         with self._lock:
             k = self.n_spans
             if self._n > self.capacity:
@@ -224,6 +454,9 @@ class Tracer:
                                         np.arange(h)])
             else:
                 order = np.arange(k)
+            if not device and self._device_tids:
+                order = order[~np.isin(self._tid_ix[order],
+                                       list(self._device_tids))]
             args = [self._args[i] for i in order]
             return {
                 "schema": SCHEMA,
@@ -247,6 +480,7 @@ class Tracer:
 # ---------------------------------------------------------------------------
 
 _TRACER: Any = NULL_TRACER
+_LATEST: Optional[Tracer] = None
 _INSTALL_LOCK = threading.Lock()
 
 
@@ -258,25 +492,51 @@ def install(process: str, capacity: int = 1 << 16) -> Tracer:
     existing one is returned and keeps its name -- the merge dedupes
     bundles by pid, so shared-process spans are never double-counted.
     """
-    global _TRACER
+    global _TRACER, _LATEST
     with _INSTALL_LOCK:
         if isinstance(_TRACER, Tracer):
             return _TRACER
-        _TRACER = Tracer(process, capacity)
+        _TRACER = _LATEST = Tracer(process, capacity)
         return _TRACER
 
 
 def uninstall() -> Optional[Tracer]:
-    """Disable tracing; returns the tracer that was installed (if any)."""
+    """Disable tracing; returns the tracer that was installed (if any),
+    with the sync-debug mode its counters set restored."""
     global _TRACER
     with _INSTALL_LOCK:
         old, _TRACER = _TRACER, NULL_TRACER
-        return old if isinstance(old, Tracer) else None
+        if not isinstance(old, Tracer):
+            return None
+        old._stop_counters()
+        return old
 
 
 def get():
     """The current tracer (:data:`NULL_TRACER` when disabled)."""
     return _TRACER
+
+
+@contextlib.contextmanager
+def paused():
+    """No spans in this block, from any thread: a shape-only pass of a
+    round's code runs in one, and its spans would time no work."""
+    global _TRACER
+    with _INSTALL_LOCK:
+        old, _TRACER = _TRACER, NULL_TRACER
+    try:
+        yield
+    finally:
+        with _INSTALL_LOCK:
+            if _TRACER is NULL_TRACER:
+                _TRACER = old
+
+
+def latest() -> Optional[Tracer]:
+    """The tracer most recently installed in this process, kept after
+    :func:`uninstall` so that what it recorded can be read once tracing is
+    off (``None`` before the first :func:`install`)."""
+    return _LATEST
 
 
 def span(name: str, cat: str = "", **args):
@@ -467,6 +727,15 @@ def validate_chrome(doc) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _totals(evs) -> list:
+    """``[(name, (seconds, spans))]``, most seconds first."""
+    by_name: dict = {}
+    for e in evs:
+        tot, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (tot + e.get("dur", 0) / 1e6, n + 1)
+    return sorted(by_name.items(), key=lambda kv: -kv[1][0])
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -488,13 +757,20 @@ def main(argv=None) -> int:
     print(f"valid: {len(evs)} spans across {len(procs)} process(es), "
           f"{span_s:.3f}s total span time")
     if ns.cmd == "summary":
-        by_name: dict = {}
-        for e in evs:
-            tot, n = by_name.get(e["name"], (0.0, 0))
-            by_name[e["name"]] = (tot + e.get("dur", 0) / 1e6, n + 1)
-        for name, (tot, n) in sorted(by_name.items(),
-                                     key=lambda kv: -kv[1][0]):
+        device = {(e["pid"], e["tid"]) for e in doc["traceEvents"]
+                  if e.get("ph") == "M" and e.get("name") == "thread_name"
+                  and str(e["args"]["name"]).startswith(DEVICE_TRACK)}
+        host = _totals(e for e in evs if (e["pid"], e["tid"]) not in device)
+        for name, (tot, n) in host:
             print(f"  {name:<28s} {n:6d} spans  {tot:10.4f}s")
+        if device:
+            # the device intervals of the same spans, beside their host time
+            print(f"  {'device track':<28s} {'host s':>10s} {'device s':>10s}")
+            host_s = {name: tot for name, (tot, _n) in host}
+            for name, (tot, _n) in _totals(
+                    e for e in evs if (e["pid"], e["tid"]) in device):
+                print(f"  {name:<28s} {host_s.get(name, 0.0):10.4f} "
+                      f"{tot:10.4f}")
     return 0
 
 

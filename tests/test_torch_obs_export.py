@@ -141,6 +141,28 @@ def test_clis(tmp_path, capsys):
     assert trace.main(["validate", str(tmp_path / "bad.json")]) == 1
 
 
+def test_summary_totals_the_device_track_apart(tmp_path, capsys,
+                                               monkeypatch):
+    clock = _Clock()
+    monkeypatch.setattr(trace, "now", lambda: clock.t)
+    dev = _FakeEvents(clock)
+    tr = trace.Tracer("p", events=dev)
+    _device_spans(tr, clock, dev, 1.0)
+    tr.settle()
+    p = tmp_path / "t.json"
+    trace.write_chrome(trace.to_chrome([tr.export_wire(device=True)]),
+                       str(p))
+    assert trace.main(["summary", str(p)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "valid: 4 spans across 1 process(es), 2.500s total " \
+        "span time"
+    assert out[1].split() == ["outer", "1", "spans", "1.0000s"]
+    assert out[2].split() == ["inner", "1", "spans", "0.2500s"]
+    assert out[3].split() == ["device", "track", "host", "s", "device", "s"]
+    assert out[4].split() == ["outer", "1.0000", "1.0000"]
+    assert out[5].split() == ["inner", "0.2500", "0.2500"]
+
+
 def test_tracer_surface():
     assert isinstance(trace.get(), trace.NullTracer)
     assert trace.span("a") is trace.span("b")  # no allocation when off
@@ -170,8 +192,134 @@ def test_disabled_tracer_reads_no_clock(monkeypatch):
     monkeypatch.setattr(trace, "now", lambda: calls.append(1) or 0.0)
     with trace.span("a", "b", k=1) as sp:
         sp.set(x=1)
+    with trace.span("d", "b", device=True) as sp:
+        assert sp is trace.span("e")  # the one shared no-op span
     trace.instant("c")
+    trace.get().settle()
+    assert trace.get().counters() is None
+    assert trace.get().export_wire(device=True) is None
     assert calls == []
+
+
+class _Clock:
+    """The host clock of the device-track tests, moved by hand."""
+
+    t = 0.0
+
+
+class _FakeEvents:
+    """A device whose clock is the host's plus 1000 s, running ``lag``
+    seconds behind the host's enqueueing; counts the events it makes."""
+
+    def __init__(self, clock):
+        self.clock, self.lag, self.made, self.mode = clock, 0.0, 0, 0
+        self.stats = {"num_device_alloc": 5, "num_device_free": 2,
+                      "num_alloc_retries": 0}
+
+    def ready(self):
+        return True
+
+    def new(self):
+        self.made += 1
+        return type("Event", (), {"t": None})()
+
+    def record(self, ev):
+        ev.t = self.clock.t + 1000.0 + self.lag
+
+    def done(self, ev):
+        return True
+
+    def wait(self, ev):
+        pass
+
+    def ms(self, a, b):
+        return (b.t - a.t) * 1e3
+
+    def label(self):
+        return "cuda:0"
+
+    def alloc_stats(self):
+        return dict(self.stats)
+
+    def sync_mode(self, mode=None):
+        old = self.mode
+        if mode is not None:
+            self.mode = mode
+        return old
+
+
+def _device_spans(tr, clock, dev, t):
+    """An outer device span over [t, t + 1] with an inner one over
+    [t + 0.5, t + 0.75], enqueued while the device runs 0.25 s behind."""
+    dev.lag = 0.25
+    clock.t = t
+    with tr.span("outer", "x", device=True):
+        clock.t = t + 0.5
+        with tr.span("inner", "x", device=True):
+            clock.t = t + 0.75
+        clock.t = t + 1.0
+    dev.lag = 0.0  # drained by the host sync
+    clock.t = t + 2.0
+
+
+def test_device_track_maps_onto_the_host_clock(monkeypatch):
+    """``settle`` maps each span's event pair through the anchor onto the
+    tracer clock, on a ``cuda:0`` track beside the host spans, nested as
+    they were opened; the events are pooled across ``settle`` calls."""
+    clock = _Clock()
+    monkeypatch.setattr(trace, "now", lambda: clock.t)
+    dev = _FakeEvents(clock)
+    tr = trace.Tracer("p", events=dev)
+    _device_spans(tr, clock, dev, 1.0)
+    tr.settle()
+    made = dev.made
+    _device_spans(tr, clock, dev, 10.0)
+    tr.settle()
+    assert dev.made == made == 5  # 2 pairs and the anchor, then reused
+    wire = tr.export_wire(device=True)
+    assert wire["tids"] == ["MainThread", "cuda:0"]
+    got = sorted((wire["tids"][t], wire["names"][n], a, b) for n, t, a, b in
+                 zip(wire["name_ix"], wire["tid_ix"], wire["t0"],
+                     wire["t1"]))
+    want = []
+    for t in (1.0, 10.0):
+        want += [("MainThread", "inner", t + 0.5, t + 0.75),
+                 ("MainThread", "outer", t, t + 1.0),
+                 ("cuda:0", "inner", t + 0.75, t + 1.0),
+                 ("cuda:0", "outer", t + 0.25, t + 1.25)]
+    assert [g[:2] for g in got] == [w[:2] for w in sorted(want)]
+    np.testing.assert_allclose([g[2:] for g in got],
+                               [w[2:] for w in sorted(want)], atol=1e-9)
+    doc = trace.to_chrome([wire])
+    assert trace.validate_chrome(doc) == []
+    args = [e["args"] for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e["tid"] == 1]
+    assert args == [{"anchor_err_us": 0.0}] * 4
+    # the bundle without the device track is the host spans' alone
+    host = tr.export_wire()
+    assert len(host["t0"]) == 4 and set(host["tid_ix"]) == {0}
+    assert trace.to_chrome([host]) == jtrace.to_chrome([host])
+
+
+def test_chunk_counters_count_syncs_and_show_none(recwarn):
+    """``counters`` counts the sync-debug warnings (and shows none) and
+    reads the allocator; ``uninstall`` restores the sync-debug mode."""
+    import warnings
+
+    tr = trace.install("p")
+    dev = tr.events = _FakeEvents(_Clock())
+    before = tr.counters()
+    assert dev.mode == "warn"
+    for _ in range(3):  # one line, counted every time
+        warnings.warn(trace.SYNC_WARNING)
+    warnings.warn("another warning")
+    dev.stats["num_device_free"] += 4
+    dev.stats["num_alloc_retries"] += 1
+    assert trace.counter_deltas(before, tr.counters()) == {
+        "syncs": 3, "mallocs": 4, "alloc_retries": 1}
+    assert [str(w.message) for w in recwarn] == ["another warning"]
+    assert trace.uninstall() is tr and dev.mode == 0
+    assert trace.latest() is tr
 
 
 def test_metrics_gauge_merge_and_snapshot_are_the_references():
@@ -224,10 +372,53 @@ def test_traced_run_is_bitwise_the_untraced_one():
         traced = run_local(a)
     finally:
         trace.uninstall()
-    names = {tr._names[i] for i in tr.export_wire()["name_ix"]}
-    assert {"exec/chunk", "exec/host_sync", "supplier/stage"} <= names
+    names = [tr._names[i] for i in tr.export_wire()["name_ix"]]
+    assert {"exec/chunk", "exec/host_sync", "supplier/stage", "exec/supply",
+            "exec/local", "exec/compress", "exec/server"} <= set(names)
+    # tau local steps a round, each its gradient and its update
+    assert names.count("local/grad") == names.count("local/update") \
+        == a.tau * a.rounds
     assert _fields_bitwise(base["fields"], traced["fields"])
     assert base["metrics"]["train_loss"] == traced["metrics"]["train_loss"]
+
+
+def test_engine_chunks_carry_their_counters_and_device_track(monkeypatch):
+    """With a device side, every chunk span carries the chunk's counters
+    and the stage spans land on the device track, inside their chunk."""
+    import warnings
+
+    from repro_torch.fed.runtime import RuntimeArgs, _engine, _supplier
+
+    torch.set_num_threads(1)
+    a = RuntimeArgs(clients=2, m=8, dim=6, tau=2, rounds=4, chunk=2,
+                    batch_size=3, device="cpu")
+    eng, _alg, _g, data, params0 = _engine(a, a.clients)
+    sup = _supplier(a, data, 0, a.clients)
+    sample = sup.sample_chunk
+
+    def syncing(*args, **kw):  # one sync a chunk, as a copy to the host
+        warnings.warn(trace.SYNC_WARNING)
+        return sample(*args, **kw)
+
+    monkeypatch.setattr(sup, "sample_chunk", syncing)
+    tr = trace.install("p")
+    tr.events = _FakeEvents(_Clock())
+    try:
+        eng.run(eng.init(params0), sup, a.rounds, seed=0)
+    finally:
+        trace.uninstall()
+    doc = trace.to_chrome([tr.export_wire(device=True)])
+    assert trace.validate_chrome(doc) == []
+    chunks = [e["args"] for e in doc["traceEvents"]
+              if e.get("name") == "exec/chunk"]
+    assert chunks == [{"start_round": r, "rounds": 2, "syncs": 1,
+                       "mallocs": 0, "alloc_retries": 0} for r in (0, 2)]
+    device = [e["name"] for e in doc["traceEvents"]
+              if e.get("ph") == "X" and e["tid"] == 1]
+    assert device.count("local/grad") == a.tau * a.rounds
+    assert {"exec/supply", "exec/local", "exec/compress", "exec/server",
+            "local/update"} <= set(device)
+    assert "exec/chunk" not in device and "exec/host_sync" not in device
 
 
 def test_the_trace_timebase_is_the_references():
