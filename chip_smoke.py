@@ -9,6 +9,7 @@
                                    # (no result)
     python3 chip_smoke.py --tune   # phases 0, 1 and 18 alone (no result)
     python3 chip_smoke.py --mesh   # phases 0, 1, 4 and 19 alone (no result)
+    python3 chip_smoke.py --gemm   # phases 0, 1 and 10b alone (no result)
 
 Phases, each asserting (any failure exits non-zero and prints no result):
 
@@ -106,6 +107,17 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   F.scaled_dot_product_attention's ms (events and profiler)
                   where it computes the same function (no softcap, no
                   window);
+ 10b. split GEMM -- the split-TF32 GEMM kernel (csrc/split_gemm.cu) at
+                  every product of a local step of the stablelm cell (4
+                  clients x 512 tokens; forward, dX and dW of q/k/v/o,
+                  gate/up, down and the tied head), operands laid out as
+                  the autograd Function hands them over: read in place (no
+                  copy), its error against a float64 product at most twice
+                  torch.matmul's at "highest" (float32 on the CUDA cores);
+                  kernel ms (CUDA events and profiler), the bound (operations
+                  at 165 TFLOP/s split TF32), the plain version's ms and
+                  torch.matmul's at "highest" (events and profiler), and the
+                  sums over a local step's 87 products;
  11. gemma2-9b serving -- (a) full width, one local+global period, float32,
                   window 96, 2 x 160-token prompts and 8 teacher-forced
                   decode steps (the ring cache rolls at prefill and wraps in
@@ -372,8 +384,11 @@ the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
 before each path of phases 3-9, 11, 13-19 and read just after; no
-path may copy.  The line before the last is the kernels' JSON summary;
-the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
+path may copy.  The split GEMM (kernel 6) counts on every float32 model
+path on the card: one launch a product with the weights in a forward over
+``layers.KERNEL_MIN_ROWS`` rows or more, three under ``vmap(grad)``, none
+in a decode step (``_dense_products``).  The line before the last is the
+kernels' JSON summary; the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
 goes to ``chip_smoke.json`` in the output directory that ``main`` names.
 """
 from __future__ import annotations
@@ -423,6 +438,8 @@ def log(msg: str) -> None:
 
 
 def _counters():
+    import importlib.util
+
     from repro_torch.kernels import flash_attention, fused_prox, plane_ops
 
     out = {"fused_local_update": fused_prox.fused_local_update_2d,
@@ -430,9 +447,13 @@ def _counters():
            "quantize": plane_ops.quantize_2d,
            "weighted_commit": plane_ops.weighted_commit_2d,
            "flash_attention": flash_attention.flash_attention_bshd}
-    # an A/B side of an earlier tree has no backward kernel
+    # an A/B side of an earlier tree has no backward kernel, no split GEMM
     if hasattr(flash_attention, "flash_attention_bwd"):
         out["flash_attention_bwd"] = flash_attention.flash_attention_bwd
+    if importlib.util.find_spec("repro_torch.kernels.gemm") is not None:
+        from repro_torch.kernels import gemm
+
+        out["split_gemm"] = gemm.split_gemm
     return out
 
 
@@ -523,6 +544,17 @@ def phase_build(tf32: bool = True):
               f"{r.get('spill_loads')} loaded)")
         check(not any("(C75" in w for w in r["warnings"]),
               f"ptxas: {k} has a serialised wgmma: {r['warnings']}")
+    gemm = {k: r for k, r in report.items()
+            if k.startswith("split_tf32_gemm_kernel")}
+    if tf32:  # an earlier tree's side of an A/B has none
+        check(len(gemm) == 4, f"ptxas reported the split GEMM kernels "
+              f"{sorted(gemm)}, expected the four layouts of A and B")
+    for k, r in gemm.items():
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"ptxas: {k} spills ({r.get('spill_stores')} bytes stored, "
+              f"{r.get('spill_loads')} loaded)")
+        check(not any("(C75" in w for w in r["warnings"]),
+              f"ptxas: {k} has a serialised wgmma: {r['warnings']}")
     out = {"seconds": dict(_build.build.seconds), "ptxas": report}
     if tf32:
         out["tf32_mma"] = _check_tf32(lib, report)
@@ -577,6 +609,7 @@ def _kernel_name(mangled: str) -> str:
               "f16" if "__half" in targs else None)
         d = re.search(r"Li(\d+)E", targs)
         args = [x for x in (ty, d.group(1) if d else None) if x]
+        args += re.findall(r"Lb([01])E", targs)  # split_gemm's layouts
         return f"{name}<{', '.join(args)}>"
     return mangled
 
@@ -2674,6 +2707,110 @@ def _graph_replay_ms(call, expect, replays: int = 20, check_out=None):
     return start.elapsed_time(end) / replays
 
 
+# -- phase 10b ----------------------------------------------------------------
+
+SPLIT_TF32_FLOPS = 495e12 / 3  # three TF32 products per float32 one
+GEMM_CLIENTS = 4
+# (case, M, K, N, products of a local step of the stablelm cell): forward
+# x W (4 layers x q, k, v, o; gate, up; down) and x E^T, their dX and dW
+GEMM_CASES = [
+    ("fwd", 512, 2048, 2048, 16), ("fwd", 512, 2048, 5632, 8),
+    ("fwd", 512, 5632, 2048, 4), ("head", 512, 2048, 100_352, 1),
+    ("dx", 512, 2048, 2048, 16), ("dx", 512, 5632, 2048, 8),
+    ("dx", 512, 2048, 5632, 4), ("head_dx", 512, 100_352, 2048, 1),
+    ("dw", 2048, 512, 2048, 16), ("dw", 2048, 512, 5632, 8),
+    ("dw", 5632, 512, 2048, 4), ("dw", 100_352, 512, 2048, 1),
+]
+
+
+def _gemm_operands(case, m, k, n, seed):
+    """``(a, b)`` of one of the model's products as ``kernels/gemm.
+    SplitGemm`` hands them to the kernel: ``fwd`` x W (A K-major, B
+    N-major), ``head`` x E^T (B K-major), ``dx`` dY W^T (both K-major),
+    ``head_dx`` dL E (B N-major), ``dw`` X^T dY (A M-major, B N-major; the
+    head's dE as dL^T X, the embedding's own layout)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    c = GEMM_CLIENTS
+    return {"fwd": lambda: (r(c, m, k), r(c, k, n)),
+            "head": lambda: (r(c, m, k), r(c, n, k).mT),
+            "dx": lambda: (r(c, m, k), r(c, n, k).mT),
+            "head_dx": lambda: (r(c, m, k), r(c, k, n)),
+            "dw": lambda: (r(c, k, m).mT, r(c, k, n))}[case]()
+
+
+def _highest_matmul(a, b):
+    """torch.matmul in float32 on the CUDA cores (TF32 off): cuBLAS's
+    SIMT sgemm, the yardstick."""
+    import torch
+
+    from repro_torch.device import full_fp32
+
+    with full_fp32():
+        return torch.matmul(a, b)
+
+
+def _gemm_case(card: str, case, m, k, n, per_step, seed):
+    import torch
+
+    from repro_torch.kernels import gemm
+
+    a, b = _gemm_operands(case, m, k, n, seed)
+    copies = gemm.split_gemm.copies
+    got = gemm.split_gemm(a, b)
+    check(gemm.split_gemm.copies == copies,
+          f"split_gemm {case} {m}x{k}x{n}: an operand was copied")
+    exp = torch.matmul(a.double(), b.double())
+    rel = lambda x: float((x.double() - exp).norm() / exp.norm())
+    err, lib_err = rel(got), rel(_highest_matmul(a, b))
+    max_abs_err = float((got.double() - exp).abs().max())
+    del got, exp
+    check(err <= 2 * lib_err, f"split_gemm {case} {m}x{k}x{n}: error "
+          f"{err:.3e} against float64 > twice cuBLAS float32's {lib_err:.3e}")
+    flops = 2 * GEMM_CLIENTS * m * k * n
+    big = flops > 2e11
+    reps, batch = (5, 2) if big else (9, 10)
+    ms = _time_ms(lambda: gemm.split_gemm(a, b), reps, batch)
+    device_ms = _device_ms(lambda: gemm.split_gemm(a, b), 3 if big else 10)
+    lib_ms = _time_ms(lambda: _highest_matmul(a, b), reps, batch)
+    lib_device_ms = _device_ms(lambda: _highest_matmul(a, b),
+                               3 if big else 10)
+    plain_ms = _time_ms(lambda: gemm.split_gemm_plain(a, b), 3, 1)
+    bound_ms = 1e3 * flops / SPLIT_TF32_FLOPS
+    row = {"case": case, "mkn": [m, k, n], "batch": GEMM_CLIENTS,
+           "per_local_step": per_step, "rel_err": err, "cublas_rel_err": lib_err,
+           "max_abs_err": max_abs_err,
+           "ms": ms, "device_ms": device_ms, "bound_ms": bound_ms,
+           "bound_by": "operations", "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+           "tflops": flops / (device_ms * 1e-3) / 1e12 if device_ms else None}
+    log(f"[gemm] {case} {GEMM_CLIENTS} x ({m} x {k}) ({k} x {n}): error "
+        f"{err:.3e} (cuBLAS f32 {lib_err:.3e}); kernel {ms:.4f} ms (device "
+        f"{device_ms:.4f}, {row['tflops'] or 0:.1f} TFLOP/s, "
+        f"{100 * bound_ms / device_ms if device_ms else 0:.1f}% of the "
+        f"bound {bound_ms:.4f}); plain {plain_ms:.4f} ms; torch.matmul "
+        f"highest {lib_ms:.4f} ms (device {lib_device_ms:.4f})  [{card}]")
+    del a, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_split_gemm(card: str) -> dict:
+    """Phase 10b: the split-TF32 GEMM at the stablelm cell's products."""
+    rows = [_gemm_case(card, *c, seed=i) for i, c in enumerate(GEMM_CASES)]
+    step = {key: sum(r["per_local_step"] * r[key] for r in rows)
+            for key in ("device_ms", "library_device_ms", "bound_ms")}
+    log(f"[gemm] a local step's 87 products: kernel {step['device_ms']:.2f} "
+        f"ms device (bound {step['bound_ms']:.2f}, "
+        f"{100 * step['bound_ms'] / step['device_ms']:.1f}%), torch.matmul "
+        f"highest {step['library_device_ms']:.2f} ms; a round (4 local "
+        f"steps) {4 * step['device_ms']:.1f} against "
+        f"{4 * step['library_device_ms']:.1f} ms  [{card}]")
+    return {"cases": rows, "local_step": step}
+
+
 def phase_flash_kernel(card: str):
     """Phase 10: the flash kernel at the serving path's shapes."""
     import torch
@@ -2922,8 +3059,12 @@ def phase_gemma_card_vs_cpu(card: str):
     got, caches = _teacher_forced(params, cfg, prompts, steps, max_len)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == _expect(flash_attention=2), f"11a card: launches {counts},"
-          " expected 2 flash launches (one per layer of one prefill)")
+    # the prefill's products; decode none
+    n_gemm = _dense_products(cfg, head=False, rows=2 * s_prompt)
+    check(counts == _expect(flash_attention=2, split_gemm=n_gemm),
+          f"11a card: launches {counts}, expected 2 flash launches (one per "
+          f"layer of one prefill) and {n_gemm} split GEMM (the prefill's "
+          "products)")
     before = read_counts()
     t0 = time.perf_counter()
     exp, caches_cpu = _teacher_forced(params_cpu, cfg, prompts, steps,
@@ -2965,8 +3106,12 @@ def phase_gemma_card_vs_cpu(card: str):
     served = eng.serve(reqs, slots=2, segment=4)
     torch.cuda.synchronize()
     n_flash = 2 * len(reqs)  # one launch per layer of each admission
-    check(read_counts() == _expect(flash_attention=n_flash),
-          f"11a serve: launches {read_counts()}, expected {n_flash} flash")
+    # each admission's prefill, one prompt's rows
+    n_serve = sum(_dense_products(cfg, head=False, rows=n) for n in lens)
+    check(read_counts() == _expect(flash_attention=n_flash,
+                                   split_gemm=n_serve),
+          f"11a serve: launches {read_counts()}, expected {n_flash} flash "
+          f"and {n_serve} split GEMM (the admissions' prefills)")
     flips = []
     for r in served:
         seq = eng.generate(reqs[r.id].prompt[None, :],
@@ -2989,7 +3134,8 @@ def phase_gemma_card_vs_cpu(card: str):
         f"{n_flash} flash launches  [{card}]")
     del params, eng
     torch.cuda.empty_cache()
-    return {"launches": _expect(flash_attention=2 + n_flash),
+    return {"launches": _expect(flash_attention=2 + n_flash,
+                                split_gemm=n_gemm + n_serve),
             "max_abs_diff": max(errs), "tol": tol, "max_abs_logit": scale,
             "errs": errs, "cache_max_abs_diff": cache_err,
             "cache_tol": tol_cache, "flips": flips,
@@ -3346,10 +3492,16 @@ def _lm_smoke(card: str, arch: str) -> dict:
         if device == "cuda":
             counts = read_counts()
             n = _attn_layers(cfg) * tau * rounds
+            rows = (4 * 64 if cfg.frontend is not None
+                    else TR.parser().get_default("batch")
+                    * TR.parser().get_default("seq"))
+            n_gemm = (3 * _dense_products(cfg, head=True, rows=rows) * tau
+                      * rounds)
             check(counts == _expect(flash_attention=n, flash_attention_bwd=n,
-                                    fused_local_update=tau * rounds),
+                                    fused_local_update=tau * rounds,
+                                    split_gemm=n_gemm),
                   f"lm (b) {arch}: launches {counts}, expected {n} of "
-                  f"kernels 5 and 5b")
+                  f"kernels 5 and 5b, {n_gemm} of the split GEMM")
     (lg, xg), (lc, xc) = traj["cuda"], traj["cpu"]
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
     xbar_gap = max(
@@ -3418,6 +3570,31 @@ def _attn_layers(cfg) -> int:
     return sum(k in ("attn", "local") for k in _layer_kinds(cfg))
 
 
+def _dense_products(cfg, head: bool, rows: int) -> int:
+    """The products with the weights that one forward of ``cfg`` in float32
+    on the card over ``rows`` rows (a client's, under ``vmap``) sends to
+    the split GEMM (``models/layers._dense``), one launch each: none below
+    ``layers.KERNEL_MIN_ROWS`` rows (a decode step); else q, k, v and o of
+    an attention layer (not MLA's latent products), a dense MLP's three, an
+    MoE layer's shared expert's three (its routed experts stay einsums),
+    and the head if its logits are taken over those rows (``head``; a
+    serving prefill takes the last position's only).  Under ``vmap(grad)``
+    each product is three launches (forward, dX, dW)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    if rows < L.KERNEL_MIN_ROWS:
+        return 0
+    prefix, pattern, suffix = T._block_sequence(cfg)
+    n = int(head)
+    for kind, mlp_kind in prefix + pattern * cfg.n_periods + suffix:
+        if kind in ("attn", "local") and cfg.attn.kind != "mla":
+            n += 4
+        if mlp_kind == "dense" or (mlp_kind == "moe" and cfg.moe.num_shared):
+            n += 3
+    return n
+
+
 def _lm_full(card: str, extra=(), rounds: int = 8):
     """(c) stablelm-1.6b at full width (depth cut to LM_LAYERS), through the
     trainer's set-up and loop on the card: launches, finite loss, s/round
@@ -3427,6 +3604,7 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import registry
+    from repro_torch.kernels import gemm
     from repro_torch.launch import train as TR
 
     cfg = registry.get("stablelm_1_6b").with_overrides(
@@ -3444,6 +3622,7 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
     stamps = []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    copies = gemm.split_gemm.copies
     t0 = time.perf_counter()
     state, hist = TR.train(run, log=lambda m: stamps.append(
         (time.perf_counter(), m)))
@@ -3452,8 +3631,13 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = cfg.n_layers * args.tau * rounds
+    # the float32 products with the weights: 7 a layer and the tied head,
+    # each forward, dX and dW, one launch for all clients
     expect = _expect(flash_attention=n, flash_attention_bwd=n,
-                     fused_local_update=args.tau * rounds)
+                     fused_local_update=args.tau * rounds,
+                     split_gemm=3 * _dense_products(
+                         cfg, head=True, rows=args.batch * args.seq)
+                     * args.tau * rounds)
     if args.transport == "topk":
         expect["threshold_select"] = rounds
     losses = hist["train_loss"]
@@ -3461,6 +3645,8 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
           f"lm (c) {tag}: train_loss {losses}")
     check(counts == expect, f"lm (c) {tag}: launches {counts}, expected "
           f"{expect}")
+    check(gemm.split_gemm.copies == copies, f"lm (c) {tag}: the split GEMM "
+          f"copied {gemm.split_gemm.copies - copies} operands")
     rt = [t for t, m in stamps if m.startswith("round")]
     c = args.chunk
     s_round = (rt[-1] - rt[c - 1]) / (rounds - c) if rounds > c else None
@@ -3665,9 +3851,12 @@ def _zoo_card_vs_cpu(card: str, tag: str, cfg) -> dict:
     got, caches = _teacher_forced(params, cfg, prompts, steps, max_len)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == _expect(flash_attention=n_flash),
+    # the prefill's products; decode none
+    n_gemm = _dense_products(cfg, head=False, rows=2 * s_prompt)
+    check(counts == _expect(flash_attention=n_flash, split_gemm=n_gemm),
           f"16a {tag}: launches {counts}, expected {n_flash} flash launches "
-          "(one per attention layer of one prefill)")
+          f"(one per attention layer of one prefill) and {n_gemm} split "
+          "GEMM (the prefill's products)")
     before = read_counts()
     t0 = time.perf_counter()
     exp, caches_cpu = _teacher_forced(params_cpu, cfg, prompts, steps,
@@ -4057,9 +4246,13 @@ def _zoo2_card_vs_cpu(card: str, tag: str, cfg, batch, steps: int,
         got, caches = _forced(params, cfg, on_card, steps, max_len)
         torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == _expect(flash_attention=n_flash),
+    # the prefill's products (hubert's logits at every frame; every cut
+    # prefills 2 x 160 positions, _zoo2_cases_a); decode none
+    n_gemm = _dense_products(cfg, head=not cfg.decode_supported, rows=320)
+    check(counts == _expect(flash_attention=n_flash, split_gemm=n_gemm),
           f"17a {tag}: launches {counts}, expected {n_flash} flash launches "
-          "(one per attention layer of one prefill)")
+          f"(one per attention layer of one prefill) and {n_gemm} split "
+          "GEMM (the prefill's products)")
     t0 = time.perf_counter()
     with _RouterMargins() as rm_cpu:
         exp, caches_cpu = _cpu_run(lambda: _forced(
@@ -4087,14 +4280,16 @@ def _zoo2_card_vs_cpu(card: str, tag: str, cfg, batch, steps: int,
     if cfg.frontend == "audio":
         reset_counts()
         got_l = float(T.loss_fn(params, cfg, on_card))
-        check(read_counts() == _expect(flash_attention=n_flash),
+        check(read_counts() == _expect(flash_attention=n_flash,
+                                       split_gemm=n_gemm),
               f"17a {tag}: loss launches {read_counts()}")
         exp_l = float(_cpu_run(lambda: T.loss_fn(params_cpu, cfg, batch),
                                threads=0))
         check(abs(got_l - exp_l) <= 1e-5 * abs(exp_l), f"17a {tag}: masked "
               f"loss card {got_l} vs CPU {exp_l}")
         loss = {"card": got_l, "cpu": exp_l}
-        counts = {k: v + (n_flash if k == "flash_attention" else 0)
+        counts = {k: v + {"flash_attention": n_flash,
+                          "split_gemm": n_gemm}.get(k, 0)
                   for k, v in counts.items()}
     log(f"[zoo-17a] {tag} ({cfg.name}, f32, {n_params:,} params): "
         f"{len(got) - 1} teacher-forced steps after the prefill: max |logit| "
@@ -5095,6 +5290,11 @@ def main(argv) -> None:
         mesh_lib.close_world()
         phase_dryrun(card)
         return
+    if argv[:1] == ["--gemm"]:  # phase 10b alone; no result
+        card = phase_device()
+        phase_build()
+        phase_split_gemm(card)
+        return
     if argv[:1] == ["--lm"]:  # phases 15, 16 and 17 alone; no result
         card = phase_device()
         phase_build()
@@ -5134,6 +5334,7 @@ def main(argv) -> None:
     runtime = phase_runtime(card)
     tuning = phase_tune(card)
     flash_rows = phase_flash_kernel(card)
+    split_gemm = phase_split_gemm(card)
     gemma_a = phase_gemma_card_vs_cpu(card)
     gemma_b = phase_gemma_full(card)
     lm = phase_lm(card)
@@ -5203,6 +5404,9 @@ def main(argv) -> None:
             entry("flash_attention_bwd",
                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                   "src/repro/models/layers.py:152", lm["bwd_cases"][0]),
+            # no Pallas kernel: the reference leaves its products to XLA
+            entry("split_gemm", "src/repro_torch/kernels/csrc/split_gemm.cu",
+                  None, split_gemm["cases"][0]),
         ],
         "build": build,
         "kernel_cases": rows,
@@ -5222,6 +5426,7 @@ def main(argv) -> None:
         "runtime": runtime,
         "tuning": tuning,
         "flash_kernel_cases": flash_rows,
+        "split_gemm_cases": split_gemm,
         "gemma_card_vs_cpu": gemma_a,
         "gemma_full": gemma_b,
         "lm_training": lm,

@@ -17,10 +17,10 @@ launch.
 
 The plane kernels are bitwise equal to their plain versions only without
 FMA contraction (``-fmad=false``); the flash-attention kernels (forward
-and backward) are held to a tolerance, so they are built with contraction
-on (the forward split across the CPUs) and with ``-Xptxas -v``, whose
-report (registers, spills, shared memory per kernel) is kept in
-``build.ptxas`` and beside the library.
+and backward) and the split-TF32 GEMM are held to a tolerance, so they are
+built with contraction on (the flash forward split across the CPUs) and
+with ``-Xptxas -v``, whose report (registers, spills, shared memory per
+kernel) is kept in ``build.ptxas`` and beside the library.
 """
 from __future__ import annotations
 
@@ -48,7 +48,8 @@ DEFAULT_FLAGS = ("-fmad=false",)
 # (-split-compile=0: one job per CPU)
 SOURCE_FLAGS = {"flash_attention.cu": ("-fmad=true", "-split-compile=0",
                                        "-Xptxas", "-v"),
-                "flash_attention_bwd.cu": ("-fmad=true", "-Xptxas", "-v")}
+                "flash_attention_bwd.cu": ("-fmad=true", "-Xptxas", "-v"),
+                "split_gemm.cu": ("-fmad=true", "-Xptxas", "-v")}
 
 
 def source_flags(src: Path) -> tuple:
@@ -214,6 +215,10 @@ def load_library() -> ctypes.CDLL:
     fn = lib.repro_flash_tile_plan
     fn.argtypes = [ctypes.c_int] * 4 + [vp] * 3
     fn.restype = ctypes.c_int
+    fn = lib.repro_split_gemm
+    fn.argtypes = ([vp] * 3 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 8
+                   + [ctypes.c_int, vp])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -239,6 +244,23 @@ def on_card(name: str, t) -> bool:
         raise TypeError(f"the {name} kernel takes local tensors: unwrap the "
                         "DTensor to its shard (to_local) first")
     return True
+
+
+def untracked(name: str, ts) -> None:
+    """For a kernel's vmap rule that runs its Function's forward itself,
+    which records nothing for autograd: right inside ``torch.func.grad``
+    (which differentiates the Function from outside the rule), wrong where
+    autograd would have to see through the rule (``backward()`` of a
+    vmapped call, ``grad`` of ``vmap``).  Raises there rather than lose
+    the gradient."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} under vmap is differentiable only by torch.func.grad / "
+            f"vjp inside the vmap (vmap(grad(f))); an input here requires "
+            f"grad from outside it")
 
 
 def stream_handle(index: int) -> int:

@@ -512,7 +512,10 @@ class FlashAttention(torch.autograd.Function):
     empty for others, whose gradient is not implemented).  The forward is
     :func:`flash_attention_bshd` (kernel 5 on the card); the backward is
     :class:`FlashAttentionBackward`.  Under ``torch.func.vmap`` the mapped
-    axis is folded into B, so one launch covers every client."""
+    axis is folded into B, so one launch covers every client (the vmap rule
+    runs the forward itself, so it differentiates inside ``torch.func.grad``
+    only, ``vmap(grad(f))``, and raises where autograd would have to see
+    through it: :func:`repro_torch.kernels._build.untracked`)."""
 
     @staticmethod
     def forward(q, k, v, causal, window, softcap):
@@ -544,8 +547,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        # the forward itself, not a nested apply: under vmap of grad each
+        # Function call costs the host far more than the launch
+        _build.untracked("flash_attention", (q, k, v))
         n, (q, k, v) = _fold(info, in_dims[:3], (q, k, v))
-        out, lse = FlashAttention.apply(q, k, v, causal, window, softcap)
+        out, lse = FlashAttention.forward(q, k, v, causal, window, softcap)
         return (_unfold(n, out), _unfold(n, lse)), (0, 0)
 
 
@@ -571,6 +577,7 @@ class FlashAttentionBackward(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, out, dout, lse, causal, window,
              softcap):
+        _build.untracked("flash_attention", (q, k, v, out, dout, lse))
         n, ts = _fold(info, in_dims[:6], (q, k, v, out, dout, lse))
-        grads = FlashAttentionBackward.apply(*ts, causal, window, softcap)
+        grads = FlashAttentionBackward.forward(*ts, causal, window, softcap)
         return tuple(_unfold(n, g) for g in grads), (0, 0, 0)

@@ -57,7 +57,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import gemm, ops
 
 NEG_INF = -1e30
 
@@ -240,11 +240,45 @@ def causal_mask(sq, st, q_offset=0, window=None, device=None):
     return m
 
 
+# the fewest rows (tokens) a product takes to the split-TF32 kernel: its
+# tiles are 128 rows, so below one tile (a decode step's batch, a short
+# prompt) it does a whole tile's work and cuBLAS's float32 product is as
+# fast or faster
+KERNEL_MIN_ROWS = 128
+
+
+def _on_kernel(x, ws, rows: int) -> bool:
+    """Whether ``rows`` rows of ``x`` times the weights ``ws`` go to the
+    split-TF32 kernel: float32 operands on a CUDA device, at least
+    :data:`KERNEL_MIN_ROWS` rows."""
+    return (x.device.type == "cuda" and x.dtype == torch.float32
+            and all(w.dtype == torch.float32 for w in ws)
+            and rows >= KERNEL_MIN_ROWS)
+
+
+def _dense(x, ws, contract, plain):
+    """The products of ``x``'s last ``contract`` axes with the first
+    ``contract`` axes of each of the weights ``ws`` (``x`` (..., K...) times
+    ``w`` (K..., N...) -> (..., N...)), a tuple, routed by what it
+    observes (:func:`_on_kernel`, ``x``'s leading axes the rows): to the
+    split-TF32 kernel (:func:`repro_torch.kernels.gemm.matmuls`, ``x`` and
+    each ``w`` as (M, K) and (K, N) views, one autograd Function for the
+    weights that share ``x``); anything else (bf16 / f16, the CPU, a
+    decode step's few rows) is ``plain()``, the expressions the call site
+    has always used."""
+    lead = x.shape[:x.ndim - contract]
+    if not _on_kernel(x, ws, math.prod(lead)):
+        return plain()
+    ys = gemm.matmuls(x.reshape(*lead, -1),
+                      *(w.reshape(-1, math.prod(w.shape[contract:]))
+                        for w in ws))
+    return tuple(y.reshape(*lead, *w.shape[contract:]) for y, w in zip(ys, ws))
+
+
 def _qkv(p, x):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    return q, k, v
+    ws = (p["wq"], p["wk"], p["wv"])
+    return _dense(x, ws, 1, lambda: tuple(
+        torch.einsum("bsd,dhk->bshk", x, w) for w in ws))
 
 
 def _attend(cfg: AttnCfg, q, k, v, causal: bool, scale: float):
@@ -274,7 +308,8 @@ def attention_train(p, cfg: AttnCfg, x, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = _attend(cfg, q, k, v, cfg.causal, 1.0 / math.sqrt(cfg.head_dim))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _dense(out, (p["wo"],), 2, lambda: (
+        torch.einsum("bshk,hkd->bsd", out, p["wo"]),))[0]
 
 
 def _mla_latent(p, cfg: AttnCfg, x, positions):
@@ -445,9 +480,17 @@ def init_mlp(gen, d_model, d_ff, dtype):
 
 
 def mlp(p, x, act="swiglu"):
+    """The gated MLP; on the split-TF32 kernel (:func:`_on_kernel`) its
+    three products and activation are one autograd Function
+    (:func:`repro_torch.kernels.gemm.mlp`: one Function call fewer a layer
+    than two :func:`_dense` calls, for the host's sake under
+    ``vmap(grad)``)."""
     actfn = swiglu if act == "swiglu" else gelu_mul
-    h = actfn(x @ p["w_gate"], x @ p["w_up"])
-    return h @ p["w_down"]
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if _on_kernel(x, (wg, wu, wd), math.prod(x.shape[:-1])):
+        return gemm.mlp(x, wg, wu, wd, actfn)
+    h = actfn(x @ wg, x @ wu)
+    return h @ wd
 
 
 @dataclasses.dataclass(frozen=True)

@@ -405,10 +405,8 @@ def _apply_stack(p, cfg: ArchConfig, x, positions, mode, caches, cache_len):
 
 def _logits(p, cfg: ArchConfig, x):
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ p["embed"].t()
-    else:
-        logits = x @ p["unembed"]
+    w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
+    logits = L._dense(x, (w,), 1, lambda: (x @ w,))[0]
     if cfg.final_softcap is not None:
         logits = L.softcap(logits.float(), cfg.final_softcap)
     return logits
@@ -466,11 +464,16 @@ def make_grad_fn(cfg: ArchConfig):
     """``(params, batch) -> (loss, grads)`` through
     ``torch.func.grad_and_value``, so ``torch.func.vmap`` over clients
     composes (the local step's pattern); the backward runs with TF32 off
-    too."""
+    too, on the calling thread."""
     gv = torch.func.grad_and_value(lambda p, b: loss_fn(p, cfg, b))
 
     def fn(params, batch):
-        with full_fp32():
+        # the backward runs on this thread, not on the autograd engine's
+        # device thread: the split-TF32 GEMM's autograd nodes hold views of
+        # the clients' whole parameter plane, and freed from the device
+        # thread (which must first take the interpreter lock) a plane at
+        # times outlived its step, by a whole plane of device memory
+        with full_fp32(), torch.autograd.set_multithreading_enabled(False):
             grads, loss = gv(params, batch)
         return loss, grads
 

@@ -342,3 +342,24 @@ def test_refused_forward_launch_raises_and_is_not_counted(fake_card, rc,
             fa.flash_attention_bwd(q, k, v, q, do, torch.zeros(B, H, S))
     assert (fa.flash_attention_bshd.launches,
             fa.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("how", ["backward_of_vmap", "grad_of_vmap"])
+def test_vmap_rule_refuses_autograd_from_outside_the_vmap(how):
+    """The vmap rules run the forward itself, which autograd cannot see
+    through: a gradient asked from outside the vmap raises instead of
+    coming out short (``vmap(grad)`` is held above)."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(size=(3, B, S, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(3, B, S, KH, D)).astype(np.float32))
+
+    def f(q, k):
+        return torch.sum(ops.gqa_flash_attention(q, k, k) ** 2)
+
+    with torch.no_grad():
+        torch.func.vmap(f)(q.clone().requires_grad_(), k)
+    with pytest.raises(RuntimeError, match="vmap"):
+        if how == "backward_of_vmap":
+            torch.func.vmap(f)(q.clone().requires_grad_(), k).sum().backward()
+        else:
+            torch.func.grad(lambda q: torch.func.vmap(f)(q, k).sum())(q)

@@ -210,15 +210,18 @@ def test_build_sources_and_flags(monkeypatch):
     srcs = _build._sources()
     assert [s.name for s in srcs] == ["flash_attention.cu",
                                       "flash_attention_bwd.cu",
-                                      "fused_prox.cu", "plane_ops.cu"]
+                                      "fused_prox.cu", "plane_ops.cu",
+                                      "split_gemm.cu"]
     flags = {s.name: _build.source_flags(s) for s in srcs}
     for f in flags.values():
         assert "arch=compute_90a,code=sm_90a" in f
     # the bitwise plane kernels never contract into an FMA; the flash
-    # kernels (held to a tolerance) do, and report their registers and spills
+    # kernels and the split-TF32 GEMM (held to a tolerance) do, and report
+    # their registers and spills
     assert "-fmad=false" in flags["fused_prox.cu"]
     assert "-fmad=false" in flags["plane_ops.cu"]
-    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu",
+                 "split_gemm.cu"):
         assert "-fmad=true" in flags[name]
         assert "-fmad=false" not in flags[name]
         assert "-v" in flags[name]

@@ -412,7 +412,8 @@ def test_engine_chunks_carry_their_counters_and_device_track(monkeypatch):
     chunks = [e["args"] for e in doc["traceEvents"]
               if e.get("name") == "exec/chunk"]
     assert chunks == [{"start_round": r, "rounds": 2, "syncs": 1,
-                       "mallocs": 0, "alloc_retries": 0} for r in (0, 2)]
+                       "mallocs": 0, "alloc_retries": 0, "split_gemms": 0}
+                      for r in (0, 2)]
     device = [e["name"] for e in doc["traceEvents"]
               if e.get("ph") == "X" and e["tid"] == 1]
     assert device.count("local/grad") == a.tau * a.rounds
