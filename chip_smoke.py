@@ -111,13 +111,21 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   every product of a local step of the stablelm cell (4
                   clients x 512 tokens; forward, dX and dW of q/k/v/o,
                   gate/up, down and the tied head), operands laid out as
-                  the autograd Function hands them over: read in place (no
-                  copy), its error against a float64 product at most twice
-                  torch.matmul's at "highest" (float32 on the CUDA cores);
-                  kernel ms (CUDA events and profiler), the bound (operations
-                  at 165 TFLOP/s split TF32), the plain version's ms and
-                  torch.matmul's at "highest" (events and profiler), and the
-                  sums over a local step's 87 products;
+                  the autograd Function hands them over, and at the 320-row
+                  float32 prefill products of phases 11a, 16a and 17a:
+                  read in place (no copy), one launch each, computed as
+                  C^T exactly where gemm.transposed says
+                  (split_gemm.transposed), its error
+                  against a float64 product at most twice torch.matmul's at
+                  "highest" (float32 on the CUDA cores); kernel ms (CUDA
+                  events and profiler), the bound (operations at 165
+                  TFLOP/s split TF32) and the events' ms's share of it
+                  (the profiler can miss records after the smoke's earlier
+                  profiling), the SM clock and
+                  power drawn meanwhile (nvidia-smi), the plain version's ms
+                  and torch.matmul's at "highest" (events and profiler) at
+                  the cell's products, and the sums over a local step's 87
+                  products;
  11. gemma2-9b serving -- (a) full width, one local+global period, float32,
                   window 96, 2 x 160-token prompts and 8 teacher-forced
                   decode steps (the ring cache rolls at prefill and wraps in
@@ -380,7 +388,8 @@ default): ``kernels`` -- kernel 1 on phase 2's planes and on the two
 trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
 4's wide round and phase 7b's commits; ``attention`` -- kernel 5 at phase
 10's float32 shapes and kernel 5b at phase 15a's five, each beside SDPA;
-the results go to ``chiprun_out/ab.json``.
+``gemm`` -- kernel 6 at phase 10b's products and prefill products, with
+the SM clock and power; the results go to ``chiprun_out/ab.json``.
 
 Every launch counter, and the fused update's ``copies``, is set to 0 just
 before each path of phases 3-9, 11, 13-19 and read just after; no
@@ -546,7 +555,7 @@ def phase_build(tf32: bool = True):
               f"ptxas: {k} has a serialised wgmma: {r['warnings']}")
     gemm = {k: r for k, r in report.items()
             if k.startswith("split_tf32_gemm_kernel")}
-    if tf32:  # an earlier tree's side of an A/B has none
+    if tf32:  # an earlier tree's side of an A/B has other ones
         check(len(gemm) == 4, f"ptxas reported the split GEMM kernels "
               f"{sorted(gemm)}, expected the four layouts of A and B")
     for k, r in gemm.items():
@@ -2723,18 +2732,20 @@ GEMM_CASES = [
 ]
 
 
-def _gemm_operands(case, m, k, n, seed):
+def _gemm_operands(case, m, k, n, seed, batch=GEMM_CLIENTS):
     """``(a, b)`` of one of the model's products as ``kernels/gemm.
     SplitGemm`` hands them to the kernel: ``fwd`` x W (A K-major, B
     N-major), ``head`` x E^T (B K-major), ``dx`` dY W^T (both K-major),
     ``head_dx`` dL E (B N-major), ``dw`` X^T dY (A M-major, B N-major; the
-    head's dE as dL^T X, the embedding's own layout)."""
+    head's dE as dL^T X, the embedding's own layout); ``prefill`` x W as
+    ``fwd``; ``batch`` entries (the clients)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
-    c = GEMM_CLIENTS
+    c = batch
     return {"fwd": lambda: (r(c, m, k), r(c, k, n)),
+            "prefill": lambda: (r(c, m, k), r(c, k, n)),
             "head": lambda: (r(c, m, k), r(c, n, k).mT),
             "dx": lambda: (r(c, m, k), r(c, n, k).mT),
             "head_dx": lambda: (r(c, m, k), r(c, k, n)),
@@ -2752,13 +2763,84 @@ def _highest_matmul(a, b):
         return torch.matmul(a, b)
 
 
-def _gemm_case(card: str, case, m, k, n, per_step, seed):
+class _Smi:
+    """The card's SM clock (MHz) and power draw (W), sampled every 100 ms by
+    ``nvidia-smi`` in the background; :meth:`window` gives their medians
+    over an interval of ``time.perf_counter``."""
+
+    def __init__(self):
+        import threading
+
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                mhz, watts = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), mhz, watts))
+
+    def window(self, t0: float, t1: float):
+        """Medians over the samples taken in [t0, t1]; for an interval
+        shorter than the sampling, the sample nearest its middle (None
+        before the first sample)."""
+        got = [(c, w) for t, c, w in self.samples if t0 <= t <= t1]
+        if not got and self.samples:
+            mid = (t0 + t1) / 2
+            _, c, w = min(self.samples, key=lambda x: abs(x[0] - mid))
+            return c, w
+        if not got:
+            return None, None
+        return (statistics.median(c for c, _ in got),
+                statistics.median(w for _, w in got))
+
+    def close(self):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+
+
+def _gemm_transposed(gemm, a, b) -> bool:
+    """Whether the tree's wrapper computes ``a @ b`` as C^T (False for a
+    tree without the variant)."""
+    if not hasattr(gemm, "transposed"):
+        return False
+    return gemm.transposed(gemm._kernel_strides(a)[2] == 1,
+                           gemm._kernel_strides(b)[1] == 1)
+
+
+def _gemm_variant_check(gemm, case, a, b) -> None:
+    """One launch of ``a @ b``, counted once, as a transposed product (C^T)
+    exactly where :func:`gemm.transposed` says (a tree without the count
+    checks the launch only)."""
+    m, n = a.shape[1], b.shape[2]
+    launches = gemm.split_gemm.launches
+    trans = getattr(gemm.split_gemm, "transposed", None)
+    gemm.split_gemm(a, b)
+    check(gemm.split_gemm.launches == launches + 1,
+          f"split_gemm {case} {m}x{n}: launches moved by "
+          f"{gemm.split_gemm.launches - launches}, not 1")
+    if trans is not None:
+        want = int(_gemm_transposed(gemm, a, b))
+        check(gemm.split_gemm.transposed == trans + want,
+              f"split_gemm {case} {m}x{n}: transposed launches moved by "
+              f"{gemm.split_gemm.transposed - trans}, not {want}")
+
+
+def _gemm_case(card: str, case, m, k, n, per_step, seed, smi=None,
+               batch=GEMM_CLIENTS, library: bool = True):
     import torch
 
     from repro_torch.kernels import gemm
 
-    a, b = _gemm_operands(case, m, k, n, seed)
+    a, b = _gemm_operands(case, m, k, n, seed, batch)
     copies = gemm.split_gemm.copies
+    _gemm_variant_check(gemm, case, a, b)
     got = gemm.split_gemm(a, b)
     check(gemm.split_gemm.copies == copies,
           f"split_gemm {case} {m}x{k}x{n}: an operand was copied")
@@ -2769,46 +2851,120 @@ def _gemm_case(card: str, case, m, k, n, per_step, seed):
     del got, exp
     check(err <= 2 * lib_err, f"split_gemm {case} {m}x{k}x{n}: error "
           f"{err:.3e} against float64 > twice cuBLAS float32's {lib_err:.3e}")
-    flops = 2 * GEMM_CLIENTS * m * k * n
+    flops = 2 * batch * m * k * n
     big = flops > 2e11
-    reps, batch = (5, 2) if big else (9, 10)
-    ms = _time_ms(lambda: gemm.split_gemm(a, b), reps, batch)
+    reps, calls = (5, 2) if big else (9, 10)
+    t0 = time.perf_counter()
+    ms = _time_ms(lambda: gemm.split_gemm(a, b), reps, calls)
+    t1 = time.perf_counter()
+    mhz, watts = smi.window(t0, t1) if smi else (None, None)
     device_ms = _device_ms(lambda: gemm.split_gemm(a, b), 3 if big else 10)
-    lib_ms = _time_ms(lambda: _highest_matmul(a, b), reps, batch)
-    lib_device_ms = _device_ms(lambda: _highest_matmul(a, b),
-                               3 if big else 10)
-    plain_ms = _time_ms(lambda: gemm.split_gemm_plain(a, b), 3, 1)
+    lib_ms = lib_device_ms = plain_ms = None
+    if library:
+        lib_ms = _time_ms(lambda: _highest_matmul(a, b), reps, calls)
+        lib_device_ms = _device_ms(lambda: _highest_matmul(a, b),
+                                   3 if big else 10)
+        plain_ms = _time_ms(lambda: gemm.split_gemm_plain(a, b), 3, 1)
     bound_ms = 1e3 * flops / SPLIT_TF32_FLOPS
-    row = {"case": case, "mkn": [m, k, n], "batch": GEMM_CLIENTS,
-           "per_local_step": per_step, "rel_err": err, "cublas_rel_err": lib_err,
-           "max_abs_err": max_abs_err,
+    row = {"case": case, "mkn": [m, k, n], "batch": batch,
+           "per_local_step": per_step, "rel_err": err,
+           "cublas_rel_err": lib_err, "max_abs_err": max_abs_err,
+           "transposed": _gemm_transposed(gemm, a, b),
            "ms": ms, "device_ms": device_ms, "bound_ms": bound_ms,
-           "bound_by": "operations", "plain_ms": plain_ms,
+           "bound_by": "operations",
+           # of the events' time: after the smoke's earlier profiling the
+           # profiler can miss this kernel's records (device 0, or part)
+           "pct_of_bound": 100 * bound_ms / ms,
+           "sm_mhz": mhz, "power_w": watts, "plain_ms": plain_ms,
            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
-           "tflops": flops / (device_ms * 1e-3) / 1e12 if device_ms else None}
-    log(f"[gemm] {case} {GEMM_CLIENTS} x ({m} x {k}) ({k} x {n}): error "
-        f"{err:.3e} (cuBLAS f32 {lib_err:.3e}); kernel {ms:.4f} ms (device "
-        f"{device_ms:.4f}, {row['tflops'] or 0:.1f} TFLOP/s, "
-        f"{100 * bound_ms / device_ms if device_ms else 0:.1f}% of the "
-        f"bound {bound_ms:.4f}); plain {plain_ms:.4f} ms; torch.matmul "
-        f"highest {lib_ms:.4f} ms (device {lib_device_ms:.4f})  [{card}]")
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    lib = (f"; plain {plain_ms:.4f} ms; torch.matmul highest {lib_ms:.4f} ms "
+           f"(device {lib_device_ms:.4f})" if library else "")
+    log(f"[gemm] {case} {batch} x ({m} x {k}) ({k} x {n})"
+        f"{' as C^T' if row['transposed'] else ''}: "
+        f"error {err:.3e} (cuBLAS f32 {lib_err:.3e}); kernel {ms:.4f} ms "
+        f"(device {device_ms:.4f}), {row['tflops']:.1f} TFLOP/s, "
+        f"{row['pct_of_bound']:.1f}% of the bound {bound_ms:.4f} (SM "
+        f"{mhz} MHz, {watts} W){lib}  [{card}]")
     del a, b
     torch.cuda.empty_cache()
     return row
 
 
-def phase_split_gemm(card: str) -> dict:
-    """Phase 10b: the split-TF32 GEMM at the stablelm cell's products."""
-    rows = [_gemm_case(card, *c, seed=i) for i, c in enumerate(GEMM_CASES)]
+# the archs whose float32 prefill at 320 rows (2 x 160 positions) sends its
+# products to kernel 6 in chip_smoke.py phases 11a, 16a and 17a
+PREFILL_ARCHS = ("gemma2_9b", "recurrentgemma_9b", "phi3_medium_14b",
+                 "mamba2_130m", "hubert_xlarge", "internvl2_26b",
+                 "grok_1_314b", "deepseek_v3_671b")
+PREFILL_ROWS = 320
+
+
+def _prefill_products() -> list:
+    """The distinct ``(K, N)`` of the products with the weights that one
+    float32 prefill of :data:`PREFILL_ARCHS` over ``PREFILL_ROWS`` rows
+    sends to the split GEMM (as :func:`_dense_products` counts them: q, k,
+    v and o of an attention layer other than MLA's, a dense MLP's three and
+    an MoE's shared expert's three, hubert's head over every frame), in
+    order of first appearance.  A is the rows (K-major), B the weight
+    (N-major), batch 1."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    out = []
+    for arch in PREFILL_ARCHS:
+        cfg = registry.get(arch)
+        prefix, pattern, suffix = T._block_sequence(cfg)
+        d, at = cfg.d_model, cfg.attn
+        for kind, mlp_kind in prefix + pattern + suffix:
+            if kind in ("attn", "local") and at.kind != "mla":
+                hq = at.num_heads * at.head_dim
+                out += [(d, hq), (d, at.num_kv_heads * at.head_dim), (hq, d)]
+            if mlp_kind == "dense":
+                out += [(d, cfg.d_ff), (cfg.d_ff, d)]
+            if mlp_kind == "moe" and cfg.moe.num_shared:
+                out += [(d, cfg.moe.d_ff_shared), (cfg.moe.d_ff_shared, d)]
+        if not cfg.decode_supported:  # logits at every position
+            out.append((d, cfg.vocab))
+    return list(dict.fromkeys(out))
+
+
+def _gemm_rows(card: str, library: bool = True) -> dict:
+    """Kernel 6 at the stablelm cell's 12 products (:data:`GEMM_CASES`) and
+    at the 320-row prefill products (:func:`_prefill_products`), each with
+    the SM clock and power drawn while it was timed."""
+    smi = _Smi()
+    try:
+        rows = [_gemm_case(card, *c, seed=i, smi=smi, library=library)
+                for i, c in enumerate(GEMM_CASES)]
+        prefill = [_gemm_case(card, "prefill", PREFILL_ROWS, k, n, 1,
+                              seed=100 + i, smi=smi, batch=1, library=False)
+                   for i, (k, n) in enumerate(_prefill_products())]
+    finally:
+        smi.close()
     step = {key: sum(r["per_local_step"] * r[key] for r in rows)
-            for key in ("device_ms", "library_device_ms", "bound_ms")}
-    log(f"[gemm] a local step's 87 products: kernel {step['device_ms']:.2f} "
-        f"ms device (bound {step['bound_ms']:.2f}, "
-        f"{100 * step['bound_ms'] / step['device_ms']:.1f}%), torch.matmul "
-        f"highest {step['library_device_ms']:.2f} ms; a round (4 local "
-        f"steps) {4 * step['device_ms']:.1f} against "
-        f"{4 * step['library_device_ms']:.1f} ms  [{card}]")
-    return {"cases": rows, "local_step": step}
+            for key in ("ms", "device_ms", "bound_ms")}
+    if library:
+        step["library_ms"] = sum(r["per_local_step"] * r["library_ms"]
+                                 for r in rows)
+    step["pct_of_bound"] = 100 * step["bound_ms"] / step["ms"]
+    clocks = [r["sm_mhz"] for r in rows if r["sm_mhz"]]
+    watts = [r["power_w"] for r in rows if r["power_w"]]
+    step["sm_mhz"] = [min(clocks), max(clocks)] if clocks else None
+    step["power_w"] = [min(watts), max(watts)] if watts else None
+    log(f"[gemm] a local step's 87 products: kernel {step['ms']:.2f} ms "
+        f"(device {step['device_ms']:.2f}; bound {step['bound_ms']:.2f}, "
+        f"{step['pct_of_bound']:.1f}%; SM {step['sm_mhz']} MHz, "
+        f"{step['power_w']} W)"
+        + (f", torch.matmul highest {step['library_ms']:.2f} ms"
+           if library else "")
+        + f"; a round (4 local steps) {4 * step['ms']:.1f} ms  [{card}]")
+    return {"cases": rows, "local_step": step, "prefill": prefill}
+
+
+def phase_split_gemm(card: str) -> dict:
+    """Phase 10b: the split-TF32 GEMM at the stablelm cell's products and
+    at the 320-row prefill products of phases 11a, 16a and 17a."""
+    return _gemm_rows(card)
 
 
 def phase_flash_kernel(card: str):
@@ -5139,7 +5295,7 @@ def phase_dryrun(card: str) -> dict:
 AB_COMMIT_CASES = COMMIT_CASES[:7]  # the record's five shapes, f32 weights
 
 
-AB_PARTS = ("kernels", "attention")
+AB_PARTS = ("kernels", "attention", "gemm")
 
 
 def ab_part(card: str, parts=AB_PARTS, tf32: bool = True) -> dict:
@@ -5150,8 +5306,12 @@ def ab_part(card: str, parts=AB_PARTS, tf32: bool = True) -> dict:
     at its record's shapes, phase 3's 500-round paths, phase 4's wide round
     (s/round, busy, cat kernels) and phase 7b's commits.  ``attention``:
     kernel 5 at phase 10's float32 shapes and kernel 5b at phase 15a's, each
-    beside SDPA (forward and backward)."""
+    beside SDPA (forward and backward).  ``gemm``: kernel 6 at phase 10b's
+    products and the 320-row prefill products, with the SM clock and power
+    of each."""
     out = {"build_s": phase_build(tf32)["seconds"]}
+    if "gemm" in parts:
+        out["gemm"] = _gemm_rows(card, library=False)
     if "attention" in parts:
         out["flash"] = _flash_cases(card, [c for c in FLASH_CASES
                                            if c["dtype"] == "float32"])
@@ -5218,6 +5378,16 @@ def run_ab(parent: Path, parts=AB_PARTS) -> None:
         runs.append({"label": label, **json.loads(dest.read_text())})
     (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
     for r in runs:
+        if "gemm" in r:
+            g = r["gemm"]
+            log(f"[ab] {r['label']}: kernel 6, a local step's 87 products "
+                f"{g['local_step']['ms']:.3f} ms (device "
+                f"{g['local_step']['device_ms']:.3f}) "
+                f"({g['local_step']['pct_of_bound']:.1f}% of the bound; SM "
+                f"{g['local_step']['sm_mhz']} MHz, "
+                f"{g['local_step']['power_w']} W); prefill "
+                + ", ".join(f"{p['mkn'][1]}x{p['mkn'][2]} "
+                            f"{p['ms']:.4f}" for p in g["prefill"]))
         for row in r.get("flash", []) + r.get("bwd", []):
             log(f"[ab] {r['label']}: {row['kernel']} {tuple(row['shape'])} "
                 f"softcap={row['softcap']} window={row['window']}: "

@@ -83,8 +83,10 @@ calls after each chunk's host sync):
     (host synchronisations: the chunk's own, and any other, such as a
     batch's copy from pageable host memory), ``mallocs`` (the caching
     allocator's ``cudaMalloc`` + ``cudaFree`` calls, each a device sync),
-    ``alloc_retries`` and ``split_gemms`` (the split-TF32 GEMM kernel's
-    launches: the model step's float32 products);
+    ``alloc_retries``, ``split_gemms`` (the split-TF32 GEMM kernel's
+    launches: the model step's float32 products) and
+    ``split_gemms_transposed`` (those of them that computed ``C^T``,
+    ``kernels/gemm.transposed``);
   * ``exec/supply`` * -- the chunk's batches (``sample_chunk``, or per
     round ``sample_round`` and the participation mask; the cohort's), and
     each round's move of its batches and mask to the device;
@@ -1007,6 +1009,7 @@ class RoundEngine:
                              rounds=c) as chunk_span:
                 counts = tracer.counters()
                 gemms = gemm.split_gemm.launches
+                transposed = gemm.split_gemm.transposed
                 if self._cohort is not None:
                     with tracer.span("exec/supply", "exec", device=True):
                         per_round = self._cohort_batches(supplier, r0, c,
@@ -1054,7 +1057,9 @@ class RoundEngine:
                 if counts is not None:
                     chunk_span.set(**_trace.counter_deltas(
                         counts, tracer.counters()),
-                        split_gemms=gemm.split_gemm.launches - gemms)
+                        split_gemms=gemm.split_gemm.launches - gemms,
+                        split_gemms_transposed=(gemm.split_gemm.transposed
+                                                - transposed))
             # the device has drained: its spans' intervals go on the clock
             tracer.settle()
             for i, row in enumerate(rows):

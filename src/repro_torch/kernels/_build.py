@@ -217,7 +217,7 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.repro_split_gemm
     fn.argtypes = ([vp] * 3 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 8
-                   + [ctypes.c_int, vp])
+                   + [ctypes.c_int] * 2 + [vp])
     fn.restype = ctypes.c_int
     return lib
 

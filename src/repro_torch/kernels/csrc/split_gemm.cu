@@ -20,23 +20,37 @@
 // so the bound is 495 / 3 = 165 TFLOP/s.
 //
 // Design, one persistent block per SM walking output tiles of 128 x 128
-// (BM x BN) in steps of BK = 32 along K, 384 threads in three warpgroups:
-//   * warp 0 lane 0, the producer: keeps TMA loads of the float32 A and B
-//     tiles in flight in a ring of STAGES stages, on mbarriers, running
-//     ahead across tile boundaries. The tiles arrive as TMA writes them
-//     (the 128-byte swizzle, boxes 32 floats wide along the operand's
-//     contiguous axis); rows and columns past M, N or K arrive as zeros;
-//   * warps 1-3, the splitters: split the stage's B tile into hi and lo
-//     tiles, K-major in the 128-byte swizzle, which is what wgmma reads
-//     (wgmma takes .tf32 operands K-major only): a K-major B is split in
-//     place, 16 bytes at a time; an N-major B (x W's weight, dW's dY) is
-//     transposed in the same pass, 4 x 4 blocks through registers (writes
-//     free of bank conflicts, reads 2-way);
-//   * warpgroups 1 and 2, the consumers, 64 rows of the tile each: load
-//     their A fragments from the stage's float32 tile (K-major or M-major:
-//     the transpose is in the addressing) and split them in registers, then
-//     issue wgmma m64n128k8 .tf32 with A from registers and B from shared
-//     memory: lo hi, hi lo, hi hi over the stage's four k8 steps.
+// (BM x BN) in steps of BK = 32 along K, 512 threads in four warpgroups,
+// and two rings in shared memory: F_STAGES stages of the float32 A and B
+// tiles as TMA writes them, and H_STAGES stages of B's hi and lo tiles.
+//   * warp 0 lane 0, the producer: keeps TMA loads of the float32 tiles in
+//     flight, running ahead across tile boundaries. The tiles arrive in the
+//     128-byte swizzle, in boxes 32 floats wide along the operand's
+//     contiguous axis; rows and columns past M, N or K arrive as zeros;
+//   * warps 1-7, the splitters: split the stage's B tile into hi and lo
+//     tiles of the other ring, K-major in the 128-byte swizzle, which is
+//     what wgmma reads (wgmma takes .tf32 operands K-major only): a K-major
+//     B chunk for chunk, each thread's five 16-byte loads in flight before
+//     its stores; an N-major B (dW's dY) transposed in the same pass, 4 x 4
+//     blocks through registers, the blocks of each 8 lanes chosen so that
+//     both their 16-byte reads and their writes hit 8 distinct bank quads,
+//     and the blocks of successive stages dealt out in one stream (a
+//     stage's 256 blocks do not divide among 224 threads).
+//     A float32 stage is released once its B tile is read and both
+//     consumers hold its A values, so TMA runs up to F_STAGES stages ahead
+//     while the hi / lo ring holds the stages in the tensor cores' hands;
+//   * warpgroups 2 and 3, the consumers, 64 rows of the tile each: split
+//     their A fragments (K-major or M-major: the transpose is in the
+//     addressing) in registers, then issue wgmma m64n128k8 .tf32 with A from
+//     registers and B from shared memory: lo hi, hi lo, hi hi over the
+//     stage's four k8 steps. While those run they load the next stage's A
+//     values, so the loads' latency is off the tensor cores' path. The two
+//     take turns (two named barriers): one issues its stage while the other
+//     folds its last one.
+// Where only A is K-major (x W and the head's dX, whose B is an N-major
+// weight) the entry computes C^T = B^T A^T instead (the wrapper's choice,
+// `trans`), so that the operand split in shared memory is a K-major one and
+// the transposing pass is left to dW, whose operands are both MN-major.
 // Nothing new is kept in device memory: no hi / lo copy and no transposed
 // copy of an operand; the split happens once per tile in shared memory or
 // registers.
@@ -46,9 +60,7 @@
 // head's K of 100,352) the bias adds up to many times the error of a
 // float32 FMA chain, so each stage's products go into a fresh accumulator
 // (the first wgmma of a stage overwrites it) that is then added, rounding
-// to nearest, into a second float32 accumulator in registers. The warps
-// wait for their stage's products before that add; the other consumer
-// warpgroup's products keep the tensor cores busy meanwhile.
+// to nearest, into a second float32 accumulator in registers.
 //
 // Tile order follows the shape: consecutive tiles share the panel of the
 // larger operand (the B panel when N >= M, else the A panel), so the
@@ -69,24 +81,35 @@ namespace {
 
 constexpr int kEncodeFailed = 1000;  // not a cudaError_t
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
+constexpr int BM = 128, BN = 128, BK = 32;
+constexpr int F_STAGES = 4, H_STAGES = 3;
 constexpr int TILE_BYTES = 128 * BK * 4;  // one float32 tile of 128 x 32: 16 KB
-// a stage: A and B as loaded, then B's hi and lo tiles
-constexpr int STAGE_BYTES = 4 * TILE_BYTES;
-constexpr int THREADS = 384;
-constexpr int SPLITTERS = 96;  // warps 1-3
-// 1 KB of slack to align the ring to the swizzle's 1,024-byte atom
-constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 3 * STAGES * 8;
-// the block starts with 384 x 168 registers (its launch bounds) and
-// setmaxnreg moves them, never more: 128 x 72 + 256 x 216 = 384 x 168 (a
+constexpr int F_BYTES = 2 * TILE_BYTES;   // a float32 stage: A and B as loaded
+constexpr int H_BYTES = 2 * TILE_BYTES;   // a split stage: B's hi and lo tiles
+// warpgroups 0 and 1: the producer (warp 0) and seven splitter warps;
+// warpgroups 2 and 3: the consumers
+constexpr int THREADS = 512, CONSUMER_WG = 2;
+constexpr int SPLITTERS = 224;  // warps 1-7
+constexpr int CONSUMER_WARPS = 8;
+constexpr int SPLIT_BLOCKS = (BN / 4) * (BK / 4);  // a stage's 4 x 4 blocks of B
+// 1 KB of slack to align the rings to the swizzle's 1,024-byte atom
+constexpr int SMEM =
+    1024 + F_STAGES * F_BYTES + H_STAGES * H_BYTES + 8 * (2 * F_STAGES + 2 * H_STAGES);
+static_assert(SMEM <= 232448, "the rings must fit the block's 227 KB of shared memory");
+// the block starts with 512 x 128 registers (its launch bounds) and
+// setmaxnreg moves them, never more: 256 x 56 + 256 x 200 = 512 x 128 (a
 // request past the block's own would wait forever)
-constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;
+static_assert(256 * PRODUCER_REGS + 256 * CONSUMER_REGS == THREADS * 128,
+              "setmaxnreg must hand on exactly the registers it takes");
+// named barriers of the consumers' turns (0 is __syncthreads')
+constexpr int TURN_1 = 1, TURN_2 = 2;
 
 struct Args {
   float* c;
   long long c_b, ldc;
   int M, N, K, tiles_m, tiles_n, tiles, k_tiles;
-  int a_shared, b_shared, m_fast;
+  int a_shared, b_shared, m_fast, c_trans;
 };
 
 // byte offset of (row r, column k) in a K-major tile of 128-byte rows in the
@@ -138,6 +161,31 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, 
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// rows [r0, r0 + 128) x columns [k0, k0 + BK) of an operand of batch entry
+// bt into its float32 tile at dst, completing on bar: a K-major operand in
+// two boxes of 64 rows, an MN-major one in four boxes of 32 rows (its
+// contiguous axis) x BK
+template <bool KMAJ>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int k0, int r0, int bt) {
+  constexpr int BOXES = KMAJ ? 2 : 4, ROWS = 128 / BOXES, BOX_BYTES = TILE_BYTES / BOXES;
+#pragma unroll
+  for (int c = 0; c < BOXES; ++c) {
+    if (KMAJ)
+      tma_load3(dst + c * BOX_BYTES, map, bar, k0, r0 + c * ROWS, bt);
+    else
+      tma_load3(dst + c * BOX_BYTES, map, bar, r0 + c * ROWS, k0, bt);
+  }
+}
+
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -202,6 +250,19 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// a consumer thread's A values of one stage: rows row and row + 8 of the
+// tile, columns t4 and t4 + 4 of each of its four k8 steps, v[4 kk + e]
+template <bool A_K>
+__device__ __forceinline__ void load_a(float (&v)[16], uint32_t a, int row, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + 8 * (e & 1), k = 8 * kk + t4 + 4 * (e >> 1);
+      v[4 * kk + e] = lds(a + (A_K ? kmajor_off(r, k) : mnmajor_off(r, k)));
+    }
+}
+
 struct Tile {
   int bt, m0, n0;
 };
@@ -226,31 +287,44 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const __grid_constant__ CUtensorMap tb, const Args g) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  auto sA = [&](int s) { return ring + s * STAGE_BYTES; };
-  auto sB = [&](int s) { return ring + s * STAGE_BYTES + TILE_BYTES; };
-  auto sHi = [&](int s) { return ring + s * STAGE_BYTES + 2 * TILE_BYTES; };
-  auto sLo = [&](int s) { return ring + s * STAGE_BYTES + 3 * TILE_BYTES; };
-  const uint32_t bars = ring + STAGES * STAGE_BYTES;
-  auto full = [&](int s) { return bars + 8u * s; };                 // TMA landed
-  auto ready = [&](int s) { return bars + 8u * (STAGES + s); };     // B split
-  auto empty = [&](int s) { return bars + 8u * (2 * STAGES + s); };  // consumed
+  const uint32_t split_ring = ring + F_STAGES * F_BYTES;
+  auto sA = [&](int s) { return ring + s * F_BYTES; };
+  auto sB = [&](int s) { return ring + s * F_BYTES + TILE_BYTES; };
+  auto sHi = [&](int h) { return split_ring + h * H_BYTES; };
+  auto sLo = [&](int h) { return split_ring + h * H_BYTES + TILE_BYTES; };
+  const uint32_t bars = split_ring + H_STAGES * H_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };                    // TMA landed
+  auto empty = [&](int s) { return bars + 8u * (F_STAGES + s); };      // float32 read
+  auto ready = [&](int h) { return bars + 8u * (2 * F_STAGES + h); };  // B split
+  auto spent = [&](int h) { return bars + 8u * (2 * F_STAGES + H_STAGES + h); };  // consumed
 
+  // a stage's splitter arrivals: each splitter warp (B K-major) or each
+  // block (B N-major)
+  constexpr int SPLIT_ARRIVALS = B_K ? SPLITTERS / 32 : SPLIT_BLOCKS;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < F_STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(ready(s), SPLITTERS / 32);  // one arrival a splitter warp
-      mbar_init(empty(s), 8);               // one arrival a consumer warp
+      mbar_init(empty(s), SPLIT_ARRIVALS + CONSUMER_WARPS);  // and each consumer warp
+    }
+    for (int h = 0; h < H_STAGES; ++h) {
+      mbar_init(ready(h), SPLIT_ARRIVALS);
+      mbar_init(spent(h), CONSUMER_WARPS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
+  // the stages this block takes; a float32 stage among the last F_STAGES
+  // is released to no one (no load waits for it)
+  const int total =
+      ((g.tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1) *
+      g.k_tiles;
   // the warpgroup, broadcast from lane 0 so that the compiler sees it is
   // uniform: a wgmma on a path it takes as divergent is serialised, and
   // setmaxnreg on one is not honoured
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   const int lane = threadIdx.x & 31;
-  if (wg == 0) {
+  if (wg < CONSUMER_WG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
       // -- producer ------------------------------------------------------------
@@ -259,140 +333,176 @@ __global__ void __launch_bounds__(THREADS, 1)
         const Tile tl = tile_at(g, t);
         const int ba = g.a_shared ? 0 : tl.bt, bb = g.b_shared ? 0 : tl.bt;
         for (int kt = 0; kt < g.k_tiles; ++kt, ++it) {
-          const int s = it % STAGES, k0 = kt * BK;
-          if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) + 1) & 1);
+          const int s = it % F_STAGES, k0 = kt * BK;
+          if (it >= F_STAGES) mbar_wait(empty(s), ((it / F_STAGES) + 1) & 1);
           mbar_expect_tx(full(s), 2 * TILE_BYTES);
-          if (A_K) {
-            tma_load3(sA(s), &ta, full(s), k0, tl.m0, ba);
-          } else {
-            for (int c = 0; c < BM / 32; ++c)
-              tma_load3(sA(s) + c * 4096, &ta, full(s), tl.m0 + 32 * c, k0, ba);
+          load_tile<A_K>(sA(s), &ta, full(s), k0, tl.m0, ba);
+          load_tile<B_K>(sB(s), &tb, full(s), k0, tl.n0, bb);
+        }
+      }
+    } else if (threadIdx.x >= 32 && B_K) {
+      // -- splitters, B K-major: hi and lo tiles chunk for chunk ----------------
+      const int st = threadIdx.x - 32;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % F_STAGES, h = it % H_STAGES;
+        mbar_wait(full(s), (it / F_STAGES) & 1);
+        if (it >= H_STAGES) mbar_wait(spent(h), ((it / H_STAGES) + 1) & 1);
+        const uint32_t src = sB(s), hi = sHi(h), lo = sLo(h);
+        // already K-major in the swizzle: 16-byte chunk st + SPLITTERS i in
+        // place, the thread's loads all in flight before its stores
+        constexpr int CHUNKS = BN * BK / 4, PER = (CHUNKS + SPLITTERS - 1) / SPLITTERS;
+        float4 v[PER];
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int c = st + SPLITTERS * i;
+          if (c < CHUNKS) v[i] = lds4(src + 16 * c);
+        }
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int c = st + SPLITTERS * i;
+          if (c < CHUNKS) {
+            uint32_t hv[4], lv[4];
+            split_tf32(v[i].x, hv[0], lv[0]);
+            split_tf32(v[i].y, hv[1], lv[1]);
+            split_tf32(v[i].z, hv[2], lv[2]);
+            split_tf32(v[i].w, hv[3], lv[3]);
+            sts4(hi + 16 * c, hv[0], hv[1], hv[2], hv[3]);
+            sts4(lo + 16 * c, lv[0], lv[1], lv[2], lv[3]);
           }
-          if (B_K) {
-            tma_load3(sB(s), &tb, full(s), k0, tl.n0, bb);
-          } else {
-            for (int c = 0; c < BN / 32; ++c)
-              tma_load3(sB(s) + c * 4096, &tb, full(s), tl.n0 + 32 * c, k0, bb);
-          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          if (it + F_STAGES < total) mbar_arrive(empty(s));
+          mbar_arrive(ready(h));
         }
       }
     } else if (threadIdx.x >= 32) {
-      // -- splitters: B's hi and lo tiles, K-major -----------------------------
+      // -- splitters, B N-major: hi and lo tiles transposed -------------------
+      // A stage is SPLIT_BLOCKS 4 x 4 blocks (k rows 4 kq.., n columns 4
+      // q..); the splitters take the blocks of all the block's stages in
+      // turn, thread st block u = st + SPLITTERS j of the stream (stage
+      // u / SPLIT_BLOCKS), so no thread does two blocks of a stage while
+      // others wait, and each block is signalled on its own. Block b = x +
+      // 8 y (x the lane's place among 8): q = x + 8 (y % 4), kq = ((x / 2) ^
+      // (y / 4)) % 4 + 4 (y / 16). Among 8 lanes the reads' 16-byte chunk
+      // (q ^ k) % 8 and the writes' (kq ^ (4 q + r)) % 8 each take 8
+      // values: no bank conflict.
       const int st = threadIdx.x - 32;
-      int it = 0;
-      for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-        for (int kt = 0; kt < g.k_tiles; ++kt, ++it) {
-          const int s = it % STAGES;
-          mbar_wait(full(s), (it / STAGES) & 1);
-          const uint32_t src = sB(s), hi = sHi(s), lo = sLo(s);
-          if (B_K) {
-            // already K-major in the swizzle: 16-byte chunks in place
-            for (int c = st; c < BN * BK / 4; c += SPLITTERS) {
-              const float4 v = lds4(src + 16 * c);
-              uint32_t h[4], l[4];
-              split_tf32(v.x, h[0], l[0]);
-              split_tf32(v.y, h[1], l[1]);
-              split_tf32(v.z, h[2], l[2]);
-              split_tf32(v.w, h[3], l[3]);
-              sts4(hi + 16 * c, h[0], h[1], h[2], h[3]);
-              sts4(lo + 16 * c, l[0], l[1], l[2], l[3]);
-            }
-          } else {
-            // 4 x 4 blocks (k rows 4 kq.., n columns 4 q..), transposed:
-            // within 8 lanes q takes two values and kq four, so each
-            // 16-byte store of a warp hits 8 distinct bank quads
-            for (int b = st; b < (BN / 4) * (BK / 4); b += SPLITTERS) {
-              const int q = (b & 1) | (((b >> 3) & 15) << 1);
-              const int kq = ((b >> 1) & 3) | ((b >> 7) << 2);
-              float4 v[4];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) v[i] = lds4(src + mnmajor_off(4 * q, 4 * kq + i));
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                const float x[4] = {r == 0 ? v[0].x : r == 1 ? v[0].y : r == 2 ? v[0].z : v[0].w,
-                                    r == 0 ? v[1].x : r == 1 ? v[1].y : r == 2 ? v[1].z : v[1].w,
-                                    r == 0 ? v[2].x : r == 1 ? v[2].y : r == 2 ? v[2].z : v[2].w,
-                                    r == 0 ? v[3].x : r == 1 ? v[3].y : r == 2 ? v[3].z : v[3].w};
-                uint32_t h[4], l[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) split_tf32(x[i], h[i], l[i]);
-                const uint32_t off = kmajor_off(4 * q + r, 4 * kq);
-                sts4(hi + off, h[0], h[1], h[2], h[3]);
-                sts4(lo + off, l[0], l[1], l[2], l[3]);
-              }
-            }
-          }
-          fence_proxy_async();
-          __syncwarp();
-          if (lane == 0) mbar_arrive(ready(s));
+      int cur = -1;  // the stage whose barriers this thread has waited on
+#pragma unroll 1
+      for (int u = st; u < total * SPLIT_BLOCKS; u += SPLITTERS) {
+        const int it = u / SPLIT_BLOCKS, b = u % SPLIT_BLOCKS;
+        const int s = it % F_STAGES, h = it % H_STAGES;
+        if (it != cur) {
+          mbar_wait(full(s), (it / F_STAGES) & 1);
+          if (it >= H_STAGES) mbar_wait(spent(h), ((it / H_STAGES) + 1) & 1);
+          cur = it;
         }
+        const uint32_t src = sB(s), hi = sHi(h), lo = sLo(h);
+        const int x = b & 7, y = b >> 3;
+        const int q = x + 8 * (y & 3);
+        const int kq = (((x >> 1) ^ (y >> 2)) & 3) | ((y >> 4) << 2);
+        float4 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = lds4(src + mnmajor_off(4 * q, 4 * kq + k));
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float xs[4] = {r == 0 ? v[0].x : r == 1 ? v[0].y : r == 2 ? v[0].z : v[0].w,
+                               r == 0 ? v[1].x : r == 1 ? v[1].y : r == 2 ? v[1].z : v[1].w,
+                               r == 0 ? v[2].x : r == 1 ? v[2].y : r == 2 ? v[2].z : v[2].w,
+                               r == 0 ? v[3].x : r == 1 ? v[3].y : r == 2 ? v[3].z : v[3].w};
+          uint32_t hv[4], lv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) split_tf32(xs[k], hv[k], lv[k]);
+          const uint32_t off = kmajor_off(4 * q + r, 4 * kq);
+          sts4(hi + off, hv[0], hv[1], hv[2], hv[3]);
+          sts4(lo + off, lv[0], lv[1], lv[2], lv[3]);
+        }
+        fence_proxy_async();
+        if (it + F_STAGES < total) mbar_arrive(empty(s));
+        mbar_arrive(ready(h));
       }
     }
   } else {
     // -- consumers: 64 rows of the tile each ---------------------------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int tw = threadIdx.x - 128 * wg, warp = tw >> 5, gq = lane >> 2, t4 = lane & 3;
-    const int row = 64 * (wg - 1) + 16 * warp + gq;  // rows row and row + 8 of the tile
+    const int row = 64 * (wg - CONSUMER_WG) + 16 * warp + gq;  // rows row and row + 8
+    // turns: the first consumer warpgroup issues a stage, then the second ...
+    const bool first = wg == CONSUMER_WG;
+    const int my_turn = first ? TURN_1 : TURN_2, next_turn = first ? TURN_2 : TURN_1;
+    if (!first) turn_pass(TURN_1);
     float acc[64], sum[64];
+    // the next stage's A values, loaded while this stage's products run
+    float anext[16];
+    mbar_wait(full(0), 0);
+    load_a<A_K>(anext, sA(0), row, t4);
     int it = 0;
     for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
       const Tile tl = tile_at(g, t);
 #pragma unroll
       for (int i = 0; i < 64; ++i) sum[i] = 0.f;
       for (int kt = 0; kt < g.k_tiles; ++kt, ++it) {
-        const int s = it % STAGES;
-        const uint32_t par = (it / STAGES) & 1;
-        mbar_wait(full(s), par);
-        mbar_wait(ready(s), par);
+        const int s = it % F_STAGES, h = it % H_STAGES;
         // A fragments of the stage's four k8 steps, split in registers
         uint32_t ahi[4][4], alo[4][4];
-        const uint32_t a = sA(s);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = row + 8 * (e & 1), k = 8 * kk + t4 + 4 * (e >> 1);
-            split_tf32(lds(a + (A_K ? kmajor_off(r, k) : mnmajor_off(r, k))), ahi[kk][e],
-                       alo[kk][e]);
-          }
-        }
+          for (int e = 0; e < 4; ++e) split_tf32(anext[4 * kk + e], ahi[kk][e], alo[kk][e]);
+        fence_regs(ahi);  // the loads have returned before the stage is released
+        fence_regs(alo);
+        __syncwarp();
+        if (lane == 0 && it + F_STAGES < total) mbar_arrive(empty(s));
+        mbar_wait(ready(h), (it / H_STAGES) & 1);
+        turn_wait(my_turn);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, alo[kk], sw128_desc(sHi(s) + 32 * kk), kk);
+        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, alo[kk], sw128_desc(sHi(h) + 32 * kk), kk);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, ahi[kk], sw128_desc(sLo(s) + 32 * kk), 1);
+        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, ahi[kk], sw128_desc(sLo(h) + 32 * kk), 1);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, ahi[kk], sw128_desc(sHi(s) + 32 * kk), 1);
+        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(acc, ahi[kk], sw128_desc(sHi(h) + 32 * kk), 1);
         wgmma_commit();
+        turn_pass(next_turn);
+        if (it + 1 < total) {
+          const int sn = (it + 1) % F_STAGES;
+          mbar_wait(full(sn), ((it + 1) / F_STAGES) & 1);
+          load_a<A_K>(anext, sA(sn), row, t4);
+        }
         wgmma_wait_all();
         fence_regs(acc);  // and the A fragments, which the wgmmas read until now
         fence_regs(ahi);
         fence_regs(alo);
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty(s));
+        if (lane == 0) mbar_arrive(spent(h));
 #pragma unroll
         for (int i = 0; i < 64; ++i) sum[i] += acc[i];
       }
       // sum[4j + e]: row row + 8 (e >> 1), column 8 j + 2 t4 + (e & 1)
       float* cb = g.c + tl.bt * g.c_b;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = tl.m0 + row + 8 * h;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = tl.m0 + row + 8 * hh;
         if (m >= g.M) continue;
-        float* cr = cb + m * g.ldc;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int n = tl.n0 + 8 * j + 2 * t4;
-          const float x = sum[4 * j + 2 * h], y = sum[4 * j + 2 * h + 1];
-          if (n + 1 < g.N && (g.ldc & 1) == 0) {
-            *reinterpret_cast<float2*>(cr + n) = make_float2(x, y);
+          const float xv = sum[4 * j + 2 * hh], yv = sum[4 * j + 2 * hh + 1];
+          if (g.c_trans) {  // C^T was computed: its (m, n) is C's (n, m)
+            if (n < g.N) cb[n * g.ldc + m] = xv;
+            if (n + 1 < g.N) cb[(n + 1) * g.ldc + m] = yv;
+          } else if (n + 1 < g.N && (g.ldc & 1) == 0) {
+            *reinterpret_cast<float2*>(cb + m * g.ldc + n) = make_float2(xv, yv);
           } else {
-            if (n < g.N) cr[n] = x;
-            if (n + 1 < g.N) cr[n + 1] = y;
+            if (n < g.N) cb[m * g.ldc + n] = xv;
+            if (n + 1 < g.N) cb[m * g.ldc + n + 1] = yv;
           }
         }
       }
     }
+    if (first) turn_wait(TURN_1);  // the other warpgroup's last pass
   }
 }
 
@@ -459,18 +569,36 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, const Args& g, int bloc
 // stride of 0 shares the operand. Every other stride, and both base
 // addresses, must be 16-byte multiples (TMA's); K >= 1. blocks: the
 // persistent grid (the card's SM count; fewer if there are fewer tiles).
+// trans: compute C^T = B^T A^T instead (B^T the kernel's A, A^T its B,
+// C^T written into C transposed), so that A is the operand split in
+// shared memory.
 extern "C" int repro_split_gemm(const void* a, const void* b, void* c, int batch, int M, int N,
                                 int K, int64_t a_b, int64_t a_m, int64_t a_k, int64_t b_b,
                                 int64_t b_k, int64_t b_n, int64_t c_b, int64_t ldc, int blocks,
-                                void* stream) {
+                                int trans, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0) return 0;
   if (K <= 0 || blocks <= 0 || (a_k != 1 && a_m != 1) || (b_k != 1 && b_n != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (trans) {  // (M, K) x (K, N) becomes (N, K) x (K, M)
+    const void* p = a;
+    a = b;
+    b = p;
+    const int m = M;
+    M = N;
+    N = m;
+    const int64_t ab = a_b, am = a_m, ak = a_k;
+    a_b = b_b;
+    a_m = b_n;
+    a_k = b_k;
+    b_b = ab;
+    b_k = ak;
+    b_n = am;
+  }
   const bool ak = a_k == 1, bk = b_k == 1;
   CUtensorMap ta, tb;
-  const bool ok_a = ak ? encode(&ta, a, K, M, batch, a_m, a_b, BM)
+  const bool ok_a = ak ? encode(&ta, a, K, M, batch, a_m, a_b, BM / 2)
                        : encode(&ta, a, M, K, batch, a_k, a_b, BK);
-  const bool ok_b = bk ? encode(&tb, b, K, N, batch, b_n, b_b, BN)
+  const bool ok_b = bk ? encode(&tb, b, K, N, batch, b_n, b_b, BN / 2)
                        : encode(&tb, b, N, K, batch, b_k, b_b, BK);
   if (!ok_a || !ok_b) return kEncodeFailed;
   Args g;
@@ -487,6 +615,7 @@ extern "C" int repro_split_gemm(const void* a, const void* b, void* c, int batch
   g.a_shared = a_b == 0;
   g.b_shared = b_b == 0;
   g.m_fast = N >= M;  // consecutive tiles share B's panel when B is the larger
+  g.c_trans = trans != 0;
   if (blocks > g.tiles) blocks = g.tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ak && bk) return launch<true, true>(ta, tb, g, blocks, s);

@@ -20,7 +20,10 @@ float32 accumulator rounding to nearest, which keeps float32's accuracy.
     each operand read in place through its strides (rows or columns
     contiguous); an operand the kernel cannot read in place (neither axis
     contiguous, or a stride off a 16-byte multiple) is copied first and
-    counted in ``split_gemm.copies``.  CPU tensors take the plain version;
+    counted in ``split_gemm.copies``.  :func:`transposed` picks, from the
+    operands' layouts alone, whether the kernel computes ``C^T = B^T A^T``
+    (counted in ``split_gemm.transposed``).  CPU tensors take the plain
+    version;
   * :class:`SplitGemm` -- differentiable, for the products that share an
     input: ``apply(a, *bs)``, its backward the same kernel for ``dA =
     sum_i dC_i B_i^T`` and ``dB_i = A^T dC_i`` on transposed views
@@ -63,6 +66,19 @@ def split_gemm_plain(a, b):
     bh, bl = _split(b.contiguous())
     with full_fp32():
         return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def transposed(a_k_major: bool, b_k_major: bool) -> bool:
+    """Whether the kernel computes ``C^T = B^T A^T`` (and writes it
+    transposed) rather than ``C = A B``: where A is read K-major and B is
+    not (``x W`` and the head's ``dL E``, whose B is an N-major weight).
+    The kernel splits its B operand into TF32 halves in shared memory, K-major
+    as ``wgmma`` reads it; a K-major operand is split chunk for chunk, an
+    N-major one transposed in the same pass, which takes the splitter warps
+    longer than the tensor cores take for the stage.  So the K-major operand
+    is the one split wherever there is one; dW (``X^T dY``, neither K-major)
+    keeps the transposing pass."""
+    return a_k_major and not b_k_major
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,18 +158,21 @@ def split_gemm(a, b):
         return c
     a, (a_b, a_m, a_k) = _in_place(a)
     b, (b_b, b_k, b_n) = _in_place(b)
+    trans = transposed(a_k == 1, b_k == 1)
     lib = _build.load_library()
     _build.launch(
         "split_gemm", lib.repro_split_gemm, a.device, a.data_ptr(),
         b.data_ptr(), c.data_ptr(), bt, m, n, k, a_b, a_m, a_k, b_b, b_k, b_n,
-        m * n, n, _sm_count(a.device.index),
+        m * n, n, _sm_count(a.device.index), int(trans),
         errors={_ENCODE_FAILED: "cuTensorMapEncodeTiled refused an "
                                 "operand's layout"})
     split_gemm.launches += 1
+    split_gemm.transposed += trans
     return c
 
 
 split_gemm.launches = 0
+split_gemm.transposed = 0
 split_gemm.copies = 0
 
 

@@ -54,7 +54,8 @@ without it the bundle holds the host spans alone.
 
 ``python -m repro_torch.obs.trace validate out.json`` checks the exported
 schema; ``summary`` adds the time per span name, the host spans' and the
-device track's apart.
+device track's apart, and the chunks' counters summed (``syncs``,
+``mallocs``, ``split_gemms``, ``split_gemms_transposed`` ...).
 """
 from __future__ import annotations
 
@@ -736,6 +737,20 @@ def _totals(evs) -> list:
     return sorted(by_name.items(), key=lambda kv: -kv[1][0])
 
 
+def chunk_counters(evs) -> dict:
+    """The counters of the ``exec/chunk`` spans among ``evs``, each summed
+    over the chunks (every numeric arg but ``start_round`` and
+    ``rounds``), and ``rounds``, the rounds they cover."""
+    out: dict = {}
+    for e in evs:
+        if e.get("name") != "exec/chunk":
+            continue
+        for k, v in e.get("args", {}).items():
+            if k != "start_round" and isinstance(v, (int, float)):
+                out[k] = out.get(k, 0) + v
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -771,6 +786,10 @@ def main(argv=None) -> int:
                     e for e in evs if (e["pid"], e["tid"]) in device):
                 print(f"  {name:<28s} {host_s.get(name, 0.0):10.4f} "
                       f"{tot:10.4f}")
+        counts = chunk_counters(evs)
+        if set(counts) - {"rounds"}:  # the port's engine counted something
+            print("  chunk counters: " + ", ".join(
+                f"{k} {v}" for k, v in counts.items()))
     return 0
 
 

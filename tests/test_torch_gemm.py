@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.kernels import gemm
+from repro_torch.kernels import _build, gemm
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -91,6 +91,64 @@ def test_split_gemm_checks_its_operands():
         gemm.split_gemm(torch.zeros(2, 3, 4), torch.zeros(3, 4, 5))
     with pytest.raises(ValueError, match=r"\(Bt, M, K\)"):
         gemm.split_gemm(torch.zeros(1, 3, 4), torch.zeros(1, 5, 5))
+
+
+# -- the variant a product launches, by its operands' layouts -------------------------
+
+
+@pytest.mark.parametrize("case,trans", [
+    ("x W", True),          # A K-major, B an N-major weight: C^T = W^T x^T
+    ("dL E", True),         # the head's dX: B the embedding, N-major
+    ("x E^T", False),       # the head: both K-major
+    ("dY W^T", False),      # dX: both K-major
+    ("X^T dY", False),      # dW: neither K-major
+    ("X^T W^T", False),     # A M-major, B K-major: B is split as it is
+])
+def test_the_k_major_operand_is_the_one_split(case, trans):
+    """The kernel computes ``C^T`` exactly where A is K-major and B is not
+    (each side of the rule: the four layouts), read off the strides the
+    kernel takes them with."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 64, 96, generator=g)
+    w = torch.randn(96, 80, generator=g)
+    a, b = {"x W": (x, w[None]), "dL E": (x, w[None]),
+            "x E^T": (x, w.t().contiguous().t()[None]),
+            "dY W^T": (x, torch.randn(80, 96, generator=g).t()[None]),
+            "X^T dY": (x.mT, torch.randn(4, 64, 80, generator=g)),
+            "X^T W^T": (x.mT, torch.randn(80, 64, generator=g).t()[None]),
+            }[case]
+    (_, _, a_k), (_, b_k, _) = gemm._kernel_strides(a), gemm._kernel_strides(b)
+    assert gemm.transposed(a_k == 1, b_k == 1) is trans
+
+
+@pytest.mark.parametrize("a_k,b_k,trans", [
+    (True, False, True), (True, True, False), (False, False, False),
+    (False, True, False)])
+def test_transposed_is_a_pure_rule_of_the_layouts(a_k, b_k, trans):
+    assert gemm.transposed(a_k, b_k) is trans
+
+
+def test_the_launch_takes_the_layouts_variant_and_counts_it(monkeypatch):
+    """A fake card: each launch hands the kernel the variant
+    :func:`gemm.transposed` picks (the argument before the stream) and
+    counts the transposed ones beside all of them."""
+    seen = []
+    monkeypatch.setattr(_build, "on_card", lambda name, t: True)
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Lib", (), {"repro_split_gemm": None}))
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, entry, device, *args, errors=None:
+                        seen.append(args))
+    monkeypatch.setattr(gemm, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(gemm.split_gemm, "launches", 0)
+    monkeypatch.setattr(gemm.split_gemm, "transposed", 0)
+    x, w = torch.zeros(4, 320, 64), torch.zeros(64, 2048)
+    for a, b in ((x, w[None]), (x, w.t().contiguous().t()[None]),
+                 (x.mT.contiguous().mT, w[None]), (x, w[None])):
+        gemm.split_gemm(a, b)
+    # x W, x E^T (B K-major), an M-major A times W, x W
+    assert [args[-1] for args in seen] == [1, 0, 0, 1]
+    assert gemm.split_gemm.launches == 4 and gemm.split_gemm.transposed == 2
 
 
 # -- the autograd Function -----------------------------------------------------------

@@ -163,6 +163,20 @@ def test_summary_totals_the_device_track_apart(tmp_path, capsys,
     assert out[5].split() == ["inner", "0.2500", "0.2500"]
 
 
+def test_summary_sums_the_chunks_counters(tmp_path, capsys):
+    tr = trace.Tracer("p")
+    for r, (n, trans) in enumerate(((348, 116), (87, 0))):
+        with tr.span("exec/chunk", "exec", start_round=4 * r,
+                     rounds=4) as sp:
+            sp.set(syncs=1, split_gemms=n, split_gemms_transposed=trans)
+    p = tmp_path / "t.json"
+    trace.write_chrome(trace.to_chrome([tr.export_wire()]), str(p))
+    assert trace.main(["summary", str(p)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1].strip() == ("chunk counters: rounds 8, syncs 2, "
+                               "split_gemms 435, split_gemms_transposed 116")
+
+
 def test_tracer_surface():
     assert isinstance(trace.get(), trace.NullTracer)
     assert trace.span("a") is trace.span("b")  # no allocation when off
@@ -412,7 +426,8 @@ def test_engine_chunks_carry_their_counters_and_device_track(monkeypatch):
     chunks = [e["args"] for e in doc["traceEvents"]
               if e.get("name") == "exec/chunk"]
     assert chunks == [{"start_round": r, "rounds": 2, "syncs": 1,
-                       "mallocs": 0, "alloc_retries": 0, "split_gemms": 0}
+                       "mallocs": 0, "alloc_retries": 0, "split_gemms": 0,
+                       "split_gemms_transposed": 0}
                       for r in (0, 2)]
     device = [e["name"] for e in doc["traceEvents"]
               if e.get("ph") == "X" and e["tid"] == 1]
@@ -420,6 +435,39 @@ def test_engine_chunks_carry_their_counters_and_device_track(monkeypatch):
     assert {"exec/supply", "exec/local", "exec/compress", "exec/server",
             "local/update"} <= set(device)
     assert "exec/chunk" not in device and "exec/host_sync" not in device
+
+
+def test_engine_chunks_carry_the_transposed_launches(monkeypatch):
+    """``exec/chunk``'s args count the chunk's transposed launches beside
+    all its launches (``split_gemms_transposed``, ``split_gemms``)."""
+    from repro_torch.fed.runtime import RuntimeArgs, _engine, _supplier
+    from repro_torch.kernels import gemm
+
+    a = RuntimeArgs(clients=2, m=8, dim=6, tau=2, rounds=6, chunk=3,
+                    batch_size=3, device="cpu")
+    eng, _alg, _g, data, params0 = _engine(a, a.clients)
+    sup = _supplier(a, data, 0, a.clients)
+    round_fn = eng._round
+
+    def launching(*args, **kw):  # a round's products: 3, 2 of them C^T
+        gemm.split_gemm.launches += 3
+        gemm.split_gemm.transposed += 2
+        return round_fn(*args, **kw)
+
+    monkeypatch.setattr(eng, "_round", launching)
+    monkeypatch.setattr(gemm.split_gemm, "launches", 0)
+    monkeypatch.setattr(gemm.split_gemm, "transposed", 0)
+    tr = trace.install("p")
+    tr.events = _FakeEvents(_Clock())
+    try:
+        eng.run(eng.init(params0), sup, a.rounds, seed=0)
+    finally:
+        trace.uninstall()
+    doc = trace.to_chrome([tr.export_wire()])
+    chunks = [e["args"] for e in doc["traceEvents"]
+              if e.get("name") == "exec/chunk"]
+    assert [(c["split_gemms"], c["split_gemms_transposed"]) for c in chunks] \
+        == [(9, 6), (9, 6)]
 
 
 def test_the_trace_timebase_is_the_references():

@@ -5,11 +5,13 @@ has no CPU mode.  This file imports neither JAX nor the JAX package:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_split_gemm.py
 
-Accuracy is held to cuBLAS's own float32 product: at every product the
-stablelm cell runs (4 clients, 512 tokens each, d_model 2,048, d_ff 5,632,
-the vocabulary of 100,352), forward, dX and dW, the kernel's error against
-a float64 product must be at most twice ``torch.matmul``'s at
-``"highest"`` (float32 on the CUDA cores) on the same inputs.
+Accuracy is held to cuBLAS's own float32 product, in each of the kernel's
+variants (C, or C^T where only A is K-major: ``gemm.transposed``): at
+every product the stablelm cell runs (4 clients, 512 tokens each, d_model
+2,048, d_ff 5,632, the vocabulary of 100,352), forward, dX and dW, the
+kernel's error against a float64 product must be at most twice
+``torch.matmul``'s at ``"highest"`` (float32 on the CUDA cores) on the
+same inputs.
 """
 import pytest
 import torch
@@ -78,9 +80,12 @@ def test_error_within_twice_cublas_at_the_main_path_shapes(cuda, case, m, k,
                                                            n):
     a, b = _operands(case, m, k, n, cuda, seed=m + k + n)
     launches, copies = gemm.split_gemm.launches, gemm.split_gemm.copies
+    trans = gemm.split_gemm.transposed
     got = gemm.split_gemm(a, b)
     assert gemm.split_gemm.launches == launches + 1
     assert gemm.split_gemm.copies == copies  # every operand read in place
+    # x W and the head's dX (A K-major, B an N-major weight) compute C^T
+    assert gemm.split_gemm.transposed == trans + (case in ("fwd", "head_dx"))
     exp = torch.matmul(a.double(), b.double())
     err, lib = _rel(got, exp), _rel(_highest(a, b), exp)
     assert err <= 2 * lib, f"split TF32 {err:.3e} vs cuBLAS float32 {lib:.3e}"
@@ -122,6 +127,48 @@ def test_batch_stride_zero_shares_an_operand(cuda, shared):
     for i in range(4):
         assert _rel(got[i], exp[i]) <= max(
             2 * _rel(_highest(a, b)[i], exp[i]), 1e-6)
+
+
+# (M, K, N): one tile along M, 320 rows (three tiles, the serving
+# prefill's), N and K off the tile multiples, M > N with one and with two
+# tiles along N, a ragged N of 5 tiles over 2 of M
+SHAPES = [(128, 300, 4100), (320, 1000, 2050), (385, 72, 1000),
+          (1000, 200, 128), (1000, 520, 129), (256, 33, 520)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_k,b_k", LAYOUTS)
+@pytest.mark.parametrize("shared", [None, "a", "b"])
+@pytest.mark.parametrize("mkn", SHAPES,
+                         ids=[f"{m}x{k}x{n}" for m, k, n in SHAPES])
+def test_each_variant_and_layout_within_twice_cublas(cuda, a_k, b_k, shared,
+                                                     mkn):
+    """Both variants (C, and C^T where only A is K-major), K-major and
+    N-major B with M-major and K-major A, a batch-shared operand (batch
+    stride 0): each launch counted in its variant, the error within twice
+    cuBLAS float32's (both against float64; 1e-6 at the least, as the
+    ragged-edge test)."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(m + 7 * k + n)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    na, nb = (1 if shared == "a" else 3), (1 if shared == "b" else 3)
+    a = r(na, m, k) if a_k else r(na, k, m).mT
+    b = r(nb, n, k).mT if b_k else r(nb, k, n)
+    # an operand whose rows are off a 16-byte multiple is copied with its
+    # last axis contiguous first (A then K-major, B N-major)
+    sa, sb = gemm._kernel_strides(a), gemm._kernel_strides(b)
+    a_km, b_km = sa is None or sa[2] == 1, sb is not None and sb[1] == 1
+    launches, trans = gemm.split_gemm.launches, gemm.split_gemm.transposed
+    copies = gemm.split_gemm.copies
+    got = gemm.split_gemm(a, b)
+    assert gemm.split_gemm.launches == launches + 1
+    assert gemm.split_gemm.transposed == trans + int(a_km and not b_km)
+    assert gemm.split_gemm.copies == copies + (sa is None) + (sb is None)
+    assert got.shape == (3, m, n)
+    exp = torch.matmul(a.double(), b.double())
+    lib = _highest(a, b)
+    for i in range(3):
+        assert _rel(got[i], exp[i]) <= max(2 * _rel(lib[i], exp[i]), 1e-6)
 
 
 @pytest.mark.gpu
