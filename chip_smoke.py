@@ -115,7 +115,7 @@ Phases, each asserting (any failure exits non-zero and prints no result):
                   float32 prefill products of phases 11a, 16a and 17a:
                   read in place (no copy), one launch each, computed as
                   C^T exactly where gemm.transposed says
-                  (split_gemm.transposed), its error
+                  (split_gemms_transposed), its error
                   against a float64 product at most twice torch.matmul's at
                   "highest" (float32 on the CUDA cores); kernel ms (CUDA
                   events and profiler), the bound (operations at 165
@@ -391,14 +391,18 @@ trees, kernel 4 at its record's shapes, phase 3's 500-round paths, phase
 ``gemm`` -- kernel 6 at phase 10b's products and prefill products, with
 the SM clock and power; the results go to ``chiprun_out/ab.json``.
 
-Every launch counter, and the fused update's ``copies``, is set to 0 just
-before each path of phases 3-9, 11, 13-19 and read just after; no
-path may copy.  The split GEMM (kernel 6) counts on every float32 model
-path on the card: one launch a product with the weights in a forward over
+Each kernel's launches and the fused update's copies in the kernels'
+registry, ``kernels/_build.COUNTS``, are read as what they moved over each
+path of phases 3-9, 11, 13-19; no path may copy before kernel 1.  The
+split GEMM (kernel 6) counts on every float32 model path on the card: one
+launch a product with the weights in a forward over
 ``layers.KERNEL_MIN_ROWS`` rows or more, three under ``vmap(grad)``, none
-in a decode step (``_dense_products``).  The line before the last is the
-kernels' JSON summary; the last line is ``{"ok": true, "device": {...}}``.  A copy of the summary
-goes to ``chip_smoke.json`` in the output directory that ``main`` names.
+in a decode step (``_dense_products``); its launches as C^T and its
+operand copies are checked product by product in 10b, and 15c holds the
+cell's path to no copy.  The
+line before the last is the kernels' JSON summary; the last line is
+``{"ok": true, "device": {...}}``.  A copy of the summary goes to
+``chip_smoke.json`` in the output directory that ``main`` names.
 """
 from __future__ import annotations
 
@@ -446,44 +450,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _counters():
-    import importlib.util
-
-    from repro_torch.kernels import flash_attention, fused_prox, plane_ops
-
-    out = {"fused_local_update": fused_prox.fused_local_update_2d,
-           "threshold_select": plane_ops.threshold_select_2d,
-           "quantize": plane_ops.quantize_2d,
-           "weighted_commit": plane_ops.weighted_commit_2d,
-           "flash_attention": flash_attention.flash_attention_bshd}
-    # an A/B side of an earlier tree has no backward kernel, no split GEMM
-    if hasattr(flash_attention, "flash_attention_bwd"):
-        out["flash_attention_bwd"] = flash_attention.flash_attention_bwd
-    if importlib.util.find_spec("repro_torch.kernels.gemm") is not None:
-        from repro_torch.kernels import gemm
-
-        out["split_gemm"] = gemm.split_gemm
-    return out
-
-
-def _expect(**launches) -> dict:
-    """Expected counter readings: the given kernels, every other at 0, and
-    no copy made before the fused local update (``copies``)."""
-    out = {name: 0 for name in _counters()}
-    out["copies"] = 0
-    out.update(launches)
-    return out
+# the counts of kernels/_build.COUNTS at the last reset_counts()
+_ZERO: dict = {}
+# kernel 6's events that follow its operands' layouts, not launches: phase
+# 10b checks both product by product and 15c holds the cell's path to no
+# copy; elsewhere a copy is the wrapper's way with such an operand (15b's
+# hubert smoke config copies 32)
+_BY_LAYOUT = ("split_gemms_transposed", "split_gemm_copies")
 
 
 def reset_counts() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
-    _counters()["fused_local_update"].copies = 0
+    """Take the kernels' registry (``kernels/_build.COUNTS``) as it stands
+    for the zero of :func:`read_counts`."""
+    from repro_torch.kernels import _build
+
+    _ZERO.clear()
+    _ZERO.update(_build.COUNTS)
 
 
 def read_counts() -> dict:
-    out = {name: fn.launches for name, fn in _counters().items()}
-    out["copies"] = getattr(_counters()["fused_local_update"], "copies", 0)
+    """What each count of the registry, the launches and the fused update's
+    copies, moved since :func:`reset_counts` (since import before the
+    first)."""
+    from repro_torch.kernels import _build
+
+    return {k: v - _ZERO.get(k, 0) for k, v in _build.COUNTS.items()
+            if k not in _BY_LAYOUT}
+
+
+def _expect(**counts) -> dict:
+    """Expected :func:`read_counts`: the given counts (by the registry's
+    keys), every other at 0."""
+    out = dict.fromkeys(read_counts(), 0)
+    check(set(counts) <= set(out), f"no such count: {set(counts) - set(out)}")
+    out.update(counts)
     return out
 
 
@@ -956,8 +956,8 @@ def phase_main_path(card: str):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = read_counts()
-        launches = counts["fused_local_update"]
-        check(counts == _expect(fused_local_update=rounds * tau),
+        launches = counts["fused_local_updates"]
+        check(counts == _expect(fused_local_updates=rounds * tau),
               f"tau={tau}: launches {counts}, expected {rounds * tau} "
               "fused and no plane kernel")
         h_cpu = _cpu_run(lambda: _fig2_run(tau, "cpu", rounds, every))
@@ -1034,7 +1034,7 @@ def _tau1_dprox_is_fedda(card: str) -> dict:
         s, _ = rf(s, b)
         s_da, _ = rf_da(s_da, b)
     counts = read_counts()
-    check(counts == _expect(fused_local_update=10),
+    check(counts == _expect(fused_local_updates=10),
           f"tau=1 dprox vs fedda: launches {counts}")
     gap = max(float((s.x_bar[k] - s_da.x_bar[k]).abs().max())
               for k in s.x_bar)
@@ -1055,9 +1055,9 @@ def phase_compressed_paper(card: str):
     tau, rounds, every = 10, 200, 25
     out = {}
     for name, kernel, make in (
-            ("topk", "threshold_select",
+            ("topk", "threshold_selects",
              lambda: TopK(0.25, granularity="global")),
-            ("quantize", "quantize",
+            ("quantize", "quantizes",
              lambda: Quantize(8, granularity="global"))):
         stochastic = name == "quantize"
         reset_counts()
@@ -1067,7 +1067,7 @@ def phase_compressed_paper(card: str):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = read_counts()
-        expect = _expect(fused_local_update=rounds * tau, **{kernel: rounds})
+        expect = _expect(fused_local_updates=rounds * tau, **{kernel: rounds})
         check(counts == expect, f"compressed {name}: launches {counts}, "
               f"expected {expect}")
         h_cpu = _cpu_run(lambda: _fig2_run(
@@ -1153,8 +1153,8 @@ def phase_wide(card: str, kernel_ms: float):
                       eval_every=every, device="cuda")
     torch.cuda.synchronize()
     counts = read_counts()
-    launches = counts["fused_local_update"]
-    check(counts == _expect(fused_local_update=rounds * tau),
+    launches = counts["fused_local_updates"]
+    check(counts == _expect(fused_local_updates=rounds * tau),
           f"wide: launches {counts}, expected {rounds * tau} fused only")
     opt = h.optimality
     check(all(math.isfinite(v) for v in opt), f"wide: non-finite {opt}")
@@ -1278,9 +1278,9 @@ def phase_wide_compressed(card: str, ctx: dict):
     expect_bytes = {"topk": 134_880, "quantize": 126_453}
     out = {}
     for name, kernel, make in (
-            ("topk", "threshold_select",
+            ("topk", "threshold_selects",
              lambda: TopK(0.1, granularity="global")),
-            ("quantize", "quantize",
+            ("quantize", "quantizes",
              lambda: Quantize(8, granularity="global"))):
         def engine():
             return RoundEngine(ctx["alg"], ctx["grad_fn"], 30, EngineConfig(
@@ -1295,7 +1295,7 @@ def phase_wide_compressed(card: str, ctx: dict):
                           engine=eng)
         torch.cuda.synchronize()
         counts = read_counts()
-        expect = _expect(fused_local_update=rounds * tau, **{kernel: rounds})
+        expect = _expect(fused_local_updates=rounds * tau, **{kernel: rounds})
         check(counts == expect, f"wide {name}: launches {counts}, expected "
               f"{expect}")
         opt = h.optimality
@@ -1505,9 +1505,10 @@ def _tree_case(name: str, card: str, seed: int):
                 diff = _bit_diff(a[k], b[k])
                 check(diff == 0, f"fused tree {name} ({feed}) != plain "
                       f"bitwise: {diff} elements of {k} differ")
-        launches = (after["fused_local_update"]
-                    - before["fused_local_update"])
-        copies = after["copies"] - before["copies"]
+        launches = (after["fused_local_updates"]
+                    - before["fused_local_updates"])
+        copies = (after["fused_local_update_copies"]
+                  - before["fused_local_update_copies"])
         check(copies == 0, f"fused tree {name} ({feed}): {copies} copies")
         err = max(_finite_err(a[k], b[k]) for a, b in zip(got, exp)
                   for k in b)
@@ -1716,10 +1717,10 @@ def phase_async_paper(card: str):
         counts = read_counts()
         # (b): the uplink's and the downlink's top-k select the 20-wide w
         # leaf each commit (the 1-wide bias keeps its one coordinate)
-        expect = (_expect(fused_local_update=commits * tau,
-                          threshold_select=2 * commits,
-                          weighted_commit=commits) if plane
-                  else _expect(fused_local_update=commits * tau))
+        expect = (_expect(fused_local_updates=commits * tau,
+                          threshold_selects=2 * commits,
+                          weighted_commits=commits) if plane
+                  else _expect(fused_local_updates=commits * tau))
         check(counts == expect, f"async ({name}): launches {counts}, "
               f"expected {expect}")
         opt_cpu, m_cpu = _cpu_run(lambda: _async_paper_run(
@@ -1781,8 +1782,8 @@ def phase_wide_async(card: str, ctx: dict):
                       eval_every=every, engine=eng)
     torch.cuda.synchronize()
     counts = read_counts()
-    expect = _expect(fused_local_update=commits * tau,
-                     threshold_select=commits, weighted_commit=commits)
+    expect = _expect(fused_local_updates=commits * tau,
+                     threshold_selects=commits, weighted_commits=commits)
     check(counts == expect, f"wide async: launches {counts}, expected "
           f"{expect}")
     opt = h.optimality
@@ -1860,8 +1861,8 @@ def phase_cohort(card: str):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == _expect(fused_local_update=rounds * tau,
-                            threshold_select=rounds),
+    check(counts == _expect(fused_local_updates=rounds * tau,
+                            threshold_selects=rounds),
           f"cohort: launches {counts}")
     loss_cpu, touched_cpu, _ = _cpu_run(lambda: _cohort_run("cpu", rounds))
     check(abs(loss[-1] - loss_cpu[-1]) <= 1e-6 * abs(loss_cpu[-1]),
@@ -1947,7 +1948,7 @@ def _fig4_run(name: str, data, tau: int, eta_g: float, rounds: int,
     secs = time.perf_counter() - t0
     counts = read_counts()
     launches = rounds * tau if name == "dprox" else 0
-    check(counts == _expect(fused_local_update=launches),
+    check(counts == _expect(fused_local_updates=launches),
           f"fig4 {name} tau={tau}: launches {counts}, expected {launches} "
           "of kernel 1 and no copy")
     acc = h.extra["test_acc"]
@@ -1987,7 +1988,7 @@ def _fig4_card_vs_cpu(card: str, data) -> dict:
             if device == "cuda":
                 launches = 10 if name == "dprox" else 0
                 counts = read_counts()
-                check(counts == _expect(fused_local_update=launches),
+                check(counts == _expect(fused_local_updates=launches),
                       f"fig4 (a) {name}: launches {counts}")
         xb, xb_cpu = states["cuda"].x_bar, states["cpu"].x_bar
         gap = (max(float((xb[k].cpu() - xb_cpu[k]).abs().max()) for k in xb)
@@ -2043,7 +2044,7 @@ def phase_fig4(card: str) -> dict:
                              "seconds": secs, "launches": counts}
         log(f"[fig4] (b) {name} tau=5, {gate_rounds} rounds: test accuracy "
             f"{acc[name]:.4f}, {secs / gate_rounds:.4f} s/round, launches "
-            f"{counts['fused_local_update']}  [{card}]")
+            f"{counts['fused_local_updates']}  [{card}]")
     check(acc["dprox"] > 0.7, f"fig4 (b): the CNN failed to learn "
           f"(acc {acc['dprox']})")
     check(acc["dprox"] >= acc["fedda"] - 0.02,
@@ -2069,7 +2070,7 @@ def phase_fig4(card: str) -> dict:
                 f"accuracy {accs[-1]:.4f}, best {max(accs):.4f}, "
                 f"{secs / rounds:.4f} s/round ({len(accs)} evals included), "
                 f"kernel 1 "
-                f"x{counts['fused_local_update']}  [{card}]")
+                f"x{counts['fused_local_updates']}  [{card}]")
 
     # (d) one profiled DProx round (tau 10)
     eng, params0, supplier = _fig4_engine("dprox", full, 10, eta_g, "cuda",
@@ -2123,12 +2124,12 @@ def _rt_expect(a) -> dict:
     from repro_torch.comm.transport import _k_of
 
     widths = (a.dim, 1)
-    exp = {"fused_local_update": a.rounds * a.tau}
+    exp = {"fused_local_updates": a.rounds * a.tau}
     if a.transport == "topk":
-        exp["threshold_select"] = a.rounds * sum(_k_of(a.ratio, w) < w
+        exp["threshold_selects"] = a.rounds * sum(_k_of(a.ratio, w) < w
                                                  for w in widths)
     elif a.transport == "quantize":
-        exp["quantize"] = a.rounds * len(widths)
+        exp["quantizes"] = a.rounds * len(widths)
     return _expect(**exp)
 
 
@@ -2216,7 +2217,7 @@ def _rt_checkpoint(card: str) -> dict:
                        a.rounds)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == _expect(fused_local_update=a.rounds * a.tau),
+    check(counts == _expect(fused_local_updates=a.rounds * a.tau),
           f"runtime ckpt: launches {counts}")
     path = ROOT / "build" / "runtime_state.npz"
     t0 = time.perf_counter()
@@ -2277,7 +2278,7 @@ def phase_runtime(card: str) -> dict:
     check(per_worker == {0: chunks, 1: chunks}, f"runtime two workers: "
           f"server commits per worker {per_worker}, expected {chunks} each")
     check(two["launches"] == _expect(
-        fused_local_update=two_a.rounds * two_a.tau),
+        fused_local_updates=two_a.rounds * two_a.tau),
           f"runtime two workers: rank 0 launches {two['launches']}")
     two["server_commits_per_worker"] = per_worker
     runs["two_workers"] = two
@@ -2806,30 +2807,25 @@ class _Smi:
 
 
 def _gemm_transposed(gemm, a, b) -> bool:
-    """Whether the tree's wrapper computes ``a @ b`` as C^T (False for a
-    tree without the variant)."""
-    if not hasattr(gemm, "transposed"):
-        return False
+    """Whether the wrapper computes ``a @ b`` as C^T."""
     return gemm.transposed(gemm._kernel_strides(a)[2] == 1,
                            gemm._kernel_strides(b)[1] == 1)
 
 
 def _gemm_variant_check(gemm, case, a, b) -> None:
     """One launch of ``a @ b``, counted once, as a transposed product (C^T)
-    exactly where :func:`gemm.transposed` says (a tree without the count
-    checks the launch only)."""
+    exactly where :func:`gemm.transposed` says, with no operand copied."""
+    from repro_torch.kernels import _build
+
     m, n = a.shape[1], b.shape[2]
-    launches = gemm.split_gemm.launches
-    trans = getattr(gemm.split_gemm, "transposed", None)
+    before = _build.COUNTS.copy()
     gemm.split_gemm(a, b)
-    check(gemm.split_gemm.launches == launches + 1,
-          f"split_gemm {case} {m}x{n}: launches moved by "
-          f"{gemm.split_gemm.launches - launches}, not 1")
-    if trans is not None:
-        want = int(_gemm_transposed(gemm, a, b))
-        check(gemm.split_gemm.transposed == trans + want,
-              f"split_gemm {case} {m}x{n}: transposed launches moved by "
-              f"{gemm.split_gemm.transposed - trans}, not {want}")
+    moved = dict(_build.COUNTS - before)
+    want = {"split_gemms": 1}
+    if _gemm_transposed(gemm, a, b):
+        want["split_gemms_transposed"] = 1
+    check(moved == want, f"split_gemm {case} {m}x{n}: the counts moved by "
+          f"{moved}, not {want}")
 
 
 def _gemm_case(card: str, case, m, k, n, per_step, seed, smi=None,
@@ -2839,11 +2835,8 @@ def _gemm_case(card: str, case, m, k, n, per_step, seed, smi=None,
     from repro_torch.kernels import gemm
 
     a, b = _gemm_operands(case, m, k, n, seed, batch)
-    copies = gemm.split_gemm.copies
     _gemm_variant_check(gemm, case, a, b)
     got = gemm.split_gemm(a, b)
-    check(gemm.split_gemm.copies == copies,
-          f"split_gemm {case} {m}x{k}x{n}: an operand was copied")
     exp = torch.matmul(a.double(), b.double())
     rel = lambda x: float((x.double() - exp).norm() / exp.norm())
     err, lib_err = rel(got), rel(_highest_matmul(a, b))
@@ -3217,7 +3210,7 @@ def phase_gemma_card_vs_cpu(card: str):
     counts = read_counts()
     # the prefill's products; decode none
     n_gemm = _dense_products(cfg, head=False, rows=2 * s_prompt)
-    check(counts == _expect(flash_attention=2, split_gemm=n_gemm),
+    check(counts == _expect(flash_attentions=2, split_gemms=n_gemm),
           f"11a card: launches {counts}, expected 2 flash launches (one per "
           f"layer of one prefill) and {n_gemm} split GEMM (the prefill's "
           "products)")
@@ -3264,8 +3257,8 @@ def phase_gemma_card_vs_cpu(card: str):
     n_flash = 2 * len(reqs)  # one launch per layer of each admission
     # each admission's prefill, one prompt's rows
     n_serve = sum(_dense_products(cfg, head=False, rows=n) for n in lens)
-    check(read_counts() == _expect(flash_attention=n_flash,
-                                   split_gemm=n_serve),
+    check(read_counts() == _expect(flash_attentions=n_flash,
+                                   split_gemms=n_serve),
           f"11a serve: launches {read_counts()}, expected {n_flash} flash "
           f"and {n_serve} split GEMM (the admissions' prefills)")
     flips = []
@@ -3290,8 +3283,8 @@ def phase_gemma_card_vs_cpu(card: str):
         f"{n_flash} flash launches  [{card}]")
     del params, eng
     torch.cuda.empty_cache()
-    return {"launches": _expect(flash_attention=2 + n_flash,
-                                split_gemm=n_gemm + n_serve),
+    return {"launches": _expect(flash_attentions=2 + n_flash,
+                                split_gemms=n_gemm + n_serve),
             "max_abs_diff": max(errs), "tol": tol, "max_abs_logit": scale,
             "errs": errs, "cache_max_abs_diff": cache_err,
             "cache_tol": tol_cache, "flips": flips,
@@ -3356,7 +3349,7 @@ def phase_gemma_full(card: str):
     t_end = time.perf_counter()
     counts = read_counts()
     prefills = 1 + len(reqs)
-    check(counts == _expect(flash_attention=cfg.n_layers * prefills),
+    check(counts == _expect(flash_attentions=cfg.n_layers * prefills),
           f"11b: launches {counts}, expected {cfg.n_layers} flash launches "
           f"per prefill x {prefills} prefills and nothing else")
     check(gen.tokens.shape == (2, new) and np.isfinite(gen.logprobs).all(),
@@ -3653,9 +3646,9 @@ def _lm_smoke(card: str, arch: str) -> dict:
                     * TR.parser().get_default("seq"))
             n_gemm = (3 * _dense_products(cfg, head=True, rows=rows) * tau
                       * rounds)
-            check(counts == _expect(flash_attention=n, flash_attention_bwd=n,
-                                    fused_local_update=tau * rounds,
-                                    split_gemm=n_gemm),
+            check(counts == _expect(flash_attentions=n, flash_attention_bwds=n,
+                                    fused_local_updates=tau * rounds,
+                                    split_gemms=n_gemm),
                   f"lm (b) {arch}: launches {counts}, expected {n} of "
                   f"kernels 5 and 5b, {n_gemm} of the split GEMM")
     (lg, xg), (lc, xc) = traj["cuda"], traj["cpu"]
@@ -3760,7 +3753,7 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import registry
-    from repro_torch.kernels import gemm
+    from repro_torch.kernels import _build
     from repro_torch.launch import train as TR
 
     cfg = registry.get("stablelm_1_6b").with_overrides(
@@ -3778,7 +3771,7 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
     stamps = []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    copies = gemm.split_gemm.copies
+    copies = _build.COUNTS["split_gemm_copies"]
     t0 = time.perf_counter()
     state, hist = TR.train(run, log=lambda m: stamps.append(
         (time.perf_counter(), m)))
@@ -3789,20 +3782,21 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
     n = cfg.n_layers * args.tau * rounds
     # the float32 products with the weights: 7 a layer and the tied head,
     # each forward, dX and dW, one launch for all clients
-    expect = _expect(flash_attention=n, flash_attention_bwd=n,
-                     fused_local_update=args.tau * rounds,
-                     split_gemm=3 * _dense_products(
+    expect = _expect(flash_attentions=n, flash_attention_bwds=n,
+                     fused_local_updates=args.tau * rounds,
+                     split_gemms=3 * _dense_products(
                          cfg, head=True, rows=args.batch * args.seq)
                      * args.tau * rounds)
     if args.transport == "topk":
-        expect["threshold_select"] = rounds
+        expect["threshold_selects"] = rounds
     losses = hist["train_loss"]
     check(len(losses) == rounds and all(math.isfinite(x) for x in losses),
           f"lm (c) {tag}: train_loss {losses}")
     check(counts == expect, f"lm (c) {tag}: launches {counts}, expected "
           f"{expect}")
-    check(gemm.split_gemm.copies == copies, f"lm (c) {tag}: the split GEMM "
-          f"copied {gemm.split_gemm.copies - copies} operands")
+    copied = _build.COUNTS["split_gemm_copies"] - copies
+    check(copied == 0, f"lm (c) {tag}: the split GEMM copied {copied} "
+          "operands")
     rt = [t for t, m in stamps if m.startswith("round")]
     c = args.chunk
     s_round = (rt[-1] - rt[c - 1]) / (rounds - c) if rounds > c else None
@@ -3810,7 +3804,8 @@ def _lm_full(card: str, extra=(), rounds: int = 8):
            "n_params": run.n_params, "args": vars(args), "setup_s": setup_s,
            "wall_s": wall, "s_per_round": s_round, "train_loss": losses,
            "launches": counts, "peak_gb": peak_gb, "held_before_gb": held_gb,
-           "copies_per_local_step": counts["copies"] / (args.tau * rounds)}
+           "copies_per_local_step": (counts["fused_local_update_copies"]
+                                     / (args.tau * rounds))}
     log(f"[lm-c] {cfg.name} {tag}: {run.n_params:,} params, 4 clients x "
         f"batch 4 x seq 128, tau {args.tau}, {rounds} rounds in {wall:.2f} s "
         f"(set-up {setup_s:.2f} s); "
@@ -4009,7 +4004,7 @@ def _zoo_card_vs_cpu(card: str, tag: str, cfg) -> dict:
     counts = read_counts()
     # the prefill's products; decode none
     n_gemm = _dense_products(cfg, head=False, rows=2 * s_prompt)
-    check(counts == _expect(flash_attention=n_flash, split_gemm=n_gemm),
+    check(counts == _expect(flash_attentions=n_flash, split_gemms=n_gemm),
           f"16a {tag}: launches {counts}, expected {n_flash} flash launches "
           f"(one per attention layer of one prefill) and {n_gemm} split "
           "GEMM (the prefill's products)")
@@ -4204,7 +4199,7 @@ def _zoo_full(card: str, arch: str, lens, gen_len: int, max_len: int,
     counts = read_counts()
     n_attn = _attn_layers(cfg)
     prefills = 1 + len(reqs)
-    check(counts == _expect(flash_attention=n_attn * prefills),
+    check(counts == _expect(flash_attentions=n_attn * prefills),
           f"16b {cfg.name}: launches {counts}, expected {n_attn} flash "
           f"launches per prefill x {prefills} prefills and nothing else")
     check(gen.tokens.shape == (2, new) and np.isfinite(gen.logprobs).all(),
@@ -4405,7 +4400,7 @@ def _zoo2_card_vs_cpu(card: str, tag: str, cfg, batch, steps: int,
     # the prefill's products (hubert's logits at every frame; every cut
     # prefills 2 x 160 positions, _zoo2_cases_a); decode none
     n_gemm = _dense_products(cfg, head=not cfg.decode_supported, rows=320)
-    check(counts == _expect(flash_attention=n_flash, split_gemm=n_gemm),
+    check(counts == _expect(flash_attentions=n_flash, split_gemms=n_gemm),
           f"17a {tag}: launches {counts}, expected {n_flash} flash launches "
           f"(one per attention layer of one prefill) and {n_gemm} split "
           "GEMM (the prefill's products)")
@@ -4436,16 +4431,16 @@ def _zoo2_card_vs_cpu(card: str, tag: str, cfg, batch, steps: int,
     if cfg.frontend == "audio":
         reset_counts()
         got_l = float(T.loss_fn(params, cfg, on_card))
-        check(read_counts() == _expect(flash_attention=n_flash,
-                                       split_gemm=n_gemm),
+        check(read_counts() == _expect(flash_attentions=n_flash,
+                                       split_gemms=n_gemm),
               f"17a {tag}: loss launches {read_counts()}")
         exp_l = float(_cpu_run(lambda: T.loss_fn(params_cpu, cfg, batch),
                                threads=0))
         check(abs(got_l - exp_l) <= 1e-5 * abs(exp_l), f"17a {tag}: masked "
               f"loss card {got_l} vs CPU {exp_l}")
         loss = {"card": got_l, "cpu": exp_l}
-        counts = {k: v + {"flash_attention": n_flash,
-                          "split_gemm": n_gemm}.get(k, 0)
+        counts = {k: v + {"flash_attentions": n_flash,
+                          "split_gemms": n_gemm}.get(k, 0)
                   for k, v in counts.items()}
     log(f"[zoo-17a] {tag} ({cfg.name}, f32, {n_params:,} params): "
         f"{len(got) - 1} teacher-forced steps after the prefill: max |logit| "
@@ -4591,7 +4586,7 @@ def _zoo2_full(card: str, arch: str, n_layers=None, lens=(), gen_len=1024,
             torch.cuda.synchronize()
             enc_ms = 1e3 * (time.perf_counter() - t0)
         counts = read_counts()
-        check(counts == _expect(flash_attention=n_attn), f"17b {cfg.name}: "
+        check(counts == _expect(flash_attentions=n_attn), f"17b {cfg.name}: "
               f"launches {counts}, expected {n_attn} flash")
         check(logits.shape == (8, 1500, cfg.vocab)
               and bool(torch.isfinite(logits).all()),
@@ -4641,7 +4636,7 @@ def _zoo2_full(card: str, arch: str, n_layers=None, lens=(), gen_len=1024,
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == _expect(flash_attention=n_attn), f"17b {cfg.name}: "
+    check(counts == _expect(flash_attentions=n_attn), f"17b {cfg.name}: "
           f"launches {counts}, expected {n_attn} flash (one prefill)")
     check(gen.tokens.shape == (2, new) and np.isfinite(gen.logprobs).all()
           and ((0 <= gen.tokens) & (gen.tokens < cfg.vocab)).all(),
@@ -4673,7 +4668,7 @@ def _zoo2_full(card: str, arch: str, n_layers=None, lens=(), gen_len=1024,
         served = leng.serve(reqs, slots=2, segment=4)
         torch.cuda.synchronize()
         n_flash = n_attn * len(reqs)
-        check(read_counts() == _expect(flash_attention=n_flash),
+        check(read_counts() == _expect(flash_attentions=n_flash),
               f"17b {cfg.name} serve: launches {read_counts()}, expected "
               f"{n_flash}")
         diffs, lp_gap = [], 0.0
@@ -4696,7 +4691,7 @@ def _zoo2_full(card: str, arch: str, n_layers=None, lens=(), gen_len=1024,
                                     "differing_tokens": diffs,
                                     "max_logprob_diff": lp_gap,
                                     "launches": n_flash}
-        out["launches"] = {k: v + (n_flash if k == "flash_attention" else 0)
+        out["launches"] = {k: v + (n_flash if k == "flash_attentions" else 0)
                            for k, v in out["launches"].items()}
         log(f"[zoo-17b] {cfg.name} lossless capacity (cf "
             f"{lossless.moe.capacity_factor}): serve 3 requests (2 slots, "
@@ -4797,15 +4792,15 @@ def _tune_expect(point, workload, rounds: int) -> dict:
     widths = (workload.dim, 1)
     if point.granularity == "global":
         widths = (sum(widths),)
-    exp = {"fused_local_update": rounds * workload.tau}
+    exp = {"fused_local_updates": rounds * workload.tau}
     if point.transport == "topk":
-        exp["threshold_select"] = rounds * (
+        exp["threshold_selects"] = rounds * (
             len(widths) if point.schedule != "constant"
             else sum(_k_of(point.ratio, w) < w for w in widths))
     elif point.transport == "quantize":
-        exp["quantize"] = rounds * len(widths)
+        exp["quantizes"] = rounds * len(widths)
     if workload.is_async and point.plane:
-        exp["weighted_commit"] = rounds
+        exp["weighted_commits"] = rounds
     return _expect(**exp)
 
 
@@ -4933,7 +4928,7 @@ def _tune_async(card: str, cache: str) -> dict:
     w = Workload(clock="straggler")
     res, runner = _tune_search(card, "c", w, SearchSpace(plane=(True,)), 4,
                                cache)
-    check(res["launches"]["weighted_commit"] > 0,
+    check(res["launches"]["weighted_commits"] > 0,
           f"tune (c): the commit kernel never launched: {res['launches']}")
     best = res["record"]["best"]
     trials = runner.trials
@@ -4975,7 +4970,7 @@ def _tune_processes(card: str, tmp: str) -> dict:
     res = runner.measure(point)
     counts = read_counts()
     # rank 0 runs here: kernel 1 once a local step (a dense uplink)
-    expect = _expect(fused_local_update=TUNE_ROUNDS * w.tau)
+    expect = _expect(fused_local_updates=TUNE_ROUNDS * w.tau)
     check(counts == expect, f"tune (d): rank 0 launches {counts}, expected "
           f"{expect}")
     hidden = res.snapshot["gauges"]["tune/hidden_fraction"]
@@ -5030,9 +5025,9 @@ def _tune_train_cli(card: str, tmp: str) -> dict:
     counts = json.loads(lines[-1][len("LAUNCHES "):])
     tau, rounds = 4, 2  # the trainer's default tau, --rounds
     n = _attn_layers(registry.get_smoke("stablelm_1_6b")) * tau * rounds
-    check(counts["flash_attention"] == counts["flash_attention_bwd"] == n
-          and counts["fused_local_update"] >= tau * rounds
-          and counts["copies"] == 0,
+    check(counts["flash_attentions"] == counts["flash_attention_bwds"] == n
+          and counts["fused_local_updates"] >= tau * rounds
+          and counts["fused_local_update_copies"] == 0,
           f"tune (e): launches {counts}, expected {n} of kernels 5 and 5b")
     log(f"[tune-e] python -m repro_torch.launch.train {' '.join(args)}: exit "
         f"0 in {secs:.1f} s; {adopt[0]}; launches {counts} (the search's "
@@ -5125,7 +5120,7 @@ def phase_placed(card: str, ctx: dict) -> dict:
 
     wide = _placed_pair("wide dense", wide_engine, ctx["params0"],
                         ctx["supplier"], rounds, seed=0)
-    exp = _expect(fused_local_update=rounds * WIDE_TAU)
+    exp = _expect(fused_local_updates=rounds * WIDE_TAU)
     check(wide["placed"]["launches"] == exp,
           f"mesh wide: launches {wide['placed']['launches']}, expected {exp}")
 
@@ -5152,10 +5147,10 @@ def phase_placed(card: str, ctx: dict) -> dict:
         lambda r, g: make_round_batches(data, tau, None, g), commits,
         seed=0)
     got = paper["placed"]["launches"]
-    check(all(got[k] > 0 for k in ("fused_local_update", "threshold_select",
-                                   "weighted_commit"))
-          and got["fused_local_update"] == commits * tau
-          and got["weighted_commit"] == commits,
+    check(all(got[k] > 0 for k in ("fused_local_updates", "threshold_selects",
+                                   "weighted_commits"))
+          and got["fused_local_updates"] == commits * tau
+          and got["weighted_commits"] == commits,
           f"mesh paper async: launches {got}")
     secs = time.perf_counter() - t0
     log(f"[mesh] phase 19a in {secs:.1f} s  [{card}]")
@@ -5533,11 +5528,11 @@ def main(argv) -> None:
              *zoo["card_vs_cpu"], *zoo["full"], *zoo2["card_vs_cpu"],
              *zoo2["full"], *placed["paths"], *moe_ep["full"],
              *moe_ep["f32_cut"]]
-    launches = {k: sum(p["launches"][k] for p in paths) for k in _counters()}
+    launches = {k: sum(p["launches"][k] for p in paths) for k in _expect()}
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": launches[name + "s"],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],

@@ -79,14 +79,12 @@ Those marked * also record the device interval of the work they enqueue
 calls after each chunk's host sync):
 
   * ``exec/chunk`` -- one chunk, with the args ``start_round``, ``rounds``
-    and, on an initialised CUDA device, the chunk's counters: ``syncs``
-    (host synchronisations: the chunk's own, and any other, such as a
-    batch's copy from pageable host memory), ``mallocs`` (the caching
-    allocator's ``cudaMalloc`` + ``cudaFree`` calls, each a device sync),
-    ``alloc_retries``, ``split_gemms`` (the split-TF32 GEMM kernel's
-    launches: the model step's float32 products) and
-    ``split_gemms_transposed`` (those of them that computed ``C^T``,
-    ``kernels/gemm.transposed``);
+    and, on an initialised CUDA device, the chunk's counters,
+    :meth:`Tracer.counters`'s: ``syncs`` (host synchronisations: the
+    chunk's own, and any other, such as a batch's copy from pageable host
+    memory), ``mallocs`` (the caching allocator's ``cudaMalloc`` +
+    ``cudaFree`` calls, each a device sync), ``alloc_retries``, and the
+    kernels' launches and events (``split_gemms`` ..., ``kernels/_build``);
   * ``exec/supply`` * -- the chunk's batches (``sample_chunk``, or per
     round ``sample_round`` and the participation mask; the cohort's), and
     each round's move of its batches and mask to the device;
@@ -131,7 +129,6 @@ from repro_torch.exec.stages import (Asynchrony, Cohort, DownlinkComm,
                                      sink_blockers)
 from repro_torch.exec.suppliers import (as_supplier, has_chunk_path,
                                         supports_client_ids)
-from repro_torch.kernels import gemm
 from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree as tu
 
@@ -1008,8 +1005,6 @@ class RoundEngine:
             with tracer.span("exec/chunk", "exec", start_round=r0,
                              rounds=c) as chunk_span:
                 counts = tracer.counters()
-                gemms = gemm.split_gemm.launches
-                transposed = gemm.split_gemm.transposed
                 if self._cohort is not None:
                     with tracer.span("exec/supply", "exec", device=True):
                         per_round = self._cohort_batches(supplier, r0, c,
@@ -1056,10 +1051,7 @@ class RoundEngine:
                     rows = _host_metrics(infos)
                 if counts is not None:
                     chunk_span.set(**_trace.counter_deltas(
-                        counts, tracer.counters()),
-                        split_gemms=gemm.split_gemm.launches - gemms,
-                        split_gemms_transposed=(gemm.split_gemm.transposed
-                                                - transposed))
+                        counts, tracer.counters()))
             # the device has drained: its spans' intervals go on the clock
             tracer.settle()
             for i, row in enumerate(rows):

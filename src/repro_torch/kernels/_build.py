@@ -12,8 +12,11 @@ flag is rebuilt and a stale library is never loaded.  Nothing is built when
 this module is imported.
 
 :func:`launch` is the one launch path of the kernels: it calls a library
-entry on the current stream of the tensor's card and raises on a refused
-launch.
+entry on the current stream of the tensor's card, raises on a refused
+launch and counts an accepted one in :data:`COUNTS`, the one registry of
+the kernels' counts: kernel ``name``'s launches under ``name + "s"``, the
+:data:`EVENTS` by :func:`count`.  Its keys, each at 0 from import, are the
+names the ``exec/chunk`` spans carry (``obs.trace.Tracer.counters``).
 
 The plane kernels are bitwise equal to their plain versions only without
 FMA contraction (``-fmad=false``); the flash-attention kernels (forward
@@ -24,6 +27,7 @@ kernel) is kept in ``build.ptxas`` and beside the library.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -222,6 +226,29 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+#: the kernels :func:`launch` takes, by the name it is given, each launched
+#: through the entry ``repro_<name>`` that :func:`load_library` declares
+#: (its tile-plan and table-size queries launch nothing)
+KERNELS = ("fused_local_update", "threshold_select", "quantize",
+           "weighted_commit", "flash_attention", "flash_attention_bwd",
+           "split_gemm")
+#: the events that are not launches: the split GEMM's launches as ``C^T``
+#: (``gemm.transposed``), the operands two wrappers copied before a launch
+EVENTS = ("split_gemms_transposed", "split_gemm_copies",
+          "fused_local_update_copies")
+#: the launches (``name + "s"``) and events counted since import
+COUNTS = collections.Counter(
+    dict.fromkeys([name + "s" for name in KERNELS] + list(EVENTS), 0))
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to the event ``key`` of :data:`COUNTS` (one of
+    :data:`EVENTS`); raises on any other key."""
+    if key not in EVENTS:
+        raise KeyError(f"{key!r} is not a counted event: {EVENTS}")
+    COUNTS[key] += n
+
+
 def is_dtensor(t) -> bool:
     """Whether ``t`` is a ``torch.distributed`` ``DTensor`` (without
     importing ``torch.distributed`` when it is not loaded)."""
@@ -271,13 +298,16 @@ def stream_handle(index: int) -> int:
 
 
 def launch(name: str, entry, device, *args, errors=None) -> None:
-    """Call the library function ``entry`` with ``args`` and the current
+    """Call the library function ``entry`` of kernel ``name`` (one of
+    :data:`KERNELS`, else it raises first) with ``args`` and the current
     stream of ``device``, entering that card's context only when it is not
-    the current one; raises if the entry returns a nonzero (refused)
-    launch code, with the message ``errors`` gives for that code if any.
-    No device work besides the launch."""
+    the current one; raises if the entry returns a nonzero (refused) launch
+    code, with the message ``errors`` gives for that code if any, else
+    counts the launch in :data:`COUNTS`.  No device work besides it."""
     import torch
 
+    if name not in KERNELS:
+        raise KeyError(f"{name!r} is not a counted kernel: {KERNELS}")
     index = device.index
     if index == torch.cuda.current_device():
         err = entry(*args, stream_handle(index))
@@ -288,3 +318,4 @@ def launch(name: str, entry, device, *args, errors=None) -> None:
         if errors and err in errors:
             raise RuntimeError(f"{name} kernel: {errors[err]}")
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    COUNTS[name + "s"] += 1

@@ -381,9 +381,9 @@ def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None,
     kernel writes none).
 
     CPU tensors take :func:`flash_attention_plain` after repeating the kv
-    heads (and :func:`lse_plain`).  CUDA tensors launch the kernel (counted
-    in ``flash_attention_bshd.launches``), at :func:`kernel_width` when the
-    head dims are not one of its own, or raise; nothing falls back.
+    heads (and :func:`lse_plain`).  CUDA tensors launch the kernel, at
+    :func:`kernel_width` when the head dims are not one of its own, or
+    raise; nothing falls back.
     """
     _check(q, k, v, window)
     b, s, h, dk = q.shape
@@ -420,12 +420,8 @@ def flash_attention_bshd(q, k, v, *, causal=True, window=None, softcap=None,
         float(softcap) if softcap is not None else 0.0,
         errors={_ENCODE_FAILED: "cuTensorMapEncodeTiled refused an "
                                 "operand's layout"})
-    flash_attention_bshd.launches += 1
     out = out[..., :dv] if d != dv else out
     return (out, lse) if with_lse else out
-
-
-flash_attention_bshd.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
@@ -435,10 +431,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
     log-sum-exp ``lse`` (``(B, H, S)`` float32).
 
     CPU tensors take :func:`flash_attention_backward_plain`.  CUDA tensors
-    launch the backward kernel (``csrc/flash_attention_bwd.cu``; counted in
-    ``flash_attention_bwd.launches``), float32 only, the operands made
-    contiguous and 16-byte aligned first and padded to :func:`kernel_width`
-    (dq and dk sliced back to Dk, dv to Dv); anything else raises.
+    launch the backward kernel (``csrc/flash_attention_bwd.cu``), float32
+    only, the operands made contiguous and 16-byte aligned first and
+    padded to :func:`kernel_width` (dq and dk sliced back to Dk, dv to
+    Dv); anything else raises.
     """
     _check(q, k, v, window)
     if not _build.on_card("flash_attention backward", q):
@@ -477,13 +473,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, h, kh, d, int(causal), win,
         scale, float(softcap) if softcap is not None else 0.0)
-    flash_attention_bwd.launches += 1
     if d != d_k:
         dq, dk = dq[..., :d_k], dk[..., :d_k]
     return dq, dk, dv[..., :d_v] if d != d_v else dv
-
-
-flash_attention_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,10 @@ interpreter does not (it contracts the update into an FMA).  On CPU
 tensors the wrappers run the plain version once per leaf, on the same
 ``torch.as_strided`` rows the table names, into the same output planes.
 
-The counters of the kernel, whichever entry launched it, are
-``fused_local_update_2d.launches`` and ``fused_local_update_2d.copies``
-(device copies the wrapper had to make first: a leaf whose per-client part
-is not contiguous, or whose dtype differs from ``z_hat``'s).
+Whichever entry launched the kernel, ``_build.COUNTS`` counts its launches
+(``fused_local_updates``) and the device copies the wrapper had to make
+first (``fused_local_update_copies``: a leaf whose per-client part is not
+contiguous, or whose dtype differs from ``z_hat``'s).
 """
 from __future__ import annotations
 
@@ -282,7 +282,6 @@ def _update(plan: LeafPlan, leaves, outs, eta: float, thresh: float):
         raw = pack_table(plan, table, out_ptrs, inputs, eta, thresh)
         _build.launch("fused_local_update", entry, outs[0].device, code, raw,
                       len(raw))
-        fused_local_update_2d.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +315,9 @@ def fused_local_update_2d(z_hat, grads, c, eta: float, thresh: float):
     case of the leaf table (one row of ``numel`` elements).
 
     CPU tensors take :func:`fused_local_update_plain`.  CUDA tensors
-    launch the kernel (counted in ``fused_local_update_2d.launches``) or
-    raise; nothing falls back.  ``eta`` and ``thresh`` are Python floats,
-    passed to the kernel as doubles and rounded there to the compute type.
+    launch the kernel or raise; nothing falls back.  ``eta`` and
+    ``thresh`` are Python floats, passed to the kernel as doubles and
+    rounded there to the compute type.
     """
     _check(z_hat, grads, c)
     if not _build.on_card("fused_local_update", z_hat):
@@ -331,10 +330,6 @@ def fused_local_update_2d(z_hat, grads, c, eta: float, thresh: float):
     outs = (torch.empty_like(z_hat), torch.empty_like(z_hat))
     _update(plan, [((z_hat, 0), (grads, 0), (c, 0))], outs, eta, thresh)
     return outs
-
-
-fused_local_update_2d.launches = 0
-fused_local_update_2d.copies = 0
 
 
 def _contiguous_strides(shape) -> tuple:
@@ -405,7 +400,7 @@ def _rows(t, batch_dims: int, shape):
         outer = (size, stride)
     if ok:
         return t, ld
-    fused_local_update_2d.copies += 1
+    _build.count("fused_local_update_copies")
     return t.contiguous(), (expect if batch_dims else 0)
 
 
@@ -448,7 +443,7 @@ def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
     would give with the 16-byte aligned offsets of :func:`segment_offsets`.
     ``grads`` and ``c`` leaves of another dtype are cast first, and a leaf
     whose per-client part is not contiguous is made so: each such copy is
-    counted in ``fused_local_update_2d.copies``.
+    counted as ``fused_local_update_copies`` in ``_build.COUNTS``.
 
     ``DTensor`` leaves (a placed tree) are updated shard by shard: the
     update is elementwise, so each rank runs it on its local blocks (the
@@ -488,7 +483,7 @@ def fused_local_update(z_hat, grads, c, eta: float, thresh: float, *,
         trio = []
         for t in (z, g, cc):
             if t.dtype != dtype:
-                fused_local_update_2d.copies += 1
+                _build.count("fused_local_update_copies")
                 t = t.to(dtype)
             st = t.stride()
             if batch_dims <= 1 and t.shape == full and st[batch_dims:] == cst:

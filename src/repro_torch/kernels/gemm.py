@@ -16,14 +16,12 @@ float32 accumulator rounding to nearest, which keeps float32's accuracy.
     bits), the three products in float32;
   * :func:`split_gemm` -- ``C[b] = A[b] B[b]`` for ``(Bt, M, K)`` and
     ``(Bt, K, N)`` operands, a batch of 1 shared by all (batch stride 0).
-    CUDA tensors launch the kernel (counted in ``split_gemm.launches``),
-    each operand read in place through its strides (rows or columns
-    contiguous); an operand the kernel cannot read in place (neither axis
-    contiguous, or a stride off a 16-byte multiple) is copied first and
-    counted in ``split_gemm.copies``.  :func:`transposed` picks, from the
-    operands' layouts alone, whether the kernel computes ``C^T = B^T A^T``
-    (counted in ``split_gemm.transposed``).  CPU tensors take the plain
-    version;
+    CUDA tensors launch the kernel, each operand read in place through its
+    strides (rows or columns contiguous); an operand the kernel cannot read
+    in place (neither axis contiguous, or a stride off a 16-byte multiple)
+    is copied first.  :func:`transposed` picks, from the operands' layouts
+    alone, whether the kernel computes ``C^T = B^T A^T``.  CPU tensors
+    take the plain version;
   * :class:`SplitGemm` -- differentiable, for the products that share an
     input: ``apply(a, *bs)``, its backward the same kernel for ``dA =
     sum_i dC_i B_i^T`` and ``dB_i = A^T dC_i`` on transposed views
@@ -110,14 +108,14 @@ def _kernel_strides(t):
 def _in_place(t):
     """``(t, strides)`` for the kernel: ``t`` itself when it can be read in
     place, else a copy with its rows padded to a 16-byte multiple (counted
-    in ``split_gemm.copies``)."""
+    as ``split_gemm_copies`` in ``_build.COUNTS``)."""
     st = _kernel_strides(t)
     if st is not None:
         return t, st
     nb, nr, nc = t.shape
     buf = t.new_zeros((nb, nr, -(-nc // 4) * 4))[..., :nc]
     buf.copy_(t)
-    split_gemm.copies += 1
+    _build.count("split_gemm_copies")
     return buf, _kernel_strides(buf)
 
 
@@ -166,14 +164,9 @@ def split_gemm(a, b):
         m * n, n, _sm_count(a.device.index), int(trans),
         errors={_ENCODE_FAILED: "cuTensorMapEncodeTiled refused an "
                                 "operand's layout"})
-    split_gemm.launches += 1
-    split_gemm.transposed += trans
+    if trans:
+        _build.count("split_gemms_transposed")
     return c
-
-
-split_gemm.launches = 0
-split_gemm.transposed = 0
-split_gemm.copies = 0
 
 
 def _mm(a, b):

@@ -145,9 +145,8 @@ def threshold_select_2d(x, thresh):
     dtype (it is cast to ``x``'s dtype first).
 
     CPU tensors take :func:`threshold_select_plain`.  CUDA tensors launch
-    the kernel (counted in ``threshold_select_2d.launches``) or raise;
-    nothing falls back.  A ``DTensor`` plane runs on each rank's rows
-    (:func:`_row_local`) and comes back placed as it was.
+    the kernel or raise; nothing falls back.  A ``DTensor`` plane runs on
+    each rank's rows (:func:`_row_local`) and comes back placed as it was.
     """
     if _build.is_dtensor(x):
         return _placed_like(threshold_select_2d(
@@ -164,11 +163,7 @@ def threshold_select_2d(x, thresh):
                   _build.load_library().repro_threshold_select, x.device,
                   _DTYPE_CODES[x.dtype], x.data_ptr(), t.data_ptr(),
                   out.data_ptr(), x.shape[0], x.shape[1])
-    threshold_select_2d.launches += 1
     return out
-
-
-threshold_select_2d.launches = 0
 
 
 def quantize_2d(x, u, scale, levels: int):
@@ -178,8 +173,8 @@ def quantize_2d(x, u, scale, levels: int):
     taken as 1).
 
     CPU tensors take :func:`quantize_plain`.  CUDA tensors launch the
-    kernel (counted in ``quantize_2d.launches``) or raise; nothing falls
-    back.  A ``DTensor`` plane runs on each rank's rows.
+    kernel or raise; nothing falls back.  A ``DTensor`` plane runs on each
+    rank's rows.
     """
     if _build.is_dtensor(x):
         xl, ul, sl = _row_local("quantize", x, u, scale)
@@ -203,11 +198,7 @@ def quantize_2d(x, u, scale, levels: int):
                   _DTYPE_CODES[x.dtype], x.data_ptr(), u.data_ptr(),
                   s.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
                   levels)
-    quantize_2d.launches += 1
     return out
-
-
-quantize_2d.launches = 0
 
 
 def weighted_commit_2d(x, w, *, loads: bool = False):
@@ -218,9 +209,9 @@ def weighted_commit_2d(x, w, *, loads: bool = False):
     columns must be contiguous.
 
     CPU tensors take :func:`weighted_commit_plain`.  CUDA tensors launch
-    the kernel (counted in ``weighted_commit_2d.launches``) or raise;
-    nothing falls back.  float32 and float64 weights go to the kernel as
-    they are; other weight dtypes are widened to float32 first (exact).
+    the kernel or raise; nothing falls back.  float32 and float64 weights
+    go to the kernel as they are; other weight dtypes are widened to
+    float32 first (exact).
     ``loads=True`` reads an aligned plane with plain loads instead of the
     bulk-copy ring (``repro_weighted_commit_loads``): the same bits, a
     measured alternative that no path of the port takes.
@@ -260,8 +251,4 @@ def weighted_commit_2d(x, w, *, loads: bool = False):
     _build.launch("weighted_commit", entry, x.device, _DTYPE_CODES[x.dtype],
                   _WEIGHT_CODES[w.dtype], x.data_ptr(), w.data_ptr(),
                   out.data_ptr(), x.shape[0], x.shape[1], x.stride(0))
-    weighted_commit_2d.launches += 1
     return out
-
-
-weighted_commit_2d.launches = 0

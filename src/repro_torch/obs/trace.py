@@ -37,8 +37,9 @@ Design constraints, in order:
   * **per-chunk counters** -- :meth:`Tracer.counters` reads the host syncs
     (counted under ``torch.cuda.set_sync_debug_mode("warn")``, whose
     warnings are counted and never shown; the mode is restored on
-    :func:`uninstall`) and the caching allocator's ``cudaMalloc`` +
-    ``cudaFree`` calls and retries.
+    :func:`uninstall`), the caching allocator's ``cudaMalloc`` +
+    ``cudaFree`` calls and retries, and the kernels' registry of launches
+    and events (``kernels/_build.COUNTS``: ``split_gemms`` ...).
 
 Usage::
 
@@ -70,6 +71,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import _build
 
 __all__ = ["now", "Tracer", "NullTracer", "NULL_TRACER", "CudaEvents",
            "install", "uninstall", "get", "latest", "paused", "span",
@@ -377,8 +380,9 @@ class Tracer:
         initialised device): ``syncs``, the host synchronisations since the
         first call; ``mallocs``, the caching allocator's ``cudaMalloc`` +
         ``cudaFree`` calls; ``alloc_retries``, its retries after a failed
-        allocation.  :func:`counter_deltas` of two readings gives what
-        happened between them."""
+        allocation; and every count of ``kernels/_build.COUNTS``.
+        :func:`counter_deltas` of two readings gives what happened between
+        them."""
         if not self.events.ready():
             return None
         if self._syncs is None:
@@ -389,6 +393,7 @@ class Tracer:
             out["mallocs"] = st["num_device_alloc"] + st["num_device_free"]
         if "num_alloc_retries" in st:
             out["alloc_retries"] = st["num_alloc_retries"]
+        out.update(_build.COUNTS)
         return out
 
     def _stop_counters(self) -> None:

@@ -45,7 +45,7 @@ from repro_torch.exec import (ArraySupplier, EngineConfig, RoundEngine,
                               server_state_fields)
 from repro_torch.fed import problems
 from repro_torch.fed import simulator as tsim
-from repro_torch.kernels import plane_ops
+from repro_torch.kernels import _build
 from repro_torch.models import logreg
 from repro_torch.utils import tree as tu
 
@@ -506,11 +506,11 @@ def test_config_checks_and_stage_stack():
 
 def test_cpu_rounds_launch_no_kernel():
     data, reg, grad_fn, params0 = _problem()
-    before = (plane_ops.threshold_select_2d.launches,
-              plane_ops.quantize_2d.launches)
+    before = (_build.COUNTS["threshold_selects"],
+              _build.COUNTS["quantizes"])
     for tr in (comm.TopK(0.3, granularity="global"),
                comm.Quantize(8, granularity="global")):
         _run(_engine(_dprox(reg), grad_fn, 6, plane=True, transport=tr),
              params0, _sup(data, 1), 2)
-    assert (plane_ops.threshold_select_2d.launches,
-            plane_ops.quantize_2d.launches) == before
+    assert (_build.COUNTS["threshold_selects"],
+            _build.COUNTS["quantizes"]) == before

@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
 
 B, S, H, KH, D = 2, 64, 4, 2, 32
 TOL = 1e-5
@@ -137,12 +137,12 @@ def test_vmap_of_grad_through_the_functions_equals_a_client_loop(mask):
          "v": rng.normal(size=(n, B, S, KH, D)),
          "w": rng.normal(size=(n, B, S, H, D))}
     p = {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()}
-    before = (fa.flash_attention_bshd.launches,
-              fa.flash_attention_bwd.launches)
+    before = (_build.COUNTS["flash_attentions"],
+              _build.COUNTS["flash_attention_bwds"])
     grads, loss = torch.func.vmap(torch.func.grad_and_value(
         lambda p: _client_loss(p, kw)))(p)
-    assert (fa.flash_attention_bshd.launches,
-            fa.flash_attention_bwd.launches) == before
+    assert (_build.COUNTS["flash_attentions"],
+            _build.COUNTS["flash_attention_bwds"]) == before
     for i in range(n):
         pi = {k: v[i].clone().requires_grad_() for k, v in p.items()}
         li = _client_loss(pi, kw)
@@ -187,10 +187,10 @@ def test_low_precision_under_autograd_raises_and_serving_does_not():
 def test_backward_wrapper_cpu_is_plain_and_other_devices_raise():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(6))
     out, lse = fa.flash_attention_bshd(q, k, v, with_lse=True)
-    before = fa.flash_attention_bwd.launches
+    before = _build.COUNTS["flash_attention_bwds"]
     got = fa.flash_attention_bwd(q, k, v, out, do, lse)
     exp = fa.flash_attention_backward_plain(q, k, v, out, do, lse)
-    assert fa.flash_attention_bwd.launches == before
+    assert _build.COUNTS["flash_attention_bwds"] == before
     for g, e in zip(got, exp):
         torch.testing.assert_close(g, e, rtol=0, atol=0)
     m = q.to("meta")
@@ -261,8 +261,6 @@ class _FakeLibrary:
 def fake_card(monkeypatch):
     """CPU tensors take the card's path into a fake library (the launch
     goes through ``_build.launch`` on a fake stream 7)."""
-    from repro_torch.kernels import _build
-
     def install(lib):
         monkeypatch.setattr(_build, "on_card", lambda name, t: True)
         monkeypatch.setattr(_build, "load_library", lambda: lib)
@@ -279,11 +277,11 @@ def test_forward_launch_marshals_the_entry_and_the_lse(fake_card):
     stream: 28 arguments, as ``_build.load_library`` declares them."""
     lib = fake_card(_FakeLibrary())
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(7, d=64))
-    before = fa.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     fa.flash_attention_bshd(q, k, v, window=9, softcap=5.0)
     out, lse = fa.flash_attention_bshd(q, k, v, causal=False, window=9,
                                        with_lse=True)
-    assert fa.flash_attention_bshd.launches == before + 2
+    assert _build.COUNTS["flash_attentions"] == before + 2
     (_, *a), (_, *b) = lib.calls
     assert len(a) == len(b) == 28
     assert a[0] == 0 and a[5] is None and b[5] == lse.data_ptr()
@@ -297,10 +295,10 @@ def test_backward_launch_marshals_the_entry(fake_card):
     lib = fake_card(_FakeLibrary())
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(8, d=64))
     lse = torch.zeros(B, H, S)
-    before = fa.flash_attention_bwd.launches
+    before = _build.COUNTS["flash_attention_bwds"]
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, q, do, lse, window=9,
                                         softcap=5.0)
-    assert fa.flash_attention_bwd.launches == before + 1
+    assert _build.COUNTS["flash_attention_bwds"] == before + 1
     (_, *a), = lib.calls
     assert len(a) == 20
     assert a[:6] == [t.data_ptr() for t in (q, k, v, q, do, lse)]
@@ -332,16 +330,16 @@ def test_refused_forward_launch_raises_and_is_not_counted(fake_card, rc,
                                                           match):
     fake_card(_FakeLibrary(rc))
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(9, d=64))
-    before = (fa.flash_attention_bshd.launches,
-              fa.flash_attention_bwd.launches)
+    before = (_build.COUNTS["flash_attentions"],
+              _build.COUNTS["flash_attention_bwds"])
     with pytest.raises(RuntimeError, match=match):
         fa.flash_attention_bshd(q, k, v)
     if rc == 700:
         with pytest.raises(RuntimeError, match="flash_attention_bwd kernel "
                            "launch failed: cudaError 700"):
             fa.flash_attention_bwd(q, k, v, q, do, torch.zeros(B, H, S))
-    assert (fa.flash_attention_bshd.launches,
-            fa.flash_attention_bwd.launches) == before
+    assert (_build.COUNTS["flash_attentions"],
+            _build.COUNTS["flash_attention_bwds"]) == before
 
 
 @pytest.mark.parametrize("how", ["backward_of_vmap", "grad_of_vmap"])

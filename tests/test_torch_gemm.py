@@ -7,6 +7,8 @@ the kernel reads in place, the autograd Function's backward and vmap rule
 against ``torch.einsum``, and the routing helper, which on CPU tensors must
 give the expressions it replaced bitwise.
 """
+from collections import Counter
+
 import pytest
 import torch
 
@@ -130,25 +132,26 @@ def test_transposed_is_a_pure_rule_of_the_layouts(a_k, b_k, trans):
 
 def test_the_launch_takes_the_layouts_variant_and_counts_it(monkeypatch):
     """A fake card: each launch hands the kernel the variant
-    :func:`gemm.transposed` picks (the argument before the stream) and
-    counts the transposed ones beside all of them."""
+    :func:`gemm.transposed` picks (the argument before the stream), and
+    ``_build.launch`` counts the launches with the transposed ones beside
+    them."""
     seen = []
+    lib = type("Lib", (), {"repro_split_gemm": staticmethod(
+        lambda *args: seen.append(args) or 0)})
     monkeypatch.setattr(_build, "on_card", lambda name, t: True)
-    monkeypatch.setattr(_build, "load_library",
-                        lambda: type("Lib", (), {"repro_split_gemm": None}))
-    monkeypatch.setattr(_build, "launch",
-                        lambda name, entry, device, *args, errors=None:
-                        seen.append(args))
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_handle", lambda index: 7)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(gemm, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(gemm.split_gemm, "launches", 0)
-    monkeypatch.setattr(gemm.split_gemm, "transposed", 0)
+    before = _build.COUNTS.copy()
     x, w = torch.zeros(4, 320, 64), torch.zeros(64, 2048)
     for a, b in ((x, w[None]), (x, w.t().contiguous().t()[None]),
                  (x.mT.contiguous().mT, w[None]), (x, w[None])):
         gemm.split_gemm(a, b)
     # x W, x E^T (B K-major), an M-major A times W, x W
-    assert [args[-1] for args in seen] == [1, 0, 0, 1]
-    assert gemm.split_gemm.launches == 4 and gemm.split_gemm.transposed == 2
+    assert [args[-2:] for args in seen] == [(1, 7), (0, 7), (0, 7), (1, 7)]
+    assert _build.COUNTS - before == Counter(split_gemms=4,
+                                             split_gemms_transposed=2)
 
 
 # -- the autograd Function -----------------------------------------------------------

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch import comm
 from repro_torch.core import plane as pln
-from repro_torch.kernels import flash_attention, fused_prox, ops, plane_ops
+from repro_torch.kernels import (_build, flash_attention, fused_prox, ops,
+                                 plane_ops)
 
 ETA, THRESH = 0.37, 0.21
 _INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -38,11 +39,11 @@ def test_kernel_matches_plain_bitwise_on_card(cuda, dtype, shape):
     zh, g, c = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
                 for _ in range(3))
     zh[0, :4] = torch.tensor([float("nan"), -0.0, float("inf"), THRESH])
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     k_zh, k_z = fused_prox.fused_local_update_2d(zh, g, c, ETA, THRESH)
     p_zh, p_z = fused_prox.fused_local_update_plain(zh, g, c, ETA, THRESH)
     torch.cuda.synchronize()
-    assert fused_prox.fused_local_update_2d.launches == before + 1
+    assert _build.COUNTS["fused_local_updates"] == before + 1
     assert _bits_equal(k_zh, p_zh) and _bits_equal(k_z, p_z)
 
 
@@ -71,10 +72,10 @@ def test_tree_update_is_one_launch_for_all_clients(cuda):
     mk = lambda: {"w": torch.randn(n, d, device=cuda, dtype=torch.float64),
                   "b": torch.randn(n, device=cuda, dtype=torch.float64)}
     zh, g, c = mk(), mk(), mk()
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     got_zh, got_z = ops.fused_local_update(zh, g, c, ETA, THRESH,
                                            batch_dims=1)
-    assert fused_prox.fused_local_update_2d.launches == before + 1
+    assert _build.COUNTS["fused_local_updates"] == before + 1
     cpu = lambda t: {k: v.cpu() for k, v in t.items()}
     e_zh, e_z = ops.fused_local_update(cpu(zh), cpu(g), cpu(c), ETA, THRESH,
                                        batch_dims=1)
@@ -111,8 +112,8 @@ def test_plane_kernels_match_plain_bitwise_on_card(cuda, dtype, shape):
                             dim=1).to(dtype)
     if shape[1] > k:
         x[:, k] = thresh  # |x| == thresh is kept
-    before = (plane_ops.threshold_select_2d.launches,
-              plane_ops.quantize_2d.launches)
+    before = (_build.COUNTS["threshold_selects"],
+              _build.COUNTS["quantizes"])
     got = plane_ops.threshold_select_2d(x, thresh)
     exp = plane_ops.threshold_select_plain(x, thresh)
     scale = torch.amax(torch.abs(x), dim=1)
@@ -120,8 +121,8 @@ def test_plane_kernels_match_plain_bitwise_on_card(cuda, dtype, shape):
     q = plane_ops.quantize_2d(x, u, scale, 255)
     q_exp = plane_ops.quantize_plain(x, u, scale, 255)
     torch.cuda.synchronize()
-    assert (plane_ops.threshold_select_2d.launches,
-            plane_ops.quantize_2d.launches) == (before[0] + 1, before[1] + 1)
+    assert (_build.COUNTS["threshold_selects"],
+            _build.COUNTS["quantizes"]) == (before[0] + 1, before[1] + 1)
     assert _bits_equal(got, exp) and _bits_equal(q, q_exp)
 
 
@@ -166,14 +167,13 @@ def test_one_launch_per_global_compress_call(cuda, name):
     pt = comm.PlaneTransport(tr, spec)
     flat = pln.flatten(spec, msg)
     state = pt.init_state(flat)
-    counter = (plane_ops.threshold_select_2d if name == "topk"
-               else plane_ops.quantize_2d)
-    before = counter.launches
+    key = "threshold_selects" if name == "topk" else "quantizes"
+    before = _build.COUNTS[key]
     hat, new_state = pt.compress(state, flat, comm.GeneratorDraws(0))
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert _build.COUNTS[key] == before + 1
     hat_cpu, _ = pt.compress(state.cpu(), flat.cpu(), comm.GeneratorDraws(0))
-    assert counter.launches == before + 1
+    assert _build.COUNTS[key] == before + 1
     assert torch.equal(hat.cpu(), hat_cpu)
     assert torch.equal(new_state.cpu(), flat.cpu() - hat_cpu)
 
@@ -189,11 +189,11 @@ def test_weighted_commit_matches_plain_bitwise_on_card(cuda, dtype, shape):
     x[0, :k] = torch.tensor(_SPECIALS[:k], dtype=dtype)
     w = torch.rand(shape[0], device=cuda, dtype=torch.float64) + 0.5
     w[::3] = 0.0  # undelivered clients
-    before = plane_ops.weighted_commit_2d.launches
+    before = _build.COUNTS["weighted_commits"]
     got = plane_ops.weighted_commit_2d(x, w)
     exp = plane_ops.weighted_commit_plain(x, w)
     torch.cuda.synchronize()
-    assert plane_ops.weighted_commit_2d.launches == before + 1
+    assert _build.COUNTS["weighted_commits"] == before + 1
     assert got.shape == (shape[1],) and got.dtype == dtype
     assert _bits_equal(got, exp)
 
@@ -241,9 +241,9 @@ def test_plane_async_commit_launches_the_commit_kernel(cuda):
             device=dev, clock_draws=comm.GeneratorDraws(1, "cpu"))
         st = eng.init({"w": torch.zeros(10, dtype=torch.float64),
                        "b": torch.zeros((), dtype=torch.float64)})
-        before = plane_ops.weighted_commit_2d.launches
+        before = _build.COUNTS["weighted_commits"]
         st, m = eng.run(st, lambda r, g: {"a": a, "y": y}, 5)
-        out[dev] = (st, m, plane_ops.weighted_commit_2d.launches - before)
+        out[dev] = (st, m, _build.COUNTS["weighted_commits"] - before)
     assert out["cuda"][2] == 5 and out["cpu"][2] == 0
     assert out["cuda"][1]["staleness_mean"] == out["cpu"][1]["staleness_mean"]
     assert torch.allclose(out["cuda"][0].x_bar["w"].cpu(),
@@ -274,10 +274,10 @@ def test_commit_weight_dtypes_and_ring_on_card(cuda, w_dtype, dtype, shape,
     w = (torch.rand(shape[0], generator=gen, device=cuda,
                     dtype=torch.float64) / 3 + 0.5).to(w_dtype)
     w[::4] = 0.0
-    before = plane_ops.weighted_commit_2d.launches
+    before = _build.COUNTS["weighted_commits"]
     got = plane_ops.weighted_commit_2d(x, w, loads=loads)
     torch.cuda.synchronize()
-    assert plane_ops.weighted_commit_2d.launches == before + 1
+    assert _build.COUNTS["weighted_commits"] == before + 1
     assert _bits_equal(got, plane_ops.weighted_commit_plain(x, w))
 
 
@@ -317,14 +317,14 @@ def _tree_plain(zh, g, c):
 
 
 def _one_launch_equals_plain(zh, g, c):
-    before = (fused_prox.fused_local_update_2d.launches,
-              fused_prox.fused_local_update_2d.copies)
+    before = (_build.COUNTS["fused_local_updates"],
+              _build.COUNTS["fused_local_update_copies"])
     got = ops.fused_local_update(zh, g, c, ETA, THRESH, batch_dims=1)
     exp = _tree_plain(zh, g, c)
     torch.cuda.synchronize()
-    assert (fused_prox.fused_local_update_2d.launches,
-            fused_prox.fused_local_update_2d.copies) == (before[0] + 1,
-                                                         before[1])
+    assert (_build.COUNTS["fused_local_updates"],
+            _build.COUNTS["fused_local_update_copies"]) == (before[0] + 1,
+                                                            before[1])
     for a, b in zip(got, exp):
         for k in b:
             assert _bits_equal(a[k], b[k]), k
@@ -404,11 +404,11 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, d, s, h, kh, causal,
                                             window, softcap):
     q, k, v = _flash_inputs(cuda, 2, s, h, kh, d, dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = flash_attention.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     got = flash_attention.flash_attention_bshd(q, k, v, **kw)
     exp = _flash_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert _build.COUNTS["flash_attentions"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - exp.float()).abs().max())
     assert err <= _FLASH_TOL[dtype], err
@@ -519,10 +519,10 @@ def test_flash_kernel_tiling_on_card(cuda, s, d, group, kh, causal, window,
     kw = dict(causal=causal, window=window, softcap=softcap)
     q, k, v = _flash_views(cuda, b, s, h, kh, d, dtype, 0.5, 0.5, seed=s)
     assert not q.is_contiguous() and not k.is_contiguous()
-    before = flash_attention.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     got = flash_attention.flash_attention_bshd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert _build.COUNTS["flash_attentions"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - _flash_plain(q, k, v, **kw).float())
                 .abs().max())
@@ -617,11 +617,11 @@ def test_serving_on_card_launches_the_kernel_per_layer(cuda):
     params = T.init_model(torch.Generator().manual_seed(0), cfg)
     params_cuda = tu.tree_map(lambda x: x.to(cuda), params)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 80))
-    before = flash_attention.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     lg, _, _ = T.prefill(params_cuda, cfg,
                          {"tokens": torch.as_tensor(toks, device=cuda)},
                          max_len=96)
-    assert flash_attention.flash_attention_bshd.launches == before + 2
+    assert _build.COUNTS["flash_attentions"] == before + 2
     exp, _, _ = T.prefill(params, cfg, {"tokens": torch.as_tensor(toks)},
                           max_len=96)
     tol = 1e-4 * float(exp.abs().max())
@@ -825,18 +825,18 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda, d, s, h, kh,
     q, k, v = (torch.randn((2, s, n, d), generator=gen, device=cuda) * f
                for n, f in ((h, 2.0), (kh, 2.0), (kh, 1.0)))
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = flash_attention.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     out, lse = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
                                                     **kw)
-    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert _build.COUNTS["flash_attentions"] == before + 1
     f64 = [t.double() for t in (q, k, v)]
     assert float((lse.double() - flash_attention.lse_plain(*f64[:2], **kw))
                  .abs().max()) <= 1e-4
     do = torch.randn(out.shape, generator=gen, device=cuda)
-    before = flash_attention.flash_attention_bwd.launches
+    before = _build.COUNTS["flash_attention_bwds"]
     got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention_bwd.launches == before + 1
+    assert _build.COUNTS["flash_attention_bwds"] == before + 1
     exp = flash_attention.flash_attention_backward_plain(
         *f64, out.double(), do.double(), **kw)
     if window == 1:
@@ -955,11 +955,11 @@ def test_vmap_of_grad_folds_clients_into_one_launch_on_card(cuda):
                                       softcap=5.0)
         return torch.sum(out * out)
 
-    before = (flash_attention.flash_attention_bshd.launches,
-              flash_attention.flash_attention_bwd.launches)
+    before = (_build.COUNTS["flash_attentions"],
+              _build.COUNTS["flash_attention_bwds"])
     grads, loss = torch.func.vmap(torch.func.grad_and_value(f))(p)
-    assert (flash_attention.flash_attention_bshd.launches,
-            flash_attention.flash_attention_bwd.launches) == (
+    assert (_build.COUNTS["flash_attentions"],
+            _build.COUNTS["flash_attention_bwds"]) == (
                 before[0] + 1, before[1] + 1)
     for i in range(3):
         pi = {k: v[i].clone().requires_grad_() for k, v in p.items()}
@@ -994,17 +994,17 @@ def test_lm_rounds_on_card_match_the_cpu(cuda):
         args = TR.parser().parse_args(["--device", device, "--clients", "2",
                                        "--tau", "2", "--rounds", "2"])
         run = TR.build(args, cfg=cfg, params=params)
-        counts = (flash_attention.flash_attention_bshd.launches,
-                  flash_attention.flash_attention_bwd.launches,
-                  fused_prox.fused_local_update_2d.launches,
-                  fused_prox.fused_local_update_2d.copies)
+        counts = (_build.COUNTS["flash_attentions"],
+                  _build.COUNTS["flash_attention_bwds"],
+                  _build.COUNTS["fused_local_updates"],
+                  _build.COUNTS["fused_local_update_copies"])
         state, m = run.engine.run(run.state, run.supplier, 2,
                                   rng=np.random.default_rng(0))
         torch.cuda.synchronize()
-        after = (flash_attention.flash_attention_bshd.launches,
-                 flash_attention.flash_attention_bwd.launches,
-                 fused_prox.fused_local_update_2d.launches,
-                 fused_prox.fused_local_update_2d.copies)
+        after = (_build.COUNTS["flash_attentions"],
+                 _build.COUNTS["flash_attention_bwds"],
+                 _build.COUNTS["fused_local_updates"],
+                 _build.COUNTS["fused_local_update_copies"])
         moved = tuple(a - b for a, b in zip(after, counts))
         assert moved == ((8, 8, 4, 0) if device == "cuda" else (0, 0, 0, 0))
         res[device] = (m["train_loss"], tu.tree_leaves(state.x_bar))
@@ -1044,10 +1044,10 @@ def test_flash_kernel_at_new_head_dims_matches_plain_on_card(
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _new_dim_inputs(cuda, s, h, kh, dk, dv, dtype, 0.5, s + dk)
     kw = dict(causal=causal)
-    before = flash_attention.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     got = flash_attention.flash_attention_bshd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention_bshd.launches == before + 1
+    assert _build.COUNTS["flash_attentions"] == before + 1
     assert got.dtype == dtype and got.shape == (2, s, h, dv)
     exp = _flash_plain(q, k, v, **kw)
     assert float((got.float() - exp.float()).abs().max()) <= _FLASH_TOL[dtype]
@@ -1075,8 +1075,8 @@ def test_flash_f32_kernels_at_new_head_dims_on_card(cuda, dk, dv, h, kh,
     q, k, v = (torch.randn((2, 200, n, d), generator=gen, device=cuda) * f
                for n, d, f in ((h, dk, 2.0), (kh, dk, 2.0), (kh, dv, 1.0)))
     kw = dict(causal=causal, window=window, softcap=30.0)
-    before = (flash_attention.flash_attention_bshd.launches,
-              flash_attention.flash_attention_bwd.launches)
+    before = (_build.COUNTS["flash_attentions"],
+              _build.COUNTS["flash_attention_bwds"])
     out, lse = flash_attention.flash_attention_bshd(q, k, v, with_lse=True,
                                                     **kw)
     f64 = [t.double() for t in (q, k, v)]
@@ -1088,8 +1088,8 @@ def test_flash_f32_kernels_at_new_head_dims_on_card(cuda, dk, dv, h, kh,
     do = torch.randn(out.shape, generator=gen, device=cuda)
     got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
-    assert (flash_attention.flash_attention_bshd.launches,
-            flash_attention.flash_attention_bwd.launches) == (
+    assert (_build.COUNTS["flash_attentions"],
+            _build.COUNTS["flash_attention_bwds"]) == (
         before[0] + 1, before[1] + 1)
     assert [tuple(g.shape) for g in got] == [tuple(t.shape) for t in
                                              (q, k, v)]
@@ -1143,16 +1143,16 @@ def test_zoo_smoke_models_on_card_match_the_cpu(cuda, arch):
     for device in ("cuda", "cpu"):
         p = tu.tree_map(lambda x: x.to(device), params)
         b = tu.tree_map(lambda x: x.to(device), batch)
-        before = flash_attention.flash_attention_bshd.launches
+        before = _build.COUNTS["flash_attentions"]
         with full_fp32():
             logits, _, _ = T.prefill(p, cfg, b)
-        moved = flash_attention.flash_attention_bshd.launches - before
+        moved = _build.COUNTS["flash_attentions"] - before
         assert moved == (n_attn if device == "cuda" else 0)
         two = tu.tree_map(lambda x: torch.stack([x, x.flip(0)]), b)
-        before = flash_attention.flash_attention_bwd.launches
+        before = _build.COUNTS["flash_attention_bwds"]
         loss, _ = torch.func.vmap(T.make_grad_fn(cfg), in_dims=(None, 0))(
             p, two)
-        moved = flash_attention.flash_attention_bwd.launches - before
+        moved = _build.COUNTS["flash_attention_bwds"] - before
         assert moved == (n_attn if device == "cuda" else 0)
         out[device] = (logits.float().cpu(), loss.cpu())
     tol = 1e-4 * float(out["cpu"][0].abs().max())

@@ -164,7 +164,7 @@ def test_serving_and_attention_need_a_gpu_or_the_cpu(no_gpu):
     passed; flash attention runs its kernel on CUDA tensors, its plain
     version on CPU tensors (no launch) and refuses other devices."""
     from repro_torch.configs import registry
-    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServingEngine
 
@@ -177,9 +177,9 @@ def test_serving_and_attention_need_a_gpu_or_the_cpu(no_gpu):
     assert eng.generate(np.zeros((1, 4), np.int32),
                         max_new_tokens=2).tokens.shape == (1, 2)
     q = torch.zeros(1, 8, 4, 64)
-    before = flash_attention.flash_attention_bshd.launches
+    before = _build.COUNTS["flash_attentions"]
     assert ops.gqa_flash_attention(q, q, q).shape == q.shape
-    assert flash_attention.flash_attention_bshd.launches == before
+    assert _build.COUNTS["flash_attentions"] == before
     m = q.to("meta")
     with pytest.raises(ValueError, match="no flash_attention kernel"):
         ops.gqa_flash_attention(m, m, m)

@@ -33,6 +33,9 @@ Tolerances:
     x_i|`` per column, and float64 to the same bound, since the Pallas
     kernel rounds a float64 plane to float32 first.
 """
+import os
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -185,17 +188,61 @@ def test_wrapper_raises_on_a_device_without_kernel():
     """Only CPU tensors take the plain version; any other device launches
     the kernel or raises -- it never falls back."""
     m = torch.empty(4, 8, device="meta")
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     with pytest.raises(ValueError, match="no fused_local_update kernel"):
         fused_prox.fused_local_update_2d(m, m, m, ETA, THRESH)
-    assert fused_prox.fused_local_update_2d.launches == before
+    assert _build.COUNTS["fused_local_updates"] == before
 
 
 def test_cpu_calls_do_not_count_as_launches():
     a = torch.ones(2, 3)
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     fused_prox.fused_local_update_2d(a, a, a, ETA, THRESH)
-    assert fused_prox.fused_local_update_2d.launches == before
+    assert _build.COUNTS["fused_local_updates"] == before
+
+
+def test_the_launch_registry_counts_each_entrys_accepted_launches(
+        monkeypatch):
+    """``_build.launch`` counts a faked library entry's launch under its
+    kernel's plural when the entry accepts it and not when it refuses it
+    (a nonzero code); every kernel's key (one a ``repro_<name>`` entry of
+    the sources) and every event reads 0 before any launch, and a name or
+    an event the registry does not list raises."""
+    import subprocess
+    import sys
+
+    monkeypatch.setattr(_build, "stream_handle", lambda index: 7)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    cpu = torch.device("cpu")
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return args[0]  # the launch code the test asks for
+
+    csrc = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name in _build.KERNELS:
+        assert f'extern "C" int repro_{name}(' in csrc, name
+        before = _build.COUNTS.copy()
+        _build.launch(name, entry, cpu, 0, 1.5)
+        assert calls[-1] == (0, 1.5, 7)
+        with pytest.raises(RuntimeError, match=f"{name} kernel launch "
+                           "failed: cudaError 700"):
+            _build.launch(name, entry, cpu, 700)
+        assert _build.COUNTS - before == Counter({name + "s": 1})
+    with pytest.raises(KeyError, match="not a counted kernel"):
+        _build.launch("unlisted", entry, cpu, 0)
+    with pytest.raises(KeyError, match="not a counted event"):
+        _build.count("split_gemms")
+    assert len(calls) == 2 * len(_build.KERNELS)
+    fresh = subprocess.run(
+        [sys.executable, "-c", "from repro_torch.kernels import _build; "
+         "print(sorted(_build.COUNTS.items()))"],
+        capture_output=True, text=True, check=True,
+        env={**os.environ, "PYTHONPATH": str(_build.CSRC.parents[2])})
+    assert fresh.stdout.strip() == str(sorted(
+        (k, 0) for k in [n + "s" for n in _build.KERNELS]
+        + list(_build.EVENTS)))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -409,8 +456,8 @@ def test_plane_wrappers_check_their_inputs():
 def test_plane_wrappers_raise_on_a_device_without_kernel():
     m = torch.empty(3, 8, device="meta")
     t = torch.empty(3, device="meta")
-    before = (plane_ops.threshold_select_2d.launches,
-              plane_ops.quantize_2d.launches)
+    before = (_build.COUNTS["threshold_selects"],
+              _build.COUNTS["quantizes"])
     with pytest.raises(ValueError, match="no threshold_select kernel"):
         plane_ops.threshold_select_2d(m, t)
     with pytest.raises(ValueError, match="no quantize kernel"):
@@ -418,8 +465,8 @@ def test_plane_wrappers_raise_on_a_device_without_kernel():
     x = torch.ones(3, 8)
     plane_ops.threshold_select_2d(x, torch.ones(3))
     plane_ops.quantize_2d(x, x * 0.5, torch.ones(3), 255)
-    assert (plane_ops.threshold_select_2d.launches,
-            plane_ops.quantize_2d.launches) == before
+    assert (_build.COUNTS["threshold_selects"],
+            _build.COUNTS["quantizes"]) == before
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +543,7 @@ def test_weighted_commit_wrapper_checks_and_counts():
     with pytest.raises(ValueError, match="no weighted_commit kernel"):
         plane_ops.weighted_commit_2d(torch.empty(3, 8, device="meta"),
                                      torch.empty(3, device="meta"))
-    before = plane_ops.weighted_commit_2d.launches
+    before = _build.COUNTS["weighted_commits"]
     plane_ops.weighted_commit_2d(torch.ones(3, 8), torch.ones(3))
-    assert plane_ops.weighted_commit_2d.launches == before  # CPU: plain
+    assert _build.COUNTS["weighted_commits"] == before  # CPU: plain
     assert "repro_weighted_commit" in (_build.CSRC / "plane_ops.cu").read_text()

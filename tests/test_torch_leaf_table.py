@@ -343,9 +343,9 @@ def test_strided_views_are_read_in_place():
     assert zh["l000"].stride() == (22, 1) and not zh["l000"].is_contiguous()
     c = tu.tree_broadcast_axis0({k: v[3] for k, v in _torch(c1).items()}, 30)
     assert c["l000"].stride() == (0, 1)
-    before = fused_prox.fused_local_update_2d.copies
+    before = _build.COUNTS["fused_local_update_copies"]
     got = ops.fused_local_update(zh, _torch(g), c, ETA, THRESH, batch_dims=1)
-    assert fused_prox.fused_local_update_2d.copies == before
+    assert _build.COUNTS["fused_local_update_copies"] == before
     exp = _flat_reference(zh, _torch(g), c, 1)
     for a, b in zip(got, exp):
         _assert_trees_bitwise(a, b)
@@ -357,9 +357,9 @@ def test_non_contiguous_leaves_are_copied_and_counted():
     g_t = {"l000": g["l000"].transpose(1, 2).contiguous().transpose(1, 2)}
     assert not g_t["l000"][0].is_contiguous()
     c32 = {"l000": c["l000"].float()}
-    before = fused_prox.fused_local_update_2d.copies
+    before = _build.COUNTS["fused_local_update_copies"]
     got = ops.fused_local_update(zh, g_t, c32, ETA, THRESH, batch_dims=1)
-    assert fused_prox.fused_local_update_2d.copies == before + 2
+    assert _build.COUNTS["fused_local_update_copies"] == before + 2
     exp = _flat_reference(zh, g, {"l000": c32["l000"].double()}, 1)
     for a, b in zip(got, exp):
         _assert_trees_bitwise(a, b)
@@ -372,16 +372,16 @@ def test_two_batch_axes_merge_into_client_rows():
     mk = lambda: {"w": torch.from_numpy(rng.normal(size=(3, 4, 5))),
                   "b": torch.from_numpy(rng.normal(size=(3, 4)))}
     zh, g, c = mk(), mk(), mk()
-    before = fused_prox.fused_local_update_2d.copies
+    before = _build.COUNTS["fused_local_update_copies"]
     got = ops.fused_local_update(zh, g, c, ETA, THRESH, batch_dims=2)
-    assert fused_prox.fused_local_update_2d.copies == before
+    assert _build.COUNTS["fused_local_update_copies"] == before
     exp = _flat_reference(zh, g, c, 2)
     for a, b in zip(got, exp):
         _assert_trees_bitwise(a, b)
     g_t = {"w": g["w"].transpose(0, 1).contiguous().transpose(0, 1),
            "b": g["b"]}
     got = ops.fused_local_update(zh, g_t, c, ETA, THRESH, batch_dims=2)
-    assert fused_prox.fused_local_update_2d.copies == before + 1
+    assert _build.COUNTS["fused_local_update_copies"] == before + 1
     for a, b in zip(got, exp):
         _assert_trees_bitwise(a, b)
 
@@ -478,9 +478,9 @@ def test_one_launch_per_call_from_the_packed_table(fake_card, tree):
     lib = fake_card(_FakeLibrary())
     zh, g, c = (_torch(_tree(_TREES[tree], 30, np.float64, seed=s))
                 for s in range(3))
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     got = ops.fused_local_update(zh, g, c, ETA, THRESH, batch_dims=1)
-    assert fused_prox.fused_local_update_2d.launches == before + 1
+    assert _build.COUNTS["fused_local_updates"] == before + 1
     (kind, code, raw, nbytes, stream), = lib.calls
     assert (kind, code, nbytes, stream) == ("fused", 1, len(raw), 7)
     exp = _flat_reference(zh, g, c, 1)
@@ -497,9 +497,9 @@ def test_600_leaves_launch_once_per_table(fake_card, monkeypatch, nbytes,
     monkeypatch.setattr(fused_prox, "_LAYOUTS", {})  # planned anew
     zh, g, c = (_torch(_tree(_MANY, 30, np.float64, seed=s))
                 for s in range(3))
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     got = ops.fused_local_update(zh, g, c, ETA, THRESH, batch_dims=1)
-    assert fused_prox.fused_local_update_2d.launches == before + tables
+    assert _build.COUNTS["fused_local_updates"] == before + tables
     assert len(lib.calls) == tables
     assert all(nbytes_ <= nbytes for *_, nbytes_, _ in lib.calls)
     exp = _flat_reference(zh, g, c, 1)
@@ -543,9 +543,9 @@ def test_plane_entry_is_the_one_leaf_case(fake_card):
     rng = np.random.default_rng(4)
     zh, g, c = (torch.from_numpy(rng.normal(size=(7, 1001)).astype(
         np.float32)) for _ in range(3))
-    before = fused_prox.fused_local_update_2d.launches
+    before = _build.COUNTS["fused_local_updates"]
     got = fused_prox.fused_local_update_2d(zh, g, c, ETA, THRESH)
-    assert fused_prox.fused_local_update_2d.launches == before + 1
+    assert _build.COUNTS["fused_local_updates"] == before + 1
     raw = lib.calls[0][2]
     head = struct.unpack_from(fused_prox.HEADER_FMT, raw, 0)
     assert head[3] == 1 and head[6] == 1  # one row, one leaf
@@ -558,8 +558,8 @@ def test_plane_entry_is_the_one_leaf_case(fake_card):
 def test_refused_launch_raises_and_is_not_counted(fake_card):
     fake_card(_FakeLibrary(rc=700))
     zh = {"w": torch.ones(3, 4, dtype=torch.float64)}
-    before = (fused_prox.fused_local_update_2d.launches,
-              plane_ops.weighted_commit_2d.launches)
+    before = (_build.COUNTS["fused_local_updates"],
+              _build.COUNTS["weighted_commits"])
     with pytest.raises(RuntimeError, match="fused_local_update kernel launch "
                        "failed: cudaError 700"):
         ops.fused_local_update(zh, zh, zh, ETA, THRESH, batch_dims=1)
@@ -567,8 +567,8 @@ def test_refused_launch_raises_and_is_not_counted(fake_card):
                        "failed: cudaError 700"):
         plane_ops.weighted_commit_2d(torch.ones(3, 8, dtype=torch.float64),
                                      torch.ones(3, dtype=torch.float32))
-    assert (fused_prox.fused_local_update_2d.launches,
-            plane_ops.weighted_commit_2d.launches) == before
+    assert (_build.COUNTS["fused_local_updates"],
+            _build.COUNTS["weighted_commits"]) == before
 
 
 # ---------------------------------------------------------------------------
@@ -603,9 +603,9 @@ def test_commit_wrapper_passes_the_weights_as_they_are(fake_card):
     lib = fake_card(_FakeLibrary())
     x = torch.ones(30, 128, dtype=torch.float64)[:, :112]  # strided rows
     w = torch.ones(30, dtype=torch.float32)
-    before = plane_ops.weighted_commit_2d.launches
+    before = _build.COUNTS["weighted_commits"]
     out = plane_ops.weighted_commit_2d(x, w)
-    assert plane_ops.weighted_commit_2d.launches == before + 1
+    assert _build.COUNTS["weighted_commits"] == before + 1
     (_, code, w_code, xp, wp, op, n_rows, n_cols, ld, stream), = lib.calls
     assert (code, w_code, n_rows, n_cols, ld, stream) == (1, 0, 30, 112, 128,
                                                           7)
@@ -614,7 +614,7 @@ def test_commit_wrapper_passes_the_weights_as_they_are(fake_card):
     assert lib.calls[1][2] == 0
     plane_ops.weighted_commit_2d(x, w, loads=True)  # the plain-load entry
     assert lib.calls[2][0] == "commit loads" and lib.calls[2][1:3] == (1, 0)
-    assert plane_ops.weighted_commit_2d.launches == before + 3
+    assert _build.COUNTS["weighted_commits"] == before + 3
     with pytest.raises(ValueError, match="contiguous"):
         plane_ops.weighted_commit_2d(torch.ones(8, 30).t(), w)
 

@@ -18,6 +18,7 @@ import torch
 from repro.obs import metrics as jmetrics
 from repro.obs import report as jreport
 from repro.obs import trace as jtrace
+from repro_torch.kernels import _build
 from repro_torch.obs import metrics, report, trace
 
 
@@ -330,7 +331,8 @@ def test_chunk_counters_count_syncs_and_show_none(recwarn):
     dev.stats["num_device_free"] += 4
     dev.stats["num_alloc_retries"] += 1
     assert trace.counter_deltas(before, tr.counters()) == {
-        "syncs": 3, "mallocs": 4, "alloc_retries": 1}
+        "syncs": 3, "mallocs": 4, "alloc_retries": 1,
+        **dict.fromkeys(_build.COUNTS, 0)}
     assert [str(w.message) for w in recwarn] == ["another warning"]
     assert trace.uninstall() is tr and dev.mode == 0
     assert trace.latest() is tr
@@ -425,9 +427,10 @@ def test_engine_chunks_carry_their_counters_and_device_track(monkeypatch):
     assert trace.validate_chrome(doc) == []
     chunks = [e["args"] for e in doc["traceEvents"]
               if e.get("name") == "exec/chunk"]
+    # and every count of the kernels' registry: none launched on the CPU
     assert chunks == [{"start_round": r, "rounds": 2, "syncs": 1,
-                       "mallocs": 0, "alloc_retries": 0, "split_gemms": 0,
-                       "split_gemms_transposed": 0}
+                       "mallocs": 0, "alloc_retries": 0,
+                       **dict.fromkeys(_build.COUNTS, 0)}
                       for r in (0, 2)]
     device = [e["name"] for e in doc["traceEvents"]
               if e.get("ph") == "X" and e["tid"] == 1]
@@ -441,7 +444,6 @@ def test_engine_chunks_carry_the_transposed_launches(monkeypatch):
     """``exec/chunk``'s args count the chunk's transposed launches beside
     all its launches (``split_gemms_transposed``, ``split_gemms``)."""
     from repro_torch.fed.runtime import RuntimeArgs, _engine, _supplier
-    from repro_torch.kernels import gemm
 
     a = RuntimeArgs(clients=2, m=8, dim=6, tau=2, rounds=6, chunk=3,
                     batch_size=3, device="cpu")
@@ -450,13 +452,11 @@ def test_engine_chunks_carry_the_transposed_launches(monkeypatch):
     round_fn = eng._round
 
     def launching(*args, **kw):  # a round's products: 3, 2 of them C^T
-        gemm.split_gemm.launches += 3
-        gemm.split_gemm.transposed += 2
+        _build.COUNTS["split_gemms"] += 3
+        _build.count("split_gemms_transposed", 2)
         return round_fn(*args, **kw)
 
     monkeypatch.setattr(eng, "_round", launching)
-    monkeypatch.setattr(gemm.split_gemm, "launches", 0)
-    monkeypatch.setattr(gemm.split_gemm, "transposed", 0)
     tr = trace.install("p")
     tr.events = _FakeEvents(_Clock())
     try:
@@ -468,6 +468,40 @@ def test_engine_chunks_carry_the_transposed_launches(monkeypatch):
               if e.get("name") == "exec/chunk"]
     assert [(c["split_gemms"], c["split_gemms_transposed"]) for c in chunks] \
         == [(9, 6), (9, 6)]
+
+
+def test_a_count_made_in_a_round_lands_on_its_chunk(monkeypatch):
+    """An event counted through ``kernels/_build.count`` inside a round
+    shows on that chunk's args, with no engine code naming it; a chunk
+    that launched nothing still carries ``split_gemms``, at 0."""
+    from repro_torch.fed.runtime import RuntimeArgs, _engine, _supplier
+
+    a = RuntimeArgs(clients=2, m=8, dim=6, tau=2, rounds=4, chunk=2,
+                    batch_size=3, device="cpu")
+    eng, _alg, _g, data, params0 = _engine(a, a.clients)
+    sup = _supplier(a, data, 0, a.clients)
+    round_fn = eng._round
+    seen = []
+
+    def copying(*args, **kw):  # the first chunk's rounds copy a leaf each
+        seen.append(1)
+        if len(seen) <= 2:
+            _build.count("fused_local_update_copies")
+        return round_fn(*args, **kw)
+
+    monkeypatch.setattr(eng, "_round", copying)
+    tr = trace.install("p")
+    tr.events = _FakeEvents(_Clock())
+    try:
+        eng.run(eng.init(params0), sup, a.rounds, seed=0)
+    finally:
+        trace.uninstall()
+    doc = trace.to_chrome([tr.export_wire()])
+    chunks = [e["args"] for e in doc["traceEvents"]
+              if e.get("name") == "exec/chunk"]
+    assert [(c["fused_local_update_copies"], c["split_gemms"])
+            for c in chunks] == [(2, 0), (0, 0)]
+    assert all(set(_build.COUNTS) <= set(c) for c in chunks)
 
 
 def test_the_trace_timebase_is_the_references():

@@ -50,7 +50,7 @@ from repro_torch.data.synthetic import (logistic_heterogeneous,
 from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
 from repro_torch.fed import problems
 from repro_torch.fed import simulator as tsim
-from repro_torch.kernels import plane_ops
+from repro_torch.kernels import _build, plane_ops
 from repro_torch.models import logreg
 from repro_torch.sched.aggregator import _earliest_k
 
@@ -434,7 +434,7 @@ def test_quickstart_async_a_matches_reference():
 
 
 def test_quickstart_async_plane_topk_queue_matches_reference():
-    before = plane_ops.weighted_commit_2d.launches
+    before = _build.COUNTS["weighted_commits"]
     jm, tm, jrec, trec, teng = _quickstart_async(True)
     assert len(trec.sent) == len(jrec.sent) == 200
     for r, (got, exp) in enumerate(zip(trec.sent, jrec.sent)):
@@ -442,7 +442,7 @@ def test_quickstart_async_plane_topk_queue_matches_reference():
         np.testing.assert_array_equal(got.numpy() != 0, exp != 0,
                                       err_msg=f"kept set differs, commit {r}")
     assert isinstance(teng._sched_state, sched.QueueState)
-    assert plane_ops.weighted_commit_2d.launches == before  # CPU: no kernel
+    assert _build.COUNTS["weighted_commits"] == before  # CPU: no kernel
 
 
 def test_port_continues_from_the_references_async_state():

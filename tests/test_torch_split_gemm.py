@@ -13,10 +13,12 @@ kernel's error against a float64 product must be at most twice
 ``torch.matmul``'s at ``"highest"`` (float32 on the CUDA cores) on the
 same inputs.
 """
+from collections import Counter
+
 import pytest
 import torch
 
-from repro_torch.kernels import gemm
+from repro_torch.kernels import _build, gemm
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -79,13 +81,13 @@ MAIN_PATH = [
 def test_error_within_twice_cublas_at_the_main_path_shapes(cuda, case, m, k,
                                                            n):
     a, b = _operands(case, m, k, n, cuda, seed=m + k + n)
-    launches, copies = gemm.split_gemm.launches, gemm.split_gemm.copies
-    trans = gemm.split_gemm.transposed
+    before = _build.COUNTS.copy()
     got = gemm.split_gemm(a, b)
-    assert gemm.split_gemm.launches == launches + 1
-    assert gemm.split_gemm.copies == copies  # every operand read in place
-    # x W and the head's dX (A K-major, B an N-major weight) compute C^T
-    assert gemm.split_gemm.transposed == trans + (case in ("fwd", "head_dx"))
+    # one launch, every operand read in place; x W and the head's dX (A
+    # K-major, B an N-major weight) compute C^T
+    assert _build.COUNTS - before == Counter(
+        split_gemms=1,
+        split_gemms_transposed=int(case in ("fwd", "head_dx")))
     exp = torch.matmul(a.double(), b.double())
     err, lib = _rel(got, exp), _rel(_highest(a, b), exp)
     assert err <= 2 * lib, f"split TF32 {err:.3e} vs cuBLAS float32 {lib:.3e}"
@@ -158,12 +160,11 @@ def test_each_variant_and_layout_within_twice_cublas(cuda, a_k, b_k, shared,
     # last axis contiguous first (A then K-major, B N-major)
     sa, sb = gemm._kernel_strides(a), gemm._kernel_strides(b)
     a_km, b_km = sa is None or sa[2] == 1, sb is not None and sb[1] == 1
-    launches, trans = gemm.split_gemm.launches, gemm.split_gemm.transposed
-    copies = gemm.split_gemm.copies
+    before = _build.COUNTS.copy()
     got = gemm.split_gemm(a, b)
-    assert gemm.split_gemm.launches == launches + 1
-    assert gemm.split_gemm.transposed == trans + int(a_km and not b_km)
-    assert gemm.split_gemm.copies == copies + (sa is None) + (sb is None)
+    assert _build.COUNTS - before == Counter(
+        split_gemms=1, split_gemms_transposed=int(a_km and not b_km),
+        split_gemm_copies=(sa is None) + (sb is None))
     assert got.shape == (3, m, n)
     exp = torch.matmul(a.double(), b.double())
     lib = _highest(a, b)
@@ -175,9 +176,9 @@ def test_each_variant_and_layout_within_twice_cublas(cuda, a_k, b_k, shared,
 def test_unaligned_operands_are_copied_and_counted(cuda):
     a = torch.randn(2, 33, 31, device=cuda)  # rows of 124 bytes
     b = torch.randn(2, 31, 17, device=cuda)
-    copies = gemm.split_gemm.copies
+    copies = _build.COUNTS["split_gemm_copies"]
     got = gemm.split_gemm(a, b)
-    assert gemm.split_gemm.copies == copies + 2
+    assert _build.COUNTS["split_gemm_copies"] == copies + 2
     assert _rel(got, torch.matmul(a.double(), b.double())) < 1e-5
 
 
@@ -186,15 +187,15 @@ def test_vmap_over_four_clients_is_one_launch(cuda):
     g = torch.Generator(device=cuda).manual_seed(8)
     x = torch.randn(CLIENTS, 4, 128, 256, generator=g, device=cuda)
     w = torch.randn(CLIENTS, 256, 384, generator=g, device=cuda)
-    before = gemm.split_gemm.launches
+    before = _build.COUNTS["split_gemms"]
     got = torch.func.vmap(lambda x, w: gemm.matmuls(x, w)[0])(x, w)
-    assert gemm.split_gemm.launches == before + 1
+    assert _build.COUNTS["split_gemms"] == before + 1
     exp = torch.einsum("cbsk,ckn->cbsn", x.double(), w.double())
     assert _rel(got, exp) < 1e-6
     # an unmapped weight is shared (batch stride 0), still one launch
     got = torch.func.vmap(lambda x, w: gemm.matmuls(x, w)[0],
                           in_dims=(0, None))(x, w[0])
-    assert gemm.split_gemm.launches == before + 2
+    assert _build.COUNTS["split_gemms"] == before + 2
     assert _rel(got, torch.einsum("cbsk,kn->cbsn", x.double(),
                                   w[0].double())) < 1e-6
 
@@ -213,13 +214,13 @@ def test_grad_through_the_function_matches_the_plain_version(cuda):
         h = torch.tanh(mm(x, w))
         return torch.log_softmax(mm(h[..., :256], e.t()), -1).mean()
 
-    before = gemm.split_gemm.launches
+    before = _build.COUNTS["split_gemms"]
     got = torch.func.vmap(torch.func.grad(
         lambda w, e, x: loss(w, e, x, lambda a, b: gemm.matmuls(a, b)[0]),
         argnums=(0, 1)))(w, e, x)
     # two products, dW of the first (x takes no gradient), dA and dE of
     # the second
-    assert gemm.split_gemm.launches == before + 5
+    assert _build.COUNTS["split_gemms"] == before + 5
     want = torch.func.vmap(torch.func.grad(
         lambda w, e, x: loss(w, e, x, torch.matmul), argnums=(0, 1)))(
             w.double(), e.double(), x.double())
@@ -239,10 +240,10 @@ def test_bf16_logits_and_mlp_stay_on_torch_matmul(cuda):
     # rows enough for the kernel: only the dtype keeps it off
     x = torch.randn(2, L.KERNEL_MIN_ROWS, cfg.d_model, device=cuda,
                     dtype=torch.bfloat16)
-    before = gemm.split_gemm.launches
+    before = _build.COUNTS["split_gemms"]
     logits = T._logits(p, cfg, x)
     y = L.mlp(mp, x)
-    assert gemm.split_gemm.launches == before
+    assert _build.COUNTS["split_gemms"] == before
     xn = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
     assert torch.equal(logits, xn @ p["embed"].t())
     assert torch.equal(y, L.swiglu(x @ mp["w_gate"], x @ mp["w_up"])
@@ -265,11 +266,11 @@ def test_float32_rows_below_one_tile_stay_on_torch_matmul(cuda, seq):
     p = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
     mp = {k: v[0] for k, v in p["stack"]["b0"]["mlp"].items()}
     x = torch.randn(2, seq, cfg.d_model, device=cuda)
-    before = gemm.split_gemm.launches
+    before = _build.COUNTS["split_gemms"]
     logits = T._logits(p, cfg, x)
     y = L.mlp(mp, x)
     routed = 2 * seq >= L.KERNEL_MIN_ROWS
-    assert gemm.split_gemm.launches == before + (4 if routed else 0)
+    assert _build.COUNTS["split_gemms"] == before + (4 if routed else 0)
     xd = {k: v.double() for k, v in mp.items()}
     xn = L.rms_norm(x.double(), p["final_norm"].double(), cfg.norm_eps)
     assert _rel(logits, xn @ p["embed"].double().t()) < 1e-6

@@ -56,7 +56,7 @@ from repro_torch.core.prox import L1
 from repro_torch.data import synthetic
 from repro_torch.exec import ArraySupplier, EngineConfig, RoundEngine
 from repro_torch.fed.simulator import DProxAlgorithm
-from repro_torch.kernels import fused_prox
+from repro_torch.kernels import _build, fused_prox
 from repro_torch.launch import train as TR
 from repro_torch.models import transformer as T
 from repro_torch.utils import tree as tu
@@ -228,17 +228,17 @@ def test_front_end_losses_raise(lms, frontend):
 def test_grads_of_a_client_batch_need_no_copy_before_the_fused_update(lms):
     """``vmap(grad)`` hands kernel 1 gradient leaves whose per-client part
     is contiguous on every ported arch: no copy is made before the fused
-    update (``fused_local_update_2d.copies``)."""
+    update (``fused_local_update_copies`` in ``kernels/_build.COUNTS``)."""
     for arch in ARCHS:
         jcfg, _, cfg, tp = lms[arch]
         _, batch = _both(_np_batch(jcfg, (2, 2, 32)))
         _, grads = torch.func.vmap(T.make_grad_fn(cfg), in_dims=(None, 0))(
             tp, batch)
         z = tu.tree_broadcast_axis0(tp, 2)
-        before = fused_prox.fused_local_update_2d.copies
+        before = _build.COUNTS["fused_local_update_copies"]
         fused_prox.fused_local_update(z, grads, tu.tree_zeros_like(z), 1e-3,
                                       1e-8, batch_dims=1)
-        assert fused_prox.fused_local_update_2d.copies == before, arch
+        assert _build.COUNTS["fused_local_update_copies"] == before, arch
 
 
 # ---------------------------------------------------------------------------
